@@ -1,0 +1,19 @@
+"""pycc_tpu_torch: the PyTorch/CUDA port of pycc_tpu.
+
+RHF (host numpy and the native C++ ERI engine) -> MO Hamiltonian (torch)
+-> CCD / CC2 / CCSD amplitudes on one torch device, with the particle-
+particle ladder through a hand-written CUDA kernel on NVIDIA Hopper.
+Every entry point takes an explicit `device` (default "cpu") and dtype or
+precision; nothing picks a device by itself.  pycc_tpu, beside it, is the
+reference the port is tested against; this package never imports JAX.
+"""
+
+from . import scf
+from .ccwfn import ccwfn
+from .hamiltonian import Hamiltonian, build_hamiltonian
+from .utils.log import set_verbosity
+
+__all__ = ["scf", "ccwfn", "Hamiltonian", "build_hamiltonian",
+           "set_verbosity"]
+
+__version__ = "0.1.0"

@@ -1,0 +1,233 @@
+"""CC T-amplitude solver driver.
+
+The counterpart of pycc_tpu/ccwfn.py for storage='full' and the models
+CCD, CC2 and CCSD: ``ccwfn(scf_wfn, model=..., precision=..., device=...)``
+then ``solve_cc(e_conv, r_conv, maxiter, max_diis, start_diis,
+stall_limit)``.  Each iteration evaluates the residuals, takes a Jacobi
+step from diag(F), pushes the step into the on-device DIIS ring and
+extrapolates, all eagerly on `device`; the host reads one (energy, rms)
+pair per iteration.
+"""
+
+import time
+import warnings
+
+import torch
+
+from .hamiltonian import build_hamiltonian
+from .models import ccsd as eqs
+from .ops.diis import DIIS
+from .utils.device import init_device
+from .utils.log import logger as log
+from .utils.timing import Timers
+
+_RESIDUALS = {
+    "CCD": eqs.residuals_ccd,
+    "CC2": eqs.residuals_cc2,
+    "CCSD": eqs.residuals_ccsd,
+}
+
+_ENERGY = {
+    "CCD": eqs.ccd_energy,
+    "CC2": eqs.cc_energy,
+    "CCSD": eqs.cc_energy,
+}
+
+# what pycc_tpu offers beyond this port, and the ROADMAP.md item that
+# brings it over
+_NOT_PORTED_MODELS = {
+    "CCSD(T)": "Queue 1, item 3 ((T) driver and kernel K2)",
+    "CC3": "Queue 1, item 8 (CC3)",
+}
+_NOT_PORTED_STORAGE = {
+    "blocked": "Queue 1, item 10 (blocked storage and mixed precision)",
+    "df": "Queue 1, item 5 (DF storage)",
+}
+_NOT_PORTED_INIT_KWARGS = {
+    "local": "Queue 1, item 12 (local correlation)",
+    "local_cutoff": "Queue 1, item 12 (local correlation)",
+    "pair_cutoff": "Queue 1, item 12 (local correlation)",
+    "local_mos": "Queue 1, item 12 (local correlation)",
+    "it2_opt": "Queue 1, item 12 (local correlation)",
+    "filter": "Queue 1, item 12 (local correlation)",
+    "mesh": "Queue 1, item 13 (multi-device)",
+    "real_time": "Queue 1, item 11 (real-time CC)",
+    "make_t3_density": "Queue 1, item 6 (post-convergence on full storage)",
+    "t3_scan": "Queue 1, item 3 ((T) driver and kernel K2)",
+    "df_tol": "Queue 1, item 5 (DF storage)",
+    "df_nblocks": "Queue 1, item 5 (DF storage)",
+    "df_direct": "Queue 1, item 5 (DF storage)",
+}
+_NOT_PORTED_SOLVE_KWARGS = {
+    "bf16_until": "Queue 1, item 10 (blocked storage and mixed precision)",
+    "chk": "Queue 1, item 10 (checkpoint/resume)",
+    "chk_every": "Queue 1, item 10 (checkpoint/resume)",
+    "chk_ring": "Queue 1, item 10 (checkpoint/resume)",
+    "resume": "Queue 1, item 10 (checkpoint/resume)",
+}
+
+
+def _not_ported(what, item):
+    return NotImplementedError("%s is not ported yet: ROADMAP.md %s."
+                               % (what, item))
+
+
+def _reject(kwargs, table, where):
+    for name in kwargs:
+        if name not in table:
+            raise TypeError("%s got an unexpected keyword argument %r"
+                            % (where, name))
+        raise _not_ported("%s(%s=...)" % (where, name), table[name])
+
+
+class ccwfn:
+    """An RHF-CC wave function and energy object on one torch device."""
+
+    def __init__(self, scf_wfn, model="CCSD", precision="DP", device="cpu",
+                 storage="full", **kwargs):
+        time_init = time.time()
+        model = model.upper()
+        if model in _NOT_PORTED_MODELS:
+            raise _not_ported("model=%r" % model, _NOT_PORTED_MODELS[model])
+        if model not in _RESIDUALS:
+            raise ValueError("%s is not an allowed CC model." % model)
+        storage = storage.lower()
+        if storage in _NOT_PORTED_STORAGE:
+            raise _not_ported("storage=%r" % storage,
+                              _NOT_PORTED_STORAGE[storage])
+        if storage != "full":
+            raise ValueError("%s is not an allowed storage mode." % storage)
+        precision = precision.upper()
+        if precision not in ("SP", "DP"):
+            raise ValueError("%s is not an allowed precision arithmetic."
+                             % precision)
+        _reject(kwargs, _NOT_PORTED_INIT_KWARGS, "ccwfn")
+
+        self.model = model
+        self.storage = storage
+        self.precision = precision
+        self.device = init_device(device)
+        self.dtype = torch.float64 if precision == "DP" else torch.float32
+        self.timers = Timers()
+
+        self.ref = scf_wfn
+        self.eref = scf_wfn.energy()
+        self.nfzc = scf_wfn.frzcpi()[0]
+        self.no = scf_wfn.doccpi()[0] - self.nfzc
+        self.nmo = scf_wfn.nmo()
+        self.nv = self.nmo - self.no - self.nfzc
+        self.nact = self.no + self.nv
+
+        self.H = build_hamiltonian(scf_wfn, device=self.device,
+                                   dtype=self.dtype)
+        self.o = slice(0, self.no)
+        self.v = slice(self.no, self.nact)
+        o, v = self.o, self.v
+        eps = torch.diagonal(self.H.F)
+        self.Dia = eps[o, None] - eps[None, v]
+        self.Dijab = (eps[o, None, None, None] + eps[None, o, None, None]
+                      - eps[None, None, v, None] - eps[None, None, None, v])
+        self.t1 = torch.zeros((self.no, self.nv), dtype=self.dtype,
+                              device=self.device)
+        self.t2 = self.H.ERI[o, o, v, v] / self.Dijab
+        self._residual_fn = _RESIDUALS[model]
+        self._energy_fn = _ENERGY[model]
+        log.info("CCWFN object initialized in %.3f seconds."
+                 % (time.time() - time_init))
+
+    # ------------------------------------------------------------------
+    def residuals(self, F, t1, t2):
+        """T1/T2 residuals r_mu = <mu|HBAR|0> for the current amplitudes."""
+        H = self.H
+        return self._residual_fn(F, H.ERI, H.L, H.vvvv, t1, t2, self.no)
+
+    def cc_energy(self, t1, t2, F=None):
+        F = self.H.F if F is None else F
+        return self._energy_fn(F, self.H.L, t1, t2, self.no)
+
+    # ------------------------------------------------------------------
+    def solve_cc(self, e_conv=1e-7, r_conv=1e-7, maxiter=100, max_diis=8,
+                 start_diis=1, stall_limit=10, **kwargs):
+        """Iterate the CC amplitude equations to the requested tolerances.
+
+        max_diis=0 turns DIIS off (plain Jacobi).  When the update rms has
+        not improved by 2% for `stall_limit` straight iterations (the
+        working precision's noise floor, common in SP), the solve stops and
+        `self.converged` says whether the energy change met e_conv."""
+        _reject(kwargs, _NOT_PORTED_SOLVE_KWARGS, "solve_cc")
+        tstart = time.time()
+        F = self.H.F
+        use_diis = max_diis > 0
+        diis = DIIS((self.t1, self.t2), max_diis=max(max_diis, 1))
+        state = diis.init() if use_diis else None
+
+        t1, t2 = self.t1, self.t2
+        ecc = float(self.cc_energy(t1, t2))
+        log.info("CC Iter %3d: CC Ecorr = %.15f  dE = % .5E  MP2"
+                 % (0, ecc, -ecc))
+        rms = float("inf")
+        ediff = float("nan")
+        best_rms = float("inf")
+        stalled = 0
+        for niter in range(1, maxiter + 1):
+            with self.timers.time("ccwfn.iteration"):
+                ecc_last = ecc
+                r1, r2 = self.residuals(F, t1, t2)
+                inc1 = r1 / self.Dia
+                inc2 = r2 / self.Dijab
+                t1n = t1 + inc1
+                t2n = t2 + inc2
+                rms_t = torch.sqrt(torch.sum(inc1 * inc1)
+                                   + torch.sum(inc2 * inc2))
+                ecc_t = self.cc_energy(t1n, t2n)
+                if use_diis:
+                    # DIIS error = the Jacobi increment from the amplitudes
+                    # this iteration started from (post-extrapolation)
+                    diis.push(state, (t1n, t2n), (t1, t2))
+                    if niter >= start_diis:
+                        t1, t2 = diis.extrapolate(state, (t1n, t2n))
+                    else:
+                        t1, t2 = t1n, t2n
+                else:
+                    t1, t2 = t1n, t2n
+                # the one host read of the iteration
+                ecc, rms = torch.stack([ecc_t, rms_t]).tolist()
+            self.t1, self.t2 = t1n, t2n
+            self.niter = niter
+            ediff = ecc - ecc_last
+            log.info("CC Iter %3d: CC Ecorr = %.15f  dE = % .5E  rms = % .5E"
+                     % (niter, ecc, ediff, rms))
+            if rms < 0.98 * best_rms:
+                best_rms = rms
+                stalled = 0
+            else:
+                stalled += 1
+                if stall_limit and stalled >= stall_limit and rms >= r_conv:
+                    self.ecc = ecc
+                    self.converged = abs(ediff) < e_conv
+                    log.info("\nCCWFN hit the working-precision noise floor "
+                             "(rms %.3E > r_conv %.1E, no improvement in %d "
+                             "iterations); stopping with dE = %.3E.\n"
+                             % (rms, r_conv, stall_limit, ediff))
+                    self._report(ecc)
+                    return ecc
+            if abs(ediff) < e_conv and rms < r_conv:
+                # converged amplitudes = the pre-extrapolation update
+                self.ecc = ecc
+                self.converged = True
+                log.info("\nCCWFN converged in %.3f seconds.\n"
+                         % (time.time() - tstart))
+                self._report(ecc)
+                return ecc
+        self.t1, self.t2 = t1, t2
+        self.ecc = ecc
+        self.converged = False
+        warnings.warn("CCWFN did NOT converge in %d iterations "
+                      "(dE=%.2e rms=%.2e)" % (maxiter, ediff, rms))
+        return ecc
+
+    def _report(self, ecc):
+        log.info("E(REF)  = %20.15f" % self.eref)
+        log.info("E(%s) = %20.15f" % (self.model, ecc))
+        log.info("E(TOT)  = %20.15f" % (ecc + self.eref))
+        self.timers.report()

@@ -1,0 +1,108 @@
+"""MO-basis normal-ordered Hamiltonian as a dataclass of torch tensors.
+
+Fock matrix F, Dirac-notation ERI <pq|rs>, spin-adapted L = 2<pq|rs> -
+<pq|sr>, and one-electron property integrals (electric dipole mu, magnetic
+dipole m, linear momentum p, traceless quadrupole Q) over the active MO
+space.  The counterpart of pycc_tpu/hamiltonian.py.
+"""
+
+from dataclasses import dataclass
+from functools import cached_property
+
+import numpy as np
+import torch
+
+from .utils.device import init_device
+
+
+@dataclass(frozen=True, eq=False)
+class Hamiltonian:
+    F: torch.Tensor
+    ERI: torch.Tensor
+    L: torch.Tensor
+    mu: tuple = ()        # 3 (nact,nact) real matrices (electric dipole, -r)
+    m: tuple = ()         # 3 complex matrices (magnetic dipole)
+    p: tuple = ()         # 3 complex matrices (linear momentum)
+    Q: tuple = ()         # 6 real matrices (traceless quadrupole, XX..ZZ)
+    no: int = 0
+
+    @property
+    def o(self):
+        return slice(0, self.no)
+
+    @property
+    def v(self):
+        return slice(self.no, None)
+
+    @cached_property
+    def vvvv(self):
+        """<ab|ef> as one contiguous (v,v,v,v) tensor, made once.
+        ERI[v,v,v,v] is a strided view of the (nact)^4 tensor, and the
+        ladder's (v^2, v^2) matrix would otherwise copy v^4 elements on
+        every residual evaluation."""
+        v = self.v
+        return self.ERI[v, v, v, v].contiguous()
+
+    @classmethod
+    def from_numpy(cls, F, ERI, L, no, device="cpu", dtype=torch.float64,
+                   mu=(), m=(), p=(), Q=()):
+        """Carry host arrays (e.g. pycc_tpu's Hamiltonian, via numpy) onto
+        `device`: F/ERI/L and the real property matrices in `dtype`, the
+        complex ones (m, p) in complex128."""
+        dev = init_device(device)
+        F, ERI, L = _tensors((F, ERI, L), dtype, dev)
+        return cls(F=F, ERI=ERI, L=L, no=int(no),
+                   **_properties(mu, m, p, Q, dtype, dev))
+
+
+def _tensors(arrays, dtype, dev):
+    return tuple(torch.tensor(np.asarray(x), dtype=dtype, device=dev)
+                 for x in arrays)
+
+
+def _properties(mu, m, p, Q, dtype, dev):
+    return dict(mu=_tensors(mu, dtype, dev),
+                m=_tensors(m, torch.complex128, dev),
+                p=_tensors(p, torch.complex128, dev),
+                Q=_tensors(Q, dtype, dev))
+
+
+def _mo_eri_dirac(ERI_ao, C):
+    """AO (ab|cd) -> MO <pq|rs> (physicists') by four quarter transforms.
+    Each tensordot contracts the leading AO index and appends the new MO
+    index last, so after four the order is (pr|qs)."""
+    t = ERI_ao
+    for _ in range(4):
+        t = torch.tensordot(t, C, dims=([0], [0]))
+    return t.swapaxes(1, 2).contiguous()
+
+
+def build_hamiltonian(wfn, device="cpu", dtype=torch.float64):
+    """Build the active-space Hamiltonian from an SCF wavefunction.
+
+    `wfn` is a pycc_tpu_torch.scf.RHFWavefunction.  The AO integrals come
+    from the host engine; the four-index MO transform runs in float64 on
+    `device`, and F/ERI/L are then cast to `dtype`.  The property
+    integrals stay in float64 (mu, Q) and complex128 (m, p)."""
+    from .scf import integrals as ints
+
+    dev = init_device(device)
+    f64 = torch.float64
+    C_np = np.asarray(wfn.Ca_subset("AO", "ACTIVE"))
+    C = torch.as_tensor(C_np, dtype=f64, device=dev)
+    F = C.T @ torch.as_tensor(np.asarray(wfn.Fa()), dtype=f64, device=dev) @ C
+
+    basis = wfn.basisset()
+    ERI = _mo_eri_dirac(torch.as_tensor(ints.eri(basis), device=dev), C)
+    L = 2.0 * ERI - ERI.swapaxes(2, 3)
+
+    def mo(M):
+        return C_np.T @ M @ C_np
+
+    mu = tuple(mo(M) for M in ints.dipole(basis))
+    m = tuple(mo(M * -0.5) * 1.0j for M in ints.angular_momentum(basis))
+    p = tuple(mo(M) * 1.0j for M in ints.nabla(basis))
+    Q = tuple(mo(M) for M in ints.traceless_quadrupole(basis))
+    no = wfn.doccpi()[0] - wfn.frzcpi()[0]
+    return Hamiltonian(F=F.to(dtype), ERI=ERI.to(dtype), L=L.to(dtype), no=no,
+                       **_properties(mu, m, p, Q, f64, dev))

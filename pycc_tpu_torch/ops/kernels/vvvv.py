@@ -1,0 +1,134 @@
+"""K1 on Hopper: the particle-particle-ladder product C = A @ B.T.
+
+The hottest CCSD term is r2 += 0.5 * tau_ijef <ab|ef>: an (o^2, v^2) x
+(v^2, v^2)^T product.  `vvvv_nt` runs it through the hand-written CUDA
+kernel in `pycc_tpu_torch/csrc/vvvv_nt.cu`, which replaces the TPU kernel
+pycc_tpu/ops/kernels/vvvv.py::vvvv_pallas (see the source for its design
+and what bounds it).  `vvvv_nt_reference` beside it is the plain version.
+
+On CPU tensors `vvvv_nt` takes the plain version; on CUDA tensors it
+launches the kernel or raises.  The kernel is compiled with nvcc for sm_90a
+on first use, into the package's git-ignored `_build/` directory, and bound
+with ctypes (no PyTorch headers, so the build takes seconds).
+"""
+
+import ctypes
+import os
+import subprocess
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+_SRC = os.path.join(_PKG, "csrc", "vvvv_nt.cu")
+_BUILD = os.path.join(_PKG, "_build")
+_SO = os.path.join(_BUILD, "libvvvv_nt.so")
+_LIB = None
+
+_MAX_GRID_Y = 65535
+_BM = 64            # the kernel's block-tile rows (csrc/vvvv_nt.cu: BM)
+_INT_MAX = 2 ** 31 - 1
+
+
+def build():
+    """Compile csrc/vvvv_nt.cu for sm_90a if the library is missing or older
+    than the source.  Returns nvcc's output (ptxas' register and shared-
+    memory report), or '' when the library was up to date."""
+    if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
+        return ""
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found: vvvv_nt needs nvcc")
+    os.makedirs(_BUILD, exist_ok=True)
+    tmp = "%s.%d.tmp" % (_SO, os.getpid())
+    cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"),
+           "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+           "-o", tmp, _SRC]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError("nvcc failed (%d):\n%s%s"
+                           % (res.returncode, res.stdout, res.stderr))
+    os.replace(tmp, _SO)
+    return res.stdout + res.stderr
+
+
+def _library():
+    global _LIB
+    if _LIB is None:
+        build()
+        lib = ctypes.CDLL(_SO)
+        args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        for name in ("vvvv_nt_f64", "vvvv_nt_f32", "vvvv_nt_bf16"):
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        lib.vvvv_nt_error_string.argtypes = [ctypes.c_int]
+        lib.vvvv_nt_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def vvvv_nt_reference(A, B, bf16=False):
+    """The plain version: A @ B.T.  bf16=True rounds both operands to
+    bfloat16 and multiplies in float32 (float32 result)."""
+    if bf16:
+        return A.to(torch.bfloat16).float() @ B.to(torch.bfloat16).float().T
+    return A @ B.T
+
+
+def vvvv_nt(A, B, bf16=False):
+    """C[m, n] = sum_k A[m, k] B[n, k] for A (M, K) and B (N, K).
+
+    float64 and float32 operands give a result of the same dtype.  With
+    bf16=True the operands (float32 or bfloat16) are rounded to bfloat16,
+    accumulated in float32, and the result is float32.  CPU tensors take
+    the plain version; CUDA tensors launch the kernel (`vvvv_nt.launches`
+    counts the launches)."""
+    if A.device.type == "cpu" and B.device.type == "cpu":
+        return vvvv_nt_reference(A, B, bf16)
+    if A.device.type != "cuda" or A.device != B.device:
+        raise ValueError("vvvv_nt: A and B must both be CPU tensors or both "
+                         "on one CUDA device (got %s, %s)"
+                         % (A.device, B.device))
+    if A.dim() != 2 or B.dim() != 2 or A.shape[1] != B.shape[1]:
+        raise ValueError("vvvv_nt: need A (M, K) and B (N, K), got %s and %s"
+                         % (tuple(A.shape), tuple(B.shape)))
+    if not (A.is_contiguous() and B.is_contiguous()):
+        raise ValueError("vvvv_nt: A and B must be contiguous")
+    if A.dtype != B.dtype:
+        raise TypeError("vvvv_nt: A is %s but B is %s" % (A.dtype, B.dtype))
+    if bf16:
+        if A.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError("vvvv_nt(bf16=True) takes float32 or bfloat16, "
+                            "got %s" % A.dtype)
+        A = A.to(torch.bfloat16)
+        B = B.to(torch.bfloat16)
+        entry, out_dtype = "vvvv_nt_bf16", torch.float32
+    elif A.dtype == torch.float64:
+        entry, out_dtype = "vvvv_nt_f64", torch.float64
+    elif A.dtype == torch.float32:
+        entry, out_dtype = "vvvv_nt_f32", torch.float32
+    else:
+        raise TypeError("vvvv_nt takes float64 or float32 (or bf16=True), "
+                        "got %s" % A.dtype)
+    M, K = A.shape
+    N = B.shape[0]
+    if max(M, N, K) > _INT_MAX or -(-M // _BM) > _MAX_GRID_Y:
+        raise ValueError("vvvv_nt: shape (M, N, K) = (%d, %d, %d) exceeds the "
+                         "kernel's grid" % (M, N, K))
+    C = torch.empty((M, N), dtype=out_dtype, device=A.device)
+    if M == 0 or N == 0:
+        return C
+    lib = _library()
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    rc = getattr(lib, entry)(A.data_ptr(), B.data_ptr(), C.data_ptr(),
+                             M, N, K, stream)
+    if rc != 0:
+        raise RuntimeError("vvvv_nt launch failed: %s"
+                           % lib.vvvv_nt_error_string(rc).decode())
+    vvvv_nt.launches += 1
+    return C
+
+
+vvvv_nt.launches = 0
