@@ -6,45 +6,66 @@
 Phases, each of which raises on failure (the script then exits non-zero):
   1. device: a CUDA card must be present; print its name, torch/CUDA
      versions and nvidia-smi's name and power limit;
-  2. build the K1 kernel (csrc/vvvv_nt.cu) with nvcc;
+  2. build the K1 (csrc/vvvv_nt.cu) and K2 (csrc/t_row.cu) kernels with
+     nvcc, both at once;
   3. K1 against its plain version (A @ B.T) at three shape groups, each in
      float64, float32 and bf16->float32, with the median of 5 timed runs;
-  4. the frozen oracles on device="cuda" in DP (CCSD, CCD, CC2 on H2O),
-     and precision="SP" against DP;
-  5. a real size: (H2O)_6/cc-pVDZ CCSD (144 basis functions, (no, nv) =
-     (24, 114) with the frozen core) through run_rhf -> ccwfn -> solve_cc.
+  4. K2 against its plain version (t_energy_row_reference) at (no, nv) =
+     (4, 19), (7, 45) and (24, 114), each in float64, float32 and
+     bf16->float32, with the median of 5 timed runs of one row;
+  5. the frozen oracles on device="cuda" in DP (CCSD, CCD, CC2 and the
+     CCSD(T) triples on H2O), and precision="SP" against DP;
+  6. a real size: (H2O)_6/cc-pVDZ CCSD(T) (144 basis functions, (no, nv) =
+     (24, 114) with the frozen core) through run_rhf -> ccwfn -> solve_cc,
+     then the same (T) through the two plain paths.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
 
 import json
+import math
 import statistics
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 import pycc_tpu_torch
 from pycc_tpu_torch.data import moldict
+from pycc_tpu_torch import triples
+from pycc_tpu_torch.ops.kernels import triples as k2
 from pycc_tpu_torch.ops.kernels import vvvv
+from pycc_tpu_torch.ops.kernels.triples import (t_energy_row,
+                                                t_energy_row_reference,
+                                                t_row_finalize)
 from pycc_tpu_torch.ops.kernels.vvvv import vvvv_nt, vvvv_nt_reference
 from pycc_tpu_torch.scf import run_rhf
 
 DEVICE = "cuda:0"
 
-# pycc_tpu, float64, on a CPU host:
-#   pycc_tpu.ccwfn(run_rhf(moldict["(H2O)_6"], "cc-pvdz", freeze_core=True))
-#       .solve_cc(e_conv=1e-10, r_conv=1e-10)
+# name: (E(SCF), Ecorr(CCSD), E(T)), from pycc_tpu in float64 on a CPU host:
+#   cc = pycc_tpu.ccwfn(run_rhf(moldict[name], "cc-pvdz", freeze_core=True))
+#   cc.solve_cc(e_conv=1e-10, r_conv=1e-10); pycc_tpu.triples.t_vikings_scan(cc)
+# except the (H2O)_6 E(T), which is the float64 plain pair-symmetric scan of
+# this package (triples.t_vikings_scan_core, held to pycc_tpu's at 1e-12 by
+# tests/test_torch_triples.py) on an H100; the kernel path and the plain
+# row loop gave the same 12 digits.
+FROZEN = {
+    "(H2O)_4": (-304.146784080189, -0.861900803788, -0.014841440703),
+    "(H2O)_6": (-456.223927411946, -1.295563980852, -0.022743160994),
+}
 REAL_SIZE = "(H2O)_6"
-REAL_ESCF = -456.223927411946
-REAL_ECCSD = -1.295563980852
 
 # frozen reference-suite values (tests/test_002, tests/test_004)
+# (basis, model, freeze_core, Ecorr; for CCSD(T) the (T) energy alone)
 ORACLES = [
     ("sto-3g", "CCSD", True, -0.070616830152761),
     ("cc-pvdz", "CCSD", True, -0.222029814166783),
     ("cc-pvdz", "CCD", False, -0.222559319034),
     ("cc-pvdz", "CC2", False, -0.215857544656),
+    ("sto-3g", "CCSD(T)", True, -0.000099957499645),
+    ("cc-pvdz", "CCSD(T)", True, -0.003861236558801),
 ]
 
 K1_SHAPES = [
@@ -78,11 +99,15 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    log = vvvv.build()
-    print("[build] vvvv_nt.cu built in %.2f s" % (time.perf_counter() - t0))
-    for line in log.splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
-            print("[build]   " + line.strip())
+    mods = (("vvvv_nt", vvvv), ("t_row", k2))
+    with ThreadPoolExecutor(len(mods)) as pool:
+        logs = list(pool.map(lambda m: m[1].build(), mods))
+    print("[build] vvvv_nt.cu and t_row.cu built in %.2f s"
+          % (time.perf_counter() - t0))
+    for (name, _), log in zip(mods, logs):
+        for line in log.splitlines():
+            if "registers" in line or "Compiling entry" in line or "spill" in line:
+                print("[build] %s: %s" % (name, line.strip()))
 
 
 def _median_ms(fn, reps=5):
@@ -139,6 +164,89 @@ def phase_kernel(smi):
     return cells
 
 
+K2_SHAPES = [
+    ((4, 19), "H2O/cc-pVDZ fzc", None),          # None: every row
+    ((7, 45), "ragged", (0, 6)),
+    ((24, 114), "(H2O)_6/cc-pVDZ fzc", (0, 23)),
+]
+# (label, operand dtype, stream_dtype, tolerance on max|err| / max|ref|)
+K2_TYPES = [
+    ("f64", torch.float64, None, 1e-12),
+    ("f32", torch.float32, None, 1e-5),
+    ("bf16->f32", torch.float32, torch.bfloat16, 2e-2),
+]
+K2_OUTPUTS = ("X1a", "X1m", "Z1", "Z1m", "Z2a", "Z2m", "X2l")
+
+
+def k2_row_flops(no, nv):
+    """The kernel's arithmetic for one row: o^2 v^3 t3 elements, each
+    built with 6 (v + o) FMA and projected with 2 v + 3 o more."""
+    return 2.0 * no ** 2 * nv ** 3 * (8 * nv + 9 * no)
+
+
+def _k2_inputs(no, nv, gen):
+    """Random row-kernel operands in float64, scaled and with the orbital
+    energies spread as in tests/test_012_infra.py."""
+    def mk(*shape):
+        return 0.02 * torch.randn(shape, generator=gen, device=DEVICE,
+                                  dtype=torch.float64)
+    eps = torch.cat([torch.linspace(-2.0, -0.5, no, dtype=torch.float64),
+                     torch.linspace(0.3, 3.0, nv, dtype=torch.float64)])
+    return (mk(no, nv, nv, nv), mk(no, no, no, nv), mk(nv, no, nv, nv),
+            mk(no, no, no, nv), mk(no, no, nv, nv), mk(no, nv),
+            eps.to(DEVICE), mk(no, no, nv, nv))
+
+
+def phase_k2(smi, shapes=K2_SHAPES):
+    cells = {}
+    gen = torch.Generator(device=DEVICE).manual_seed(4321)
+    for (no, nv), what, rows in shapes:
+        ops64 = _k2_inputs(no, nv, gen)
+        rows = tuple(range(no)) if rows is None else rows
+        for label, dtype, sd, tol in K2_TYPES:
+            ops = tuple(x.to(dtype) for x in ops64)
+            worst = dict.fromkeys(K2_OUTPUTS, 0.0)
+            err = 0.0
+            for i in rows:
+                out = t_energy_row(i, *ops, no, stream_dtype=sd)
+                torch.cuda.synchronize()
+                ref = t_energy_row_reference(i, *ops, no, stream_dtype=sd)
+                for name, a, b in zip(K2_OUTPUTS, out, ref):
+                    if a.shape != b.shape or a.dtype != b.dtype:
+                        raise AssertionError(
+                            "K2 %s %s %s: got %s %s, want %s %s"
+                            % (label, (no, nv), name, tuple(a.shape),
+                               a.dtype, tuple(b.shape), b.dtype))
+                    e = (a.double() - b.double()).abs().max().item()
+                    err = max(err, e)
+                    worst[name] = max(worst[name],
+                                      e / b.double().abs().max().item())
+                del out, ref
+            rels = " ".join("%s %.1e" % kv for kv in worst.items())
+            if not max(worst.values()) < tol:
+                raise AssertionError("K2 %s %s: max|err|/max|ref| %s (tol %.0e)"
+                                     % (label, (no, nv), rels, tol))
+            i = rows[0]
+            t_energy_row(i, *ops, no, stream_dtype=sd)   # warm-up
+            t_energy_row_reference(i, *ops, no, stream_dtype=sd)
+            torch.cuda.synchronize()
+            ms = _median_ms(lambda: t_energy_row(i, *ops, no, stream_dtype=sd))
+            plain_ms = _median_ms(
+                lambda: t_energy_row_reference(i, *ops, no, stream_dtype=sd))
+            print("[K2] %-20s (no,nv)=(%d,%d) %-9s rows %s  max|err|/max|ref|: "
+                  "%s (tol %.0e)  row %d: kernel %.3f ms (%.2f TFLOP/s)  "
+                  "plain %.3f ms  | %s"
+                  % (what, no, nv, label, ",".join(map(str, rows))
+                     if len(rows) < no else "all", rels, tol, i, ms,
+                     k2_row_flops(no, nv) / (ms * 1e-3) / 1e12, plain_ms, smi))
+            cells[(no, nv), label] = dict(max_abs_err=err, ms=ms,
+                                          plain_ms=plain_ms)
+            del ops
+        del ops64
+        torch.cuda.empty_cache()
+    return cells
+
+
 def _solve(cc, e_conv, r_conv):
     t0 = time.perf_counter()
     e = cc.solve_cc(e_conv=e_conv, r_conv=r_conv, maxiter=100)
@@ -149,69 +257,125 @@ def _solve(cc, e_conv, r_conv):
 def phase_oracles():
     h2o = moldict["H2O"]
     wfns = {}
-    e_dp = None
+    et_dp = None
     for basis, model, fzc, oracle in ORACLES:
         if (basis, fzc) not in wfns:
             wfns[basis, fzc] = run_rhf(h2o, basis, freeze_core=fzc)
         cc = pycc_tpu_torch.ccwfn(wfns[basis, fzc], model=model,
                                   device=DEVICE)
         vvvv_nt.launches = 0
+        t_energy_row.launches = 0
         e, secs = _solve(cc, 1e-12, 1e-12)
         launches = vvvv_nt.launches
-        gap = abs(e - oracle)
-        print("[oracle] H2O/%s %s fzc=%s: Ecorr = %.15f  |dE| = %.2e  "
-              "%d iterations  %d K1 launches  %.2f s"
-              % (basis, model, fzc, e, gap, cc.niter, launches, secs))
+        k2_launches = t_energy_row.launches
+        if model == "CCSD(T)":
+            eccsd = float(cc.cc_energy(cc.t1, cc.t2))
+            value, what = e - eccsd, "E(T)"
+        else:
+            value, what = e, "Ecorr"
+        gap = abs(value - oracle)
+        print("[oracle] H2O/%s %s fzc=%s: %s = %.15f  |dE| = %.2e  "
+              "%d iterations  %d K1 launches  %d K2 launches  %.2f s"
+              % (basis, model, fzc, what, value, gap, cc.niter, launches,
+                 k2_launches, secs))
         if not (cc.converged and gap < 1e-11):
             raise AssertionError("oracle H2O/%s %s missed: %.3e"
                                  % (basis, model, gap))
-        if model in ("CCSD", "CCD") and launches < cc.niter:
+        if model != "CC2" and launches < cc.niter:
             raise AssertionError("%s: %d K1 launches in %d iterations"
                                  % (model, launches, cc.niter))
-        if (basis, model, fzc) == ("cc-pvdz", "CCSD", True):
-            e_dp = e
-    cc = pycc_tpu_torch.ccwfn(wfns["cc-pvdz", True], precision="SP",
-                              device=DEVICE)
+        if model == "CCSD(T)":
+            if k2_launches != cc.no or cc.ecc != e:
+                raise AssertionError("CCSD(T): %d K2 launches for no = %d, "
+                                     "ecc %r, returned %r"
+                                     % (k2_launches, cc.no, cc.ecc, e))
+            if basis == "cc-pvdz":
+                eccsd_dp, et_dp = eccsd, value
+    cc = pycc_tpu_torch.ccwfn(wfns["cc-pvdz", True], model="CCSD(T)",
+                              precision="SP", device=DEVICE)
     e_sp, secs = _solve(cc, 1e-8, 1e-7)
-    print("[oracle] H2O/cc-pvdz CCSD SP: Ecorr = %.12f  |SP - DP| = %.2e  "
-          "%d iterations  %.2f s" % (e_sp, abs(e_sp - e_dp), cc.niter, secs))
-    if not abs(e_sp - e_dp) < 1e-6:
-        raise AssertionError("SP lands %.3e from DP" % abs(e_sp - e_dp))
+    eccsd_sp = float(cc.cc_energy(cc.t1, cc.t2))
+    et_sp = e_sp - eccsd_sp
+    print("[oracle] H2O/cc-pvdz CCSD(T) SP: Ecorr(CCSD) = %.12f  |SP - DP| = "
+          "%.2e  E(T) = %.12f  |SP - DP| = %.2e  %d iterations  %.2f s"
+          % (eccsd_sp, abs(eccsd_sp - eccsd_dp), et_sp, abs(et_sp - et_dp),
+             cc.niter, secs))
+    if not (cc.converged and abs(eccsd_sp - eccsd_dp) < 1e-6
+            and abs(et_sp - et_dp) < 1e-6):
+        raise AssertionError("SP lands %.3e (CCSD), %.3e ((T)) from DP"
+                             % (abs(eccsd_sp - eccsd_dp), abs(et_sp - et_dp)))
 
 
-def phase_real_size(smi):
-    torch.cuda.reset_peak_memory_stats()
-    vvvv_nt.launches = 0
+def _timed(fn):
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    wfn = run_rhf(moldict[REAL_SIZE], "cc-pvdz", freeze_core=True)
+    out = float(fn())
+    return out, time.perf_counter() - t0
+
+
+def phase_real_size(smi, name=REAL_SIZE):
+    escf_ref, eccsd_ref, et_ref = FROZEN[name]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wfn = run_rhf(moldict[name], "cc-pvdz", freeze_core=True)
     t_scf = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cc = pycc_tpu_torch.ccwfn(wfn, device=DEVICE)
+    cc = pycc_tpu_torch.ccwfn(wfn, model="CCSD(T)", device=DEVICE)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
+    vvvv_nt.launches = 0
+    t_energy_row.launches = 0
     e, t_solve = _solve(cc, 1e-10, 1e-10)
-    launches = vvvv_nt.launches
+    launches = {"vvvv_nt": vvvv_nt.launches, "t_row": t_energy_row.launches}
     peak = torch.cuda.max_memory_allocated()
-    print("[real] %s/cc-pVDZ CCSD  nbf=%d (no, nv)=(%d, %d)  | %s"
-          % (REAL_SIZE, wfn.basisset().nbf, cc.no, cc.nv, smi))
+    t_t = cc.timers.total["ccwfn.triples"]
+    eccsd = float(cc.cc_energy(cc.t1, cc.t2))
+    et = e - eccsd
+    print("[real] %s/cc-pVDZ CCSD(T)  nbf=%d (no, nv)=(%d, %d)  | %s"
+          % (name, wfn.basisset().nbf, cc.no, cc.nv, smi))
     print("[real] E(SCF) = %.12f  |dE(SCF)| = %.2e  SCF %.1f s (host)"
-          % (wfn.energy(), abs(wfn.energy() - REAL_ESCF), t_scf))
-    print("[real] Hamiltonian + ccwfn init %.1f s  solve %.1f s  %d iterations"
-          "  %.3f s/iter  peak device memory %.2f GB  K1 launches %d"
-          % (t_init, t_solve, cc.niter, t_solve / cc.niter, peak / 1e9,
-             launches))
-    print("[real] Ecorr(CCSD) = %.12f  |dE| = %.2e" % (e, abs(e - REAL_ECCSD)))
+          % (wfn.energy(), abs(wfn.energy() - escf_ref), t_scf))
+    print("[real] Hamiltonian + ccwfn init %.1f s  CCSD solve %.1f s  %d "
+          "iterations  %.3f s/iter  (T) %.1f s  peak device memory %.2f GB  "
+          "K1 launches %d  K2 launches %d"
+          % (t_init, t_solve - t_t, cc.niter, (t_solve - t_t) / cc.niter,
+             t_t, peak / 1e9, launches["vvvv_nt"], launches["t_row"]))
+    print("[real] Ecorr(CCSD) = %.12f  |dE| = %.2e" % (eccsd,
+                                                      abs(eccsd - eccsd_ref)))
+    print("[real] E(T) = %.12f  |dE| = %.2e" % (et, abs(et - et_ref)))
+
+    # the same (T) through the two plain paths, on the same slices
+    sl = triples.scan_slices(cc)
+    t1, t2, no = cc.t1, cc.t2, cc.no
+    t2w = 4.0 * t2 - 2.0 * t2.swapaxes(2, 3)
+    e_rows, t_rows = _timed(lambda: sum(
+        t_row_finalize(i, t_energy_row_reference(i, *sl, t2, no), t1, t2w)
+        for i in range(no)))
+    e_scan, t_scan = _timed(
+        lambda: triples.t_vikings_scan_core(*sl, t1, t2, no))
+    print("[real] (T): kernel rows %.1f s E(T) %.12f | plain rows %.1f s "
+          "E(T) %.12f | plain pair-symmetric scan %.1f s E(T) %.12f  | %s"
+          % (t_t, et, t_rows, e_rows, t_scan, e_scan, smi))
+    print("[real] peak device memory with the plain paths %.2f GB"
+          % (torch.cuda.max_memory_allocated() / 1e9))
+
     ok_shapes = (cc.t2.shape == (cc.no, cc.no, cc.nv, cc.nv)
-                 and bool(torch.isfinite(cc.t2).all()))
+                 and bool(torch.isfinite(cc.t2).all()) and math.isfinite(et))
     if not ok_shapes:
-        raise AssertionError("t2 is not finite or has the wrong shape")
-    if not abs(wfn.energy() - REAL_ESCF) < 1e-9:
+        raise AssertionError("t2 or E(T) is not finite, or t2 has the wrong "
+                             "shape")
+    if not abs(wfn.energy() - escf_ref) < 1e-9:
         raise AssertionError("E(SCF) missed the frozen value")
-    if not (cc.converged and abs(e - REAL_ECCSD) < 1e-9):
+    if not (cc.converged and abs(eccsd - eccsd_ref) < 1e-9):
         raise AssertionError("Ecorr(CCSD) missed the frozen value")
-    if launches < cc.niter:
-        raise AssertionError("%d K1 launches in %d iterations"
-                             % (launches, cc.niter))
+    if not abs(et - et_ref) < 1e-9:
+        raise AssertionError("E(T) missed the frozen value")
+    if not (abs(e_rows - et) < 1e-10 and abs(e_scan - et) < 1e-10):
+        raise AssertionError("the plain (T) paths disagree with the kernel's")
+    if launches["vvvv_nt"] < cc.niter or launches["t_row"] != cc.no:
+        raise AssertionError("%d K1 launches in %d iterations, %d K2 launches "
+                             "for no = %d" % (launches["vvvv_nt"], cc.niter,
+                                              launches["t_row"], cc.no))
     return launches
 
 
@@ -219,16 +383,22 @@ def main():
     name, smi = phase_device()
     pycc_tpu_torch.set_verbosity("quiet")
     phase_build()
-    cells = phase_kernel(smi)
+    k1_cells = phase_kernel(smi)
+    k2_cells = phase_k2(smi)
     phase_oracles()
     launches = phase_real_size(smi)
-    main_cell = cells[K1_SHAPES[-1][0], "f64"]
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": "vvvv_nt", "route": "cuda",
-        "source": "pycc_tpu_torch/csrc/vvvv_nt.cu",
-        "replaces": "pycc_tpu/ops/kernels/vvvv.py:38",
-        "launches": launches, **main_cell}]}))
+    print(json.dumps({"kernels": [
+        {"name": "vvvv_nt", "route": "cuda",
+         "source": "pycc_tpu_torch/csrc/vvvv_nt.cu",
+         "replaces": "pycc_tpu/ops/kernels/vvvv.py:38",
+         "launches": launches["vvvv_nt"],
+         **k1_cells[K1_SHAPES[-1][0], "f64"]},
+        {"name": "t_row", "route": "cuda",
+         "source": "pycc_tpu_torch/csrc/t_row.cu",
+         "replaces": "pycc_tpu/ops/kernels/triples.py:170",
+         "launches": launches["t_row"],
+         **k2_cells[K2_SHAPES[-1][0], "f64"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

@@ -1,12 +1,14 @@
 """CC T-amplitude solver driver.
 
 The counterpart of pycc_tpu/ccwfn.py for storage='full' and the models
-CCD, CC2 and CCSD: ``ccwfn(scf_wfn, model=..., precision=..., device=...)``
+CCD, CC2, CCSD and CCSD(T):
+``ccwfn(scf_wfn, model=..., precision=..., device=...)``
 then ``solve_cc(e_conv, r_conv, maxiter, max_diis, start_diis,
 stall_limit)``.  Each iteration evaluates the residuals, takes a Jacobi
 step from diag(F), pushes the step into the on-device DIIS ring and
 extrapolates, all eagerly on `device`; the host reads one (energy, rms)
-pair per iteration.
+pair per iteration.  For CCSD(T) the converged CCSD amplitudes then
+feed the (T) energy (`triples.t_vikings_scan`).
 """
 
 import time
@@ -14,6 +16,7 @@ import warnings
 
 import torch
 
+from . import triples
 from .hamiltonian import build_hamiltonian
 from .models import ccsd as eqs
 from .ops.diis import DIIS
@@ -25,18 +28,19 @@ _RESIDUALS = {
     "CCD": eqs.residuals_ccd,
     "CC2": eqs.residuals_cc2,
     "CCSD": eqs.residuals_ccsd,
+    "CCSD(T)": eqs.residuals_ccsd,
 }
 
 _ENERGY = {
     "CCD": eqs.ccd_energy,
     "CC2": eqs.cc_energy,
     "CCSD": eqs.cc_energy,
+    "CCSD(T)": eqs.cc_energy,
 }
 
 # what pycc_tpu offers beyond this port, and the ROADMAP.md item that
 # brings it over
 _NOT_PORTED_MODELS = {
-    "CCSD(T)": "Queue 1, item 3 ((T) driver and kernel K2)",
     "CC3": "Queue 1, item 8 (CC3)",
 }
 _NOT_PORTED_STORAGE = {
@@ -53,7 +57,7 @@ _NOT_PORTED_INIT_KWARGS = {
     "mesh": "Queue 1, item 13 (multi-device)",
     "real_time": "Queue 1, item 11 (real-time CC)",
     "make_t3_density": "Queue 1, item 6 (post-convergence on full storage)",
-    "t3_scan": "Queue 1, item 3 ((T) driver and kernel K2)",
+    "t3_scan": "Queue 1, item 8 (CC3)",
     "df_tol": "Queue 1, item 5 (DF storage)",
     "df_nblocks": "Queue 1, item 5 (DF storage)",
     "df_direct": "Queue 1, item 5 (DF storage)",
@@ -153,7 +157,12 @@ class ccwfn:
         max_diis=0 turns DIIS off (plain Jacobi).  When the update rms has
         not improved by 2% for `stall_limit` straight iterations (the
         working precision's noise floor, common in SP), the solve stops and
-        `self.converged` says whether the energy change met e_conv."""
+        `self.converged` says whether the energy change met e_conv.
+
+        For model="CCSD(T)" a converged solve adds the (T) energy: the
+        return value and `self.ecc` are E(CCSD) + E(T).  The noise-floor
+        stop and a solve that does not converge return E(CCSD) alone, as
+        pycc_tpu does."""
         _reject(kwargs, _NOT_PORTED_SOLVE_KWARGS, "solve_cc")
         tstart = time.time()
         F = self.H.F
@@ -213,10 +222,16 @@ class ccwfn:
                     return ecc
             if abs(ediff) < e_conv and rms < r_conv:
                 # converged amplitudes = the pre-extrapolation update
-                self.ecc = ecc
                 self.converged = True
                 log.info("\nCCWFN converged in %.3f seconds.\n"
                          % (time.time() - tstart))
+                if self.model == "CCSD(T)":
+                    log.info("E(CCSD) = %20.15f" % ecc)
+                    with self.timers.time("ccwfn.triples"):
+                        et = float(triples.t_vikings_scan(self))
+                    log.info("E(T)    = %20.15f" % et)
+                    ecc = ecc + et
+                self.ecc = ecc
                 self._report(ecc)
                 return ecc
         self.t1, self.t2 = t1, t2

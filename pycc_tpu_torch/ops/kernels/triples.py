@@ -1,0 +1,169 @@
+"""K2 on Hopper: the (T) energy projections of one occupied row.
+
+For a row i, `t_energy_row` returns the seven projections of the connected
+triples t3[i, j, k] that the (T) energy needs (X1a, X1m, Z1, Z1m, Z2a, Z2m,
+X2l; defined in `pycc_tpu_torch/csrc/t_row.cu`), and `t_row_finalize` turns
+them into the row's energy.  On CUDA tensors the projections come from the
+hand-written kernel in `csrc/t_row.cu`, which replaces the TPU kernel
+pycc_tpu/ops/kernels/triples.py::t_energy_row_pallas and never writes t3
+to device memory; `t_energy_row_reference` beside it is the plain version,
+and CPU tensors take it.  `t_vikings_rows` is the whole (T) energy through
+them, one launch per row.
+
+Against the Pallas kernel, X1a and X1m come out as (o, v), already summed
+over the axis that its Mosaic lowering kept and `t_row_finalize` summed.
+"""
+
+import ctypes
+
+import torch
+
+from ...triples import _t3c_slab_ij
+from ..contract import contract
+from . import build as _build
+
+_LIB = None
+_ENTRIES = {torch.float64: "t_row_f64", torch.float32: "t_row_f32",
+            torch.bfloat16: "t_row_bf16"}
+_SMEM_MAX = 232448          # bytes of shared memory a Hopper block can use
+
+
+def build():
+    """Compile csrc/t_row.cu for sm_90a if the library is missing or older
+    than the source.  Returns nvcc's output, or '' when it was up to date."""
+    return _build.build("t_row")
+
+
+def _library():
+    global _LIB
+    if _LIB is None:
+        p = ctypes.c_void_p
+        _LIB = _build.load("t_row", tuple(_ENTRIES.values()),
+                           [ctypes.c_int] + [p] * 15
+                           + [ctypes.c_int, ctypes.c_int, p])
+        _LIB.t_row_smem_bytes.argtypes = [ctypes.c_int] * 3
+        _LIB.t_row_smem_bytes.restype = ctypes.c_longlong
+    return _LIB
+
+
+def _types(dtype, stream_dtype):
+    """(streamed operand dtype, tile/output dtype) for operands of `dtype`."""
+    sd = dtype if stream_dtype is None else stream_dtype
+    if sd not in _ENTRIES:
+        raise TypeError("t_energy_row streams float64, float32 or bfloat16, "
+                        "got %s" % sd)
+    return sd, (torch.float32 if sd == torch.bfloat16 else sd)
+
+
+def t_energy_row_reference(i, Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov,
+                           eps, t2, no, stream_dtype=None):
+    """The plain version: for each j, the (k, a, b, c) slab of t3[i, j]
+    from `triples._t3c_slab_ij`, then the seven projections by einsum.
+    stream_dtype=torch.bfloat16 rounds the streamed operands (Wv, Wo, Ev,
+    Eo, L, t2) to bfloat16 and computes in float32, with Fov and eps in
+    float32, as the Pallas kernel does."""
+    sd, acc = _types(Wvvvo_o.dtype, stream_dtype)
+    Wv, Wo, Ev, Eo, L, t2 = (x.to(sd).to(acc) for x in
+                             (Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, t2))
+    Fov, eps = Fov.to(acc), eps.to(acc)
+    Ev1 = 2.0 * Ev - Ev.swapaxes(2, 3)
+    rows = []
+    for j in range(no):
+        t3 = _t3c_slab_ij(i, j, Wv, Wo, t2, eps[:no], eps[no:])
+        T = 2.0 * t3 - t3.swapaxes(2, 3) - t3.swapaxes(1, 3)
+        rows.append((contract("kabc,kbc->a", t3, L[j]),
+                     contract("kabc,kba->c", t3, L[j]),
+                     contract("kabc,dkbc->ad", t3, Ev1),
+                     contract("kabc,dkba->cd", t3, Ev),
+                     contract("kabc,kc->ab", t3, Fov),
+                     contract("kabc,ka->bc", t3, Fov),
+                     contract("kabc,klc->lab", T, Eo[j])))
+    return tuple(torch.stack(x) for x in zip(*rows))
+
+
+def t_energy_row(i, Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps, t2, no,
+                 stream_dtype=None):
+    """(X1a (o,v), X1m (o,v), Z1, Z1m, Z2a, Z2m (o,v,v), X2l (o,o,v,v)) of
+    row i.  Operands of one dtype, float64 or float32; stream_dtype=None
+    keeps it, float32 or bfloat16 streams them in that type (bfloat16 is
+    accumulated in float32, with Fov and eps in float32).  The cast is
+    made on each call.  The outputs are in the accumulate type.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel
+    (`t_energy_row.launches` counts the launches)."""
+    ops = (Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps, t2)
+    if all(x.device.type == "cpu" for x in ops):
+        return t_energy_row_reference(i, *ops, no, stream_dtype=stream_dtype)
+    dev = Wvvvo_o.device
+    if dev.type != "cuda" or any(x.device != dev for x in ops):
+        raise ValueError("t_energy_row: the operands must all be CPU tensors "
+                         "or all on one CUDA device (got %s)"
+                         % sorted({str(x.device) for x in ops}))
+    dtypes = {x.dtype for x in ops}
+    if len(dtypes) != 1 or Wvvvo_o.dtype not in (torch.float64,
+                                                 torch.float32):
+        raise TypeError("t_energy_row takes operands of one dtype, float64 "
+                        "or float32, got %s" % sorted(map(str, dtypes)))
+    if not all(x.is_contiguous() for x in ops):
+        raise ValueError("t_energy_row: the operands must be contiguous")
+    nv = t2.shape[-1]
+    want = ((no, nv, nv, nv), (no, no, no, nv), (nv, no, nv, nv),
+            (no, no, no, nv), (no, no, nv, nv), (no, nv), (no + nv,),
+            (no, no, nv, nv))
+    got = tuple(tuple(x.shape) for x in ops)
+    if got != want:
+        raise ValueError("t_energy_row: shapes %s do not fit (no, nv) = "
+                         "(%d, %d): want %s" % (got, no, nv, want))
+    if not 0 <= i < no:
+        raise ValueError("t_energy_row: row %d outside [0, %d)" % (i, no))
+    sd, acc = _types(Wvvvo_o.dtype, stream_dtype)
+    lib = _library()
+    smem = lib.t_row_smem_bytes(no, nv, torch.finfo(acc).bits // 8)
+    if smem > _SMEM_MAX:
+        raise ValueError("t_energy_row: (no, nv) = (%d, %d) needs %d bytes of "
+                         "shared memory a block (the card has %d)"
+                         % (no, nv, smem, _SMEM_MAX))
+    Wv, Wo, Ev, Eo, L, t2s = (x.to(sd) for x in (Wvvvo_o, Wovoo_t, Evovv,
+                                                 Eooov, Loovv, t2))
+    Fa, ea = Fov.to(acc), eps.to(acc)
+    outs = tuple(torch.zeros(s, dtype=acc, device=dev) for s in
+                 ((no, nv), (no, nv), (no, nv, nv), (no, nv, nv),
+                  (no, nv, nv), (no, nv, nv), (no, no, nv, nv)))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = getattr(lib, _ENTRIES[sd])(
+        i, *(x.data_ptr() for x in (Wv, Wo, Ev, Eo, L, Fa, ea, t2s) + outs),
+        no, nv, stream)
+    if rc != 0:
+        raise RuntimeError("t_row launch failed: %s"
+                           % lib.t_row_error_string(rc).decode())
+    t_energy_row.launches += 1
+    return outs
+
+
+t_energy_row.launches = 0
+
+
+def t_row_finalize(i, outs, t1, t2w):
+    """The (T) energy of row i from its projections; t2w = 4 t2 - 2 t2^T
+    (ab swapped), made once by the caller."""
+    X1a, X1m, Z1, Z1m, Z2a, Z2m, X2l = outs
+    t1i, t2wi = t1[i].to(X1a.dtype), t2w[i].to(X1a.dtype)
+    X2 = (Z1 - Z1m) + (Z2a - Z2m.swapaxes(1, 2))
+    e = 2.0 * contract("a,ja->", t1i, X1a - X1m)
+    e = e + contract("jab,jab->", t2wi, X2)
+    # the X2l term pairs t2w[i, l] with X2l[j, l]
+    return e - contract("lab,jlab->", t2wi, X2l)
+
+
+def t_vikings_rows(Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps, t1, t2,
+                   no):
+    """The (T) energy, one `t_energy_row` per occupied row: the port of
+    pycc_tpu's t_vikings_pallas.  The row energies are summed on the
+    device; the result is a 0-d tensor for the caller's one host read."""
+    t2w = 4.0 * t2 - 2.0 * t2.swapaxes(2, 3)
+    e = None
+    for i in range(no):
+        outs = t_energy_row(i, Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov,
+                            eps, t2, no)
+        ei = t_row_finalize(i, outs, t1, t2w)
+        e = ei if e is None else e + ei
+    return e

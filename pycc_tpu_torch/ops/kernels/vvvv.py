@@ -8,20 +8,15 @@ and what bounds it).  `vvvv_nt_reference` beside it is the plain version.
 
 On CPU tensors `vvvv_nt` takes the plain version; on CUDA tensors it
 launches the kernel or raises.  The kernel is compiled with nvcc for sm_90a
-on first use, into the package's git-ignored `_build/` directory, and bound
-with ctypes (no PyTorch headers, so the build takes seconds).
+on first use and bound with ctypes, by `build.py` beside this module.
 """
 
 import ctypes
-import os
-import subprocess
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_SRC = os.path.join(_PKG, "csrc", "vvvv_nt.cu")
-_BUILD = os.path.join(_PKG, "_build")
-_SO = os.path.join(_BUILD, "libvvvv_nt.so")
+from . import build as _build
+
 _LIB = None
 
 _MAX_GRID_Y = 65535
@@ -33,39 +28,16 @@ def build():
     """Compile csrc/vvvv_nt.cu for sm_90a if the library is missing or older
     than the source.  Returns nvcc's output (ptxas' register and shared-
     memory report), or '' when the library was up to date."""
-    if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
-        return ""
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found: vvvv_nt needs nvcc")
-    os.makedirs(_BUILD, exist_ok=True)
-    tmp = "%s.%d.tmp" % (_SO, os.getpid())
-    cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"),
-           "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, _SRC]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError("nvcc failed (%d):\n%s%s"
-                           % (res.returncode, res.stdout, res.stderr))
-    os.replace(tmp, _SO)
-    return res.stdout + res.stderr
+    return _build.build("vvvv_nt")
 
 
 def _library():
     global _LIB
     if _LIB is None:
-        build()
-        lib = ctypes.CDLL(_SO)
-        args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        for name in ("vvvv_nt_f64", "vvvv_nt_f32", "vvvv_nt_bf16"):
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        lib.vvvv_nt_error_string.argtypes = [ctypes.c_int]
-        lib.vvvv_nt_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+        _LIB = _build.load(
+            "vvvv_nt", ("vvvv_nt_f64", "vvvv_nt_f32", "vvvv_nt_bf16"),
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     return _LIB
 
 

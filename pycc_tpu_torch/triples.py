@@ -1,0 +1,294 @@
+"""Connected-triples (T) energy drivers.
+
+The counterpart of pycc_tpu/triples.py for storage='full':
+
+- `t_vikings(cc)`: the full-tensor (T), o^3 v^3 memory, for small systems
+  and tests;
+- `t_vikings_scan_core`: the pair-symmetric slab scan, one (i, j) slab of
+  t3 at a time, as a plain whole-(T) reference (a Python loop over rows and
+  j-chunks);
+- `t_vikings_scan(cc)`: the production (T) of `ccwfn(model="CCSD(T)")`.
+  It cuts the integral slices once and runs every row through the K2
+  kernel wrapper (`ops/kernels/triples.py`), which launches the CUDA
+  kernel on CUDA tensors.
+
+Eager torch materialises each slab once, so the optimization barriers of
+the JAX versions have no counterpart here.
+"""
+
+from .ops.contract import contract
+
+
+def _slices(no):
+    return slice(0, no), slice(no, None)
+
+
+def t3_denom(F, no):
+    """D[ijkabc] = f_ii + f_jj + f_kk - f_aa - f_bb - f_cc."""
+    o, v = _slices(no)
+    eps = F.diagonal()
+    Fo, Fv = eps[o], eps[v]
+    return (Fo[:, None, None, None, None, None]
+            + Fo[None, :, None, None, None, None]
+            + Fo[None, None, :, None, None, None]
+            - Fv[None, None, None, :, None, None]
+            - Fv[None, None, None, None, :, None]
+            - Fv[None, None, None, None, None, :])
+
+
+def t3c_full(Wvvvo, Wovoo, t2, F, no):
+    """Connected T3 over all (i,j,k,a,b,c) at once."""
+    t3 = contract("baei,kjce->ijkabc", Wvvvo, t2)
+    t3 += contract("caei,jkbe->ijkabc", Wvvvo, t2)
+    t3 += contract("acek,jibe->ijkabc", Wvvvo, t2)
+    t3 += contract("bcek,ijae->ijkabc", Wvvvo, t2)
+    t3 += contract("cbej,ikae->ijkabc", Wvvvo, t2)
+    t3 += contract("abej,kice->ijkabc", Wvvvo, t2)
+    t3 -= contract("mcjk,imab->ijkabc", Wovoo, t2)
+    t3 -= contract("mbkj,imac->ijkabc", Wovoo, t2)
+    t3 -= contract("mbij,kmca->ijkabc", Wovoo, t2)
+    t3 -= contract("maji,kmcb->ijkabc", Wovoo, t2)
+    t3 -= contract("maki,jmbc->ijkabc", Wovoo, t2)
+    t3 -= contract("mcik,jmba->ijkabc", Wovoo, t2)
+    return t3 / t3_denom(F, no)
+
+
+def _swap_ac(t3):
+    return t3.swapaxes(3, 5)
+
+
+def _swap_bc(t3):
+    return t3.swapaxes(4, 5)
+
+
+def _vikings_X(F, ERI, L, t2, t3, no):
+    """X1/X2 contractions of the occupied-driven (T)."""
+    o, v = _slices(no)
+    td = t3 - _swap_ac(t3)
+    T = 2.0 * t3 - _swap_bc(t3) - _swap_ac(t3)
+    X1 = contract("ijkabc,jkbc->ia", td, L[o, o, v, v])
+    X2 = contract("ijkabc,kc->ijab", td, F[o, v])
+    X2 += contract("ijkabc,dkbc->ijad", T, ERI[v, o, v, v])
+    X2 -= contract("ijkabc,jklc->ilab", T, ERI[o, o, o, v])
+    return X1, X2
+
+
+def t_vikings(cc):
+    """Occupied-driven (T) energy over the full T3 tensor (0-d tensor)."""
+    no = cc.no
+    F, ERI, L = cc.H.F, cc.H.ERI, cc.H.L
+    t1, t2 = cc.t1, cc.t2
+    o, v = _slices(no)
+    t3 = t3c_full(ERI[v, v, v, o], ERI[o, v, o, o], t2, F, no)
+    X1, X2 = _vikings_X(F, ERI, L, t2, t3, no)
+    ET = 2.0 * contract("ia,ia->", t1, X1)
+    return ET + contract("ijab,ijab->", 4.0 * t2 - 2.0 * t2.swapaxes(2, 3), X2)
+
+
+# ---------------------------------------------------------------------------
+# Memory-scalable (T): per-(i,j) T3 slabs
+# ---------------------------------------------------------------------------
+
+def slab_layouts(Wvvvo, Wovoo):
+    """Occupied-major layouts for the slab builders, (i,b,a,e) and
+    (j,k,m,c), as contiguous tensors."""
+    return (Wvvvo.permute(3, 0, 1, 2).contiguous(),
+            Wovoo.permute(2, 3, 0, 1).contiguous())
+
+
+def _t3c_slab_ij(i, j, Wvvvo_o, Wovoo_t, t2, eps_o, eps_v):
+    """t3[i, j] slab (k,a,b,c) for fixed first two occupied indices.
+    Takes the occupied-major layouts from `slab_layouts`."""
+    Wi = Wvvvo_o[i]
+    Wj = Wvvvo_o[j]
+    t3 = contract("bae,kce->kabc", Wi, t2[:, j])
+    t3 += contract("cae,kbe->kabc", Wi, t2[j])
+    t3 += contract("kace,be->kabc", Wvvvo_o, t2[j, i])
+    t3 += contract("kbce,ae->kabc", Wvvvo_o, t2[i, j])
+    t3 += contract("cbe,kae->kabc", Wj, t2[i])
+    t3 += contract("abe,kce->kabc", Wj, t2[:, i])
+    t3 -= contract("kmc,mab->kabc", Wovoo_t[j], t2[i])
+    t3 -= contract("kmb,mac->kabc", Wovoo_t[:, j], t2[i])
+    t3 -= contract("mb,kmca->kabc", Wovoo_t[i, j], t2)
+    t3 -= contract("ma,kmcb->kabc", Wovoo_t[j, i], t2)
+    t3 -= contract("kma,mbc->kabc", Wovoo_t[:, i], t2[j])
+    t3 -= contract("kmc,mba->kabc", Wovoo_t[i], t2[j])
+    denom = (eps_o[i] + eps_o[j] + eps_o[:, None, None, None]
+             - eps_v[None, :, None, None]
+             - eps_v[None, None, :, None]
+             - eps_v[None, None, None, :])
+    return t3 / denom
+
+
+def _slab_pair_energy(t3, i, j, Evovv, Eooov, Loovv, Fov, t1, t2w):
+    """(T) energy contribution of one external pair (i, j) from its
+    (k,a,b,c) connected-T3 slab."""
+    td = t3 - t3.swapaxes(1, 3)
+    T = 2.0 * t3 - t3.swapaxes(2, 3) - t3.swapaxes(1, 3)
+    X1 = contract("kabc,kbc->a", td, Loovv[j])
+    X2 = contract("kabc,kc->ab", td, Fov)
+    X2 += contract("kabc,dkbc->ad", T, Evovv)
+    X2l = contract("kabc,klc->lab", T, Eooov[j])
+    e = 2.0 * contract("a,a->", t1[i], X1)
+    e += contract("ab,ab->", t2w[i, j], X2)
+    e -= contract("lab,lab->", t2w[i], X2l)
+    return e
+
+
+def _t_vikings_row(i, Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps,
+                   t1, t2, no):
+    """One fixed-i row of the (T) energy: every ordered pair (i, j)."""
+    eps_o, eps_v = eps[:no], eps[no:]
+    t2w = 4.0 * t2 - 2.0 * t2.swapaxes(2, 3)
+    e = 0.0
+    for j in range(no):
+        t3 = _t3c_slab_ij(i, j, Wvvvo_o, Wovoo_t, t2, eps_o, eps_v)
+        e = e + _slab_pair_energy(t3, i, j, Evovv, Eooov, Loovv, Fov, t1,
+                                  t2w)
+    return e
+
+
+def _t3c_slab_iJ(i, j0, jc, Wvvvo_o, Wovoo_t, t2, eps_o, eps_v):
+    """t3[i, j0:j0+jc] chunk (j,k,a,b,c): jc stacked `_t3c_slab_ij` slabs,
+    each contraction one product over the whole chunk."""
+    J = slice(j0, j0 + jc)
+    Wi = Wvvvo_o[i]
+    t2i = t2[i]
+    t2_i2 = t2[:, i]
+    WJ = Wvvvo_o[J]
+    t2J = t2[J]
+    t2_J2 = t2[:, J]
+    t3 = contract("bae,kjce->jkabc", Wi, t2_J2)
+    t3 += contract("cae,jkbe->jkabc", Wi, t2J)
+    t3 += contract("kace,jbe->jkabc", Wvvvo_o, t2_i2[J])
+    t3 += contract("kbce,jae->jkabc", Wvvvo_o, t2i[J])
+    t3 += contract("jcbe,kae->jkabc", WJ, t2i)
+    t3 += contract("jabe,kce->jkabc", WJ, t2_i2)
+    t3 -= contract("jkmc,mab->jkabc", Wovoo_t[J], t2i)
+    t3 -= contract("kjmb,mac->jkabc", Wovoo_t[:, J], t2i)
+    t3 -= contract("jmb,kmca->jkabc", Wovoo_t[i, J], t2)
+    t3 -= contract("jma,kmcb->jkabc", Wovoo_t[J, i], t2)
+    t3 -= contract("kma,jmbc->jkabc", Wovoo_t[:, i], t2J)
+    t3 -= contract("kmc,jmba->jkabc", Wovoo_t[i], t2J)
+    denom = (eps_o[i] + eps_o[J][:, None, None, None, None]
+             + eps_o[None, :, None, None, None]
+             - eps_v[None, None, :, None, None]
+             - eps_v[None, None, None, :, None]
+             - eps_v[None, None, None, None, :])
+    return t3 / denom
+
+
+def _chunk_pair_energies(t3, Lext, Eext, Fov, Evovv, t1e, t2we, t2wr):
+    """Per-j (T) energies of a (j,k,a,b,c) chunk against one set of
+    external operands (j-windows for the (i,j) role, the fixed-i row
+    broadcast to the chunk for the (j,i) role).  Returns e[j]."""
+    td = t3 - t3.swapaxes(2, 4)
+    T = 2.0 * t3 - t3.swapaxes(3, 4) - t3.swapaxes(2, 4)
+    X1 = contract("jkabc,jkbc->ja", td, Lext)
+    X2 = contract("jkabc,kc->jab", td, Fov)
+    X2 += contract("jkabc,dkbc->jad", T, Evovv)
+    X2l = contract("jkabc,jklc->jlab", T, Eext)
+    e = 2.0 * contract("ja,ja->j", t1e, X1)
+    e += contract("jab,jab->j", t2we, X2)
+    e -= contract("jlab,jlab->j", t2wr, X2l)
+    return e
+
+
+def _t_vikings_row_sym_jc(i, Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov,
+                          eps, t1, t2, no, jc):
+    """Fixed-i (T) row, j-chunked and pair-symmetric: t3[j,i,k]^{abc} =
+    t3[i,j,k]^{bac}, so a slab built for j >= i serves both the (i,j) and
+    the (j,i) contributions.  Chunks of jc tile [0, no) from the one that
+    holds i; per-j masks keep the triangle.  Requires jc | no."""
+    eps_o, eps_v = eps[:no], eps[no:]
+    t2w = 4.0 * t2 - 2.0 * t2.swapaxes(2, 3)
+    e = 0.0
+    for c in range(i // jc, no // jc):
+        j0 = c * jc
+        J = slice(j0, j0 + jc)
+        jj = list(range(j0, j0 + jc))
+        t3 = _t3c_slab_iJ(i, j0, jc, Wvvvo_o, Wovoo_t, t2, eps_o, eps_v)
+        e_ij = _chunk_pair_energies(
+            t3, Loovv[J], Eooov[J], Fov, Evovv,
+            t1[i].expand((jc,) + t1[i].shape), t2w[i, J],
+            t2w[i].expand((jc,) + t2w[i].shape))
+        e_ji = _chunk_pair_energies(
+            t3.swapaxes(2, 3), Loovv[i].expand((jc,) + Loovv[i].shape),
+            Eooov[i].expand((jc,) + Eooov[i].shape), Fov, Evovv,
+            t1[J], t2w[J, i], t2w[J])
+        for n, j in enumerate(jj):
+            if j >= i:
+                e = e + e_ij[n]
+            if j > i:
+                e = e + e_ji[n]
+    return e
+
+
+def t_scan_flops(no, nv, sym=True):
+    """Analytic flop count of the slab-scan (T) energy (pycc_tpu's count):
+    per (i,j) slab, six 2*no*nv^4 W-terms, six 2*no^2*nv^3 Wovoo terms and
+    the no*nv^3 denominator; per consumed ordered pair, the 2*no*nv^4 Evovv
+    product, the td/T assembly and the small X contractions."""
+    pairs = no * (no + 1) // 2 if sym else no * no
+    per_slab = (12.0 * no * nv ** 4 + 12.0 * no ** 2 * nv ** 3
+                + no * nv ** 3)
+    per_energy = (2.0 * no * nv ** 4 + 2.0 * no ** 2 * nv ** 3
+                  + 10.0 * no * nv ** 3)
+    n_energy = no * no
+    return pairs * per_slab + n_energy * per_energy
+
+
+def t_vikings_scan_core(Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps,
+                        t1, t2, no, sym=True, slab_dtype=None, jc=None):
+    """Slice-fed (T) energy, the plain slab scan, as a 0-d tensor.
+
+    sym=True builds each T3 slab once per unordered pair, jc j-values at a
+    time (default 2 when no is even, else 1; jc must divide no); sym=False
+    walks every ordered pair."""
+    if slab_dtype is not None:
+        from .ccwfn import _not_ported
+        raise _not_ported("t_vikings_scan_core(slab_dtype=...)",
+                          "Queue 1, item 3b (bf16 slabs of the (T) scan)")
+    if sym:
+        if jc is None:
+            jc = 2 if no % 2 == 0 else 1
+        if no % jc:
+            raise ValueError("jc=%d must divide no=%d" % (jc, no))
+    e = 0.0
+    for i in range(no):
+        if sym:
+            e = e + _t_vikings_row_sym_jc(i, Wvvvo_o, Wovoo_t, Evovv, Eooov,
+                                          Loovv, Fov, eps, t1, t2, no, jc)
+        else:
+            e = e + _t_vikings_row(i, Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv,
+                                   Fov, eps, t1, t2, no)
+    return e
+
+
+def scan_slices(cc):
+    """The integral slices the (T) row scan consumes, cut once from the
+    full ERI/L as contiguous tensors on cc's device: (Wvvvo_o, Wovoo_t,
+    Evovv, Eooov, Loovv, Fov, eps)."""
+    o, v = _slices(cc.no)
+    ERI, L, F = cc.H.ERI, cc.H.L, cc.H.F
+    Wvvvo_o, Wovoo_t = slab_layouts(ERI[v, v, v, o], ERI[o, v, o, o])
+    return (Wvvvo_o, Wovoo_t, ERI[v, o, v, v].contiguous(),
+            ERI[o, o, o, v].contiguous(), L[o, o, v, v].contiguous(),
+            F[o, v].contiguous(), F.diagonal().contiguous())
+
+
+def t_vikings_scan(cc):
+    """The (T) energy of a converged ccwfn on full storage, as a 0-d
+    tensor: the slices once, then one K2 row per occupied index (the CUDA
+    kernel on CUDA tensors, its plain version on CPU tensors)."""
+    from .ccwfn import _not_ported
+    storage = getattr(cc, "storage", "full")
+    if storage == "df":
+        raise _not_ported("t_vikings_scan(storage='df')",
+                          "Queue 1, item 5 (DF storage)")
+    if storage == "blocked":
+        raise _not_ported("t_vikings_scan(storage='blocked')",
+                          "Queue 1, item 10 (blocked storage and mixed "
+                          "precision)")
+    from .ops.kernels.triples import t_vikings_rows
+    return t_vikings_rows(*scan_slices(cc), cc.t1, cc.t2, cc.no)

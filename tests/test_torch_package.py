@@ -25,6 +25,7 @@ def _wfn():
 
 def test_import_loads_no_jax_or_triton():
     code = ("import sys, pycc_tpu_torch, pycc_tpu_torch.ops.kernels, "
+            "pycc_tpu_torch.ops.kernels.triples, pycc_tpu_torch.triples, "
             "pycc_tpu_torch.utils.synth; "
             "print(sorted(m for m in ('jax', 'triton') if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -59,12 +60,17 @@ def test_cuda_device_without_a_card_raises():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"model": "CCSD(T)"}, {"model": "CC3"}, {"storage": "df"},
+    {"make_t3_density": True}, {"model": "CC3"}, {"storage": "df"},
     {"storage": "blocked"}, {"local": "PNO"}, {"mesh": object()},
 ])
 def test_options_outside_the_slice_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         pycc_tpu_torch.ccwfn(_wfn(), **kwargs)
+
+
+def test_t3_scan_names_the_cc3_item():
+    with pytest.raises(NotImplementedError, match="item 8"):
+        pycc_tpu_torch.ccwfn(_wfn(), t3_scan=True)
 
 
 @pytest.mark.parametrize("kwargs", [
