@@ -7,12 +7,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
   1. device: a CUDA card must be present; print its name, torch/CUDA
      versions and nvidia-smi's name and power limit;
   2. build the K1 (csrc/vvvv_nt.cu) and K2 (csrc/t_row.cu) kernels with
-     nvcc, both at once;
-  3. K1 against its plain version (A @ B.T) at three shape groups, each in
-     float64, float32 and bf16->float32, with the median of 5 timed runs;
+     nvcc, both at once, and count the tensor-core instructions (DMMA for
+     float64, HMMA for bf16) that cuobjdump finds in each;
+  3. K1 against its plain version (A @ B.T, also its library yardstick)
+     at three shape groups, each in float64, float32 and bf16->float32,
+     with the median of 5 timed runs and the least time the card could
+     take (bound_ms: the larger of bytes / 3.35 TB/s and flop / peak);
   4. K2 against its plain version (t_energy_row_reference) at (no, nv) =
      (4, 19), (7, 45) and (24, 114), each in float64, float32 and
-     bf16->float32, with the median of 5 timed runs of one row;
+     bf16->float32, with the median of 5 timed runs of one row and its
+     bound;
   5. the frozen oracles on device="cuda" in DP (CCSD, CCD, CC2 and the
      CCSD(T) triples on H2O), and precision="SP" against DP;
   6. a real size: (H2O)_6/cc-pVDZ CCSD(T) (144 basis functions, (no, nv) =
@@ -22,8 +26,10 @@ The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
 
+import collections
 import json
 import math
+import os
 import statistics
 import subprocess
 import time
@@ -32,6 +38,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 import pycc_tpu_torch
+from pycc_tpu_torch.ops.kernels import build as kernel_build
 from pycc_tpu_torch.data import moldict
 from pycc_tpu_torch import triples
 from pycc_tpu_torch.ops.kernels import triples as k2
@@ -73,6 +80,12 @@ K1_SHAPES = [
     ((1000, 4999, 5003), "ragged"),
     ((576, 12996, 12996), "(H2O)_6/cc-pVDZ ladder"),
 ]
+# the H100 SXM data sheet's dense peaks (at its 700 W limit): HBM bytes/s,
+# and flop/s for the arithmetic each kernel does in each type (float64 on
+# the FP64 tensor cores, float32 on the CUDA cores, bf16 on the tensor cores)
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {"f64": 67e12, "f32": 67e12, "bf16->f32": 989e12}
+
 # (label, operand dtype, bf16 mode, tolerance on max|err| / max|ref|)
 K1_TYPES = [
     ("f64", torch.float64, False, 1e-12),
@@ -97,6 +110,27 @@ def phase_device():
     return name, smi
 
 
+def bound(work, nbytes):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the bytes over the HBM rate and the flop over the peaks; work is
+    [(flop, type label)], each part at its type's peak."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = sum(flops / PEAK_FLOPS[label] for flops, label in work) * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _sass_mma(name):
+    """Counts of the tensor-core instructions in a built kernel library."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    sass = subprocess.run(
+        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
+         kernel_build.paths(name)[1]],
+        capture_output=True, text=True, check=True).stdout
+    return dict(collections.Counter(
+        w.rstrip(";") for line in sass.splitlines() for w in line.split()
+        if w.startswith(("DMMA", "HMMA"))))
+
+
 def phase_build():
     t0 = time.perf_counter()
     mods = (("vvvv_nt", vvvv), ("t_row", k2))
@@ -108,6 +142,12 @@ def phase_build():
         for line in log.splitlines():
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print("[build] %s: %s" % (name, line.strip()))
+    for name, _ in mods:
+        mma = _sass_mma(name)
+        print("[build] %s SASS tensor-core instructions: %s" % (name, mma))
+        for op in ("DMMA", "HMMA"):     # float64 and bf16 tensor-core paths
+            if not any(x.startswith(op) for x in mma):
+                raise AssertionError("%s has no %s instruction" % (name, op))
 
 
 def _median_ms(fn, reps=5):
@@ -150,14 +190,21 @@ def phase_kernel(smi):
             A @ B.T
             torch.cuda.synchronize()
             ms = _median_ms(lambda: vvvv_nt(A, B, bf16=bf16))
-            plain_ms = _median_ms(lambda: A @ B.T)
-            tflops = 2.0 * m * n * k / (ms * 1e-3) / 1e12
+            plain_ms = _median_ms(lambda: vvvv_nt_reference(A, B, bf16=bf16))
+            library_ms = _median_ms(lambda: A @ B.T)
+            flops = 2.0 * m * n * k
+            elem = 2 if bf16 else A.element_size()
+            nbytes = (m + n) * k * elem + m * n * (4 if bf16 else elem)
+            bound_ms, bound_by = bound([(flops, label)], nbytes)
             print("[K1] %-22s (M,N,K)=(%d,%d,%d) %-9s max|err|=%.3e rel=%.3e "
-                  "(tol %.0e)  kernel %.3f ms (%.2f TFLOP/s)  A@B.T %.3f ms  | %s"
-                  % (what, m, n, k, label, err, rel, tol, ms, tflops,
-                     plain_ms, smi))
-            cells[(m, n, k), label] = dict(max_abs_err=err, ms=ms,
-                                           plain_ms=plain_ms)
+                  "(tol %.0e)  kernel %.3f ms (%.2f TFLOP/s)  bound %.3f ms "
+                  "(%s, %.0f%% of it)  plain %.3f ms  A@B.T %.3f ms  | %s"
+                  % (what, m, n, k, label, err, rel, tol, ms,
+                     flops / (ms * 1e-3) / 1e12, bound_ms, bound_by,
+                     100.0 * bound_ms / ms, plain_ms, library_ms, smi))
+            cells[(m, n, k), label] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
             del A, B
         del A64, B64
         torch.cuda.empty_cache()
@@ -182,6 +229,31 @@ def k2_row_flops(no, nv):
     """The kernel's arithmetic for one row: o^2 v^3 t3 elements, each
     built with 6 (v + o) FMA and projected with 2 v + 3 o more."""
     return 2.0 * no ** 2 * nv ** 3 * (8 * nv + 9 * no)
+
+
+def k2_build_flops(no, nv):
+    """The t3 build's share of k2_row_flops: 6 (v + o) FMA an element."""
+    return 2.0 * no ** 2 * nv ** 3 * 6 * (nv + no)
+
+
+def k2_work(no, nv, label):
+    """[(flop, type label)] of one row: in the bf16 mode the build
+    multiplies bf16 operands on the bf16 tensor cores and the projections
+    run in float32; otherwise all of it is in the operands' type."""
+    if label != "bf16->f32":
+        return [(k2_row_flops(no, nv), label)]
+    build = k2_build_flops(no, nv)
+    return [(build, label), (k2_row_flops(no, nv) - build, "f32")]
+
+
+def k2_row_bytes(no, nv, in_bytes, acc_bytes):
+    """One row's operands read once (Wv, Ot, Ev, Eo, L and t2 in the
+    streamed type, Fov and eps in the tile type) and its seven outputs
+    written once."""
+    streamed = (2 * no * nv ** 3 + 2 * no ** 3 * nv + no ** 2 * nv ** 2 * 2)
+    small = no * nv + no + nv
+    outs = 2 * no * nv + 4 * no * nv ** 2 + no ** 2 * nv ** 2
+    return streamed * in_bytes + (small + outs) * acc_bytes
 
 
 def _k2_inputs(no, nv, gen):
@@ -227,20 +299,32 @@ def phase_k2(smi, shapes=K2_SHAPES):
                 raise AssertionError("K2 %s %s: max|err|/max|ref| %s (tol %.0e)"
                                      % (label, (no, nv), rels, tol))
             i = rows[0]
-            t_energy_row(i, *ops, no, stream_dtype=sd)   # warm-up
-            t_energy_row_reference(i, *ops, no, stream_dtype=sd)
+            # the row-independent operands, formed once as t_vikings_rows
+            # forms them for all rows
+            derived = k2.t_row_derived(ops[1], ops[2], ops[7], sd)
+            t_energy_row(i, *ops, no, stream_dtype=sd, derived=derived)
+            t_energy_row_reference(i, *ops, no, stream_dtype=sd)   # warm-up
             torch.cuda.synchronize()
-            ms = _median_ms(lambda: t_energy_row(i, *ops, no, stream_dtype=sd))
+            ms = _median_ms(lambda: t_energy_row(
+                i, *ops, no, stream_dtype=sd, derived=derived))
             plain_ms = _median_ms(
                 lambda: t_energy_row_reference(i, *ops, no, stream_dtype=sd))
+            del derived
+            in_bytes = 2 if sd == torch.bfloat16 else ops[0].element_size()
+            acc_bytes = 4 if sd == torch.bfloat16 else in_bytes
+            bound_ms, bound_by = bound(
+                k2_work(no, nv, label),
+                k2_row_bytes(no, nv, in_bytes, acc_bytes))
             print("[K2] %-20s (no,nv)=(%d,%d) %-9s rows %s  max|err|/max|ref|: "
                   "%s (tol %.0e)  row %d: kernel %.3f ms (%.2f TFLOP/s)  "
-                  "plain %.3f ms  | %s"
+                  "bound %.3f ms (%s, %.0f%% of it)  plain %.3f ms  | %s"
                   % (what, no, nv, label, ",".join(map(str, rows))
                      if len(rows) < no else "all", rels, tol, i, ms,
-                     k2_row_flops(no, nv) / (ms * 1e-3) / 1e12, plain_ms, smi))
-            cells[(no, nv), label] = dict(max_abs_err=err, ms=ms,
-                                          plain_ms=plain_ms)
+                     k2_row_flops(no, nv) / (ms * 1e-3) / 1e12, bound_ms,
+                     bound_by, 100.0 * bound_ms / ms, plain_ms, smi))
+            cells[(no, nv), label] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
             del ops
         del ops64
         torch.cuda.empty_cache()

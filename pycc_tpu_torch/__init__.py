@@ -1,9 +1,10 @@
 """pycc_tpu_torch: the PyTorch/CUDA port of pycc_tpu.
 
 RHF (host numpy and the native C++ ERI engine) -> MO Hamiltonian (torch)
--> CCD / CC2 / CCSD amplitudes on one torch device, with the particle-
-particle ladder through a hand-written CUDA kernel on NVIDIA Hopper.
-Every entry point takes an explicit `device` (default "cpu") and dtype or
+-> CCD / CC2 / CCSD / CCSD(T) on one torch device, with the particle-
+particle ladder and the (T) rows through hand-written CUDA kernels on
+NVIDIA Hopper.  Every entry point takes a `device` (default "cuda", which
+raises without a card; the CPU is used only when asked for) and dtype or
 precision; nothing picks a device by itself.  pycc_tpu, beside it, is the
 reference the port is tested against; this package never imports JAX.
 """

@@ -87,7 +87,7 @@ def _reject(kwargs, table, where):
 class ccwfn:
     """An RHF-CC wave function and energy object on one torch device."""
 
-    def __init__(self, scf_wfn, model="CCSD", precision="DP", device="cpu",
+    def __init__(self, scf_wfn, model="CCSD", precision="DP", device="cuda",
                  storage="full", **kwargs):
         time_init = time.time()
         model = model.upper()

@@ -44,7 +44,7 @@ class Hamiltonian:
         return self.ERI[v, v, v, v].contiguous()
 
     @classmethod
-    def from_numpy(cls, F, ERI, L, no, device="cpu", dtype=torch.float64,
+    def from_numpy(cls, F, ERI, L, no, device="cuda", dtype=torch.float64,
                    mu=(), m=(), p=(), Q=()):
         """Carry host arrays (e.g. pycc_tpu's Hamiltonian, via numpy) onto
         `device`: F/ERI/L and the real property matrices in `dtype`, the
@@ -77,7 +77,7 @@ def _mo_eri_dirac(ERI_ao, C):
     return t.swapaxes(1, 2).contiguous()
 
 
-def build_hamiltonian(wfn, device="cpu", dtype=torch.float64):
+def build_hamiltonian(wfn, device="cuda", dtype=torch.float64):
     """Build the active-space Hamiltonian from an SCF wavefunction.
 
     `wfn` is a pycc_tpu_torch.scf.RHFWavefunction.  The AO integrals come

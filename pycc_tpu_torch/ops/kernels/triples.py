@@ -39,8 +39,8 @@ def _library():
     if _LIB is None:
         p = ctypes.c_void_p
         _LIB = _build.load("t_row", tuple(_ENTRIES.values()),
-                           [ctypes.c_int] + [p] * 15
-                           + [ctypes.c_int, ctypes.c_int, p])
+                           [ctypes.c_int] + [p] * 17
+                           + [ctypes.c_int] * 3 + [p])
         _LIB.t_row_smem_bytes.argtypes = [ctypes.c_int] * 3
         _LIB.t_row_smem_bytes.restype = ctypes.c_longlong
     return _LIB
@@ -81,15 +81,31 @@ def t_energy_row_reference(i, Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov,
     return tuple(torch.stack(x) for x in zip(*rows))
 
 
+def t_row_derived(Wovoo_t, Evovv, t2, stream_dtype=None):
+    """(t2m, Otm, G): the operands the kernel derives from Wovoo_t, Evovv
+    and t2, in the streamed type.  t2 and Wovoo_t get the occupied
+    contraction index last, so that the kernel streams every build operand
+    along its contraction index, and Otm carries the minus sign of the six
+    Wovoo terms; G = 2 Ev[d,k,b,c] - Ev[d,k,c,b] is the Z1 operand, in the
+    streamed type as the Pallas kernel forms it.  None depends on the row,
+    so `t_vikings_rows` forms them once for all rows."""
+    sd, _ = _types(t2.dtype, stream_dtype)
+    Wo, Ev, t2s = (x.to(sd) for x in (Wovoo_t, Evovv, t2))
+    return (t2s.permute(0, 2, 3, 1).contiguous(),
+            Wo.permute(0, 1, 3, 2).neg().contiguous(),
+            (2.0 * Ev - Ev.transpose(2, 3)).contiguous())
+
+
 def t_energy_row(i, Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps, t2, no,
-                 stream_dtype=None):
+                 stream_dtype=None, derived=None):
     """(X1a (o,v), X1m (o,v), Z1, Z1m, Z2a, Z2m (o,v,v), X2l (o,o,v,v)) of
     row i.  Operands of one dtype, float64 or float32; stream_dtype=None
     keeps it, float32 or bfloat16 streams them in that type (bfloat16 is
     accumulated in float32, with Fov and eps in float32).  The cast is
-    made on each call.  The outputs are in the accumulate type.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel
-    (`t_energy_row.launches` counts the launches)."""
+    made on each call.  derived, if given, is `t_row_derived` of the same
+    operands and stream_dtype; else it is formed here.  The outputs are in
+    the accumulate type.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel (`t_energy_row.launches` counts the launches)."""
     ops = (Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps, t2)
     if all(x.device.type == "cpu" for x in ops):
         return t_energy_row_reference(i, *ops, no, stream_dtype=stream_dtype)
@@ -122,16 +138,30 @@ def t_energy_row(i, Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps, t2, no,
         raise ValueError("t_energy_row: (no, nv) = (%d, %d) needs %d bytes of "
                          "shared memory a block (the card has %d)"
                          % (no, nv, smem, _SMEM_MAX))
-    Wv, Wo, Ev, Eo, L, t2s = (x.to(sd) for x in (Wvvvo_o, Wovoo_t, Evovv,
-                                                 Eooov, Loovv, t2))
+    if derived is None:
+        derived = t_row_derived(Wovoo_t, Evovv, t2, stream_dtype)
+    want = ((no, nv, nv, no), (no, no, nv, no), (nv, no, nv, nv))
+    if (tuple(tuple(x.shape) for x in derived) != want
+            or any(x.dtype != sd or x.device != dev or not x.is_contiguous()
+                   for x in derived)):
+        raise ValueError("t_energy_row: derived is not t_row_derived of "
+                         "these operands")
+    t2m, Otm, G = derived
+    Wv, Ev, Eo, L, t2s = (x.to(sd) for x in (Wvvvo_o, Evovv, Eooov, Loovv,
+                                             t2))
     Fa, ea = Fov.to(acc), eps.to(acc)
-    outs = tuple(torch.zeros(s, dtype=acc, device=dev) for s in
+    outs =tuple(torch.zeros(s, dtype=acc, device=dev) for s in
                  ((no, nv), (no, nv), (no, nv, nv), (no, nv, nv),
                   (no, nv, nv), (no, nv, nv), (no, no, nv, nv)))
+    # two elements a copy when every staged row starts on an even element
+    pair = 2 * Wv.element_size()
+    vec = 2 if (no % 2 == 0 and nv % 2 == 0 and all(
+        x.data_ptr() % pair == 0 for x in (Wv, t2m, Otm, Ev, G, t2s))) else 1
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = getattr(lib, _ENTRIES[sd])(
-        i, *(x.data_ptr() for x in (Wv, Wo, Ev, Eo, L, Fa, ea, t2s) + outs),
-        no, nv, stream)
+        i, *(x.data_ptr() for x in (Wv, t2m, Otm, Ev, G, Eo, L, Fa, ea, t2s)
+             + outs),
+        no, nv, vec, stream)
     if rc != 0:
         raise RuntimeError("t_row launch failed: %s"
                            % lib.t_row_error_string(rc).decode())
@@ -160,10 +190,12 @@ def t_vikings_rows(Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps, t1, t2,
     pycc_tpu's t_vikings_pallas.  The row energies are summed on the
     device; the result is a 0-d tensor for the caller's one host read."""
     t2w = 4.0 * t2 - 2.0 * t2.swapaxes(2, 3)
+    derived = (None if t2.device.type == "cpu"
+               else t_row_derived(Wovoo_t, Evovv, t2))
     e = None
     for i in range(no):
         outs = t_energy_row(i, Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov,
-                            eps, t2, no)
+                            eps, t2, no, derived=derived)
         ei = t_row_finalize(i, outs, t1, t2w)
         e = ei if e is None else e + ei
     return e

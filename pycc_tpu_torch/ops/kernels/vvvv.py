@@ -20,8 +20,11 @@ from . import build as _build
 _LIB = None
 
 _MAX_GRID_Y = 65535
-_BM = 64            # the kernel's block-tile rows (csrc/vvvv_nt.cu: BM)
+_BN = 128           # the kernels' block-tile columns (csrc/vvvv_nt.cu: BN)
 _INT_MAX = 2 ** 31 - 1
+# the widest copy each kernel takes, and the narrowest it can fall to
+_COPY_BYTES = {torch.float64: (16, 8), torch.float32: (16, 4),
+               torch.bfloat16: (16, 2)}
 
 
 def build():
@@ -37,8 +40,21 @@ def _library():
         _LIB = _build.load(
             "vvvv_nt", ("vvvv_nt_f64", "vvvv_nt_f32", "vvvv_nt_bf16"),
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p])
     return _LIB
+
+
+def copy_bytes(A, B):
+    """The widest shared-memory copy (bytes) the kernel may use for these
+    operands: each row starts at an offset of K * element bytes, so a
+    16-byte copy needs that, and both pointers, 16-byte aligned."""
+    K, elem = A.shape[1], A.element_size()
+    n, low = _COPY_BYTES[A.dtype]
+    while n > low and ((K * elem) % n or A.data_ptr() % n
+                       or B.data_ptr() % n):
+        n //= 2
+    return n
 
 
 def vvvv_nt_reference(A, B, bf16=False):
@@ -86,7 +102,7 @@ def vvvv_nt(A, B, bf16=False):
                         "got %s" % A.dtype)
     M, K = A.shape
     N = B.shape[0]
-    if max(M, N, K) > _INT_MAX or -(-M // _BM) > _MAX_GRID_Y:
+    if max(M, N, K) > _INT_MAX or -(-N // _BN) > _MAX_GRID_Y:
         raise ValueError("vvvv_nt: shape (M, N, K) = (%d, %d, %d) exceeds the "
                          "kernel's grid" % (M, N, K))
     C = torch.empty((M, N), dtype=out_dtype, device=A.device)
@@ -95,7 +111,7 @@ def vvvv_nt(A, B, bf16=False):
     lib = _library()
     stream = torch.cuda.current_stream(A.device).cuda_stream
     rc = getattr(lib, entry)(A.data_ptr(), B.data_ptr(), C.data_ptr(),
-                             M, N, K, stream)
+                             M, N, K, copy_bytes(A, B), stream)
     if rc != 0:
         raise RuntimeError("vvvv_nt launch failed: %s"
                            % lib.vvvv_nt_error_string(rc).decode())

@@ -12,7 +12,7 @@ import torch
 from ..hamiltonian import Hamiltonian
 
 
-def synthetic_hamiltonian(no, nv, seed=0, dtype=torch.float64, device="cpu",
+def synthetic_hamiltonian(no, nv, seed=0, dtype=torch.float64, device="cuda",
                           scale=0.05):
     rng = np.random.default_rng(seed)
     nact = no + nv

@@ -25,7 +25,7 @@ NO, NV, SEED = 4, 12, 3
 @functools.lru_cache(maxsize=None)
 def _inputs():
     jH = jsynth(NO, NV, seed=SEED)
-    tH = tsynth(NO, NV, seed=SEED)
+    tH = tsynth(NO, NV, seed=SEED, device="cpu")
     _, t2, _ = jmp2(jH)
     t1 = 0.01 * np.random.default_rng(11).standard_normal((NO, NV))
     return jH, tH, t1, np.array(t2)

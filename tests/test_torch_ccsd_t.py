@@ -28,7 +28,7 @@ def _solve(cc, e_conv=1e-12, r_conv=1e-12):
 
 def _triples(basis, precision="DP", e_conv=1e-12, r_conv=1e-12):
     cc = pycc_tpu_torch.ccwfn(_wfn(basis), model="CCSD(T)",
-                              precision=precision)
+                              precision=precision, device="cpu")
     e = _solve(cc, e_conv, r_conv)
     return cc, e, e - float(cc.cc_energy(cc.t1, cc.t2))
 
@@ -57,7 +57,8 @@ def test_single_precision_triples_land_near_double():
 
 
 def test_unconverged_solve_returns_ccsd_without_triples():
-    cc = pycc_tpu_torch.ccwfn(_wfn("sto-3g"), model="CCSD(T)")
+    cc = pycc_tpu_torch.ccwfn(_wfn("sto-3g"), model="CCSD(T)",
+                              device="cpu")
     with pytest.warns(UserWarning, match="did NOT converge"):
         with contextlib.redirect_stdout(io.StringIO()):
             e = cc.solve_cc(e_conv=1e-12, r_conv=1e-12, maxiter=3)

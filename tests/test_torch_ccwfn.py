@@ -35,7 +35,8 @@ def _solve(cc, **kw):
     ("cc-pvdz", "CC2", False, -0.215857544656),
 ])
 def test_oracles(basis, model, freeze_core, oracle):
-    cc = pycc_tpu_torch.ccwfn(_wfn(basis, freeze_core), model=model)
+    cc = pycc_tpu_torch.ccwfn(_wfn(basis, freeze_core), model=model,
+                              device="cpu")
     ecc = _solve(cc, e_conv=1e-12, r_conv=1e-12, maxiter=100)
     assert cc.converged
     assert abs(ecc - oracle) < 1e-11
@@ -68,15 +69,15 @@ def test_first_iterations_follow_pycc_tpu():
     from .common import scf
     ref = _trajectory("pycc_tpu", pycc_tpu.ccwfn(scf("H2O", "cc-pvdz")))
     port = _trajectory("pycc_tpu_torch",
-                       pycc_tpu_torch.ccwfn(_wfn("cc-pvdz")))
+                       pycc_tpu_torch.ccwfn(_wfn("cc-pvdz"), device="cpu"))
     assert len(ref) == len(port) == 5
     assert max(abs(a - b) for a, b in zip(ref, port)) < 1e-10
 
 
 def test_single_precision_lands_near_double():
     wfn = _wfn("cc-pvdz")
-    e_dp = _solve(pycc_tpu_torch.ccwfn(wfn), e_conv=1e-10, r_conv=1e-10)
-    cc = pycc_tpu_torch.ccwfn(wfn, precision="SP")
+    e_dp = _solve(pycc_tpu_torch.ccwfn(wfn, device="cpu"), e_conv=1e-10, r_conv=1e-10)
+    cc = pycc_tpu_torch.ccwfn(wfn, precision="SP", device="cpu")
     assert cc.t2.dtype == torch.float32
     e_sp = _solve(cc, e_conv=1e-8, r_conv=1e-7)
     assert abs(e_sp - e_dp) < 1e-6

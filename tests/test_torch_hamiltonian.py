@@ -16,7 +16,7 @@ from .common import scf
 @functools.lru_cache(maxsize=None)
 def _pair():
     wfn = scf("H2O", "cc-pvdz")
-    return jham.build_hamiltonian(wfn), tham.build_hamiltonian(wfn)
+    return jham.build_hamiltonian(wfn), tham.build_hamiltonian(wfn, device="cpu")
 
 
 def _gap(a, b):
@@ -50,7 +50,7 @@ def test_vvvv_block_is_contiguous_copy():
 def test_from_numpy_carries_arrays_and_casts():
     ref, _ = _pair()
     H = tham.Hamiltonian.from_numpy(ref.F, ref.ERI, ref.L, ref.no,
-                                    dtype=torch.float32, mu=ref.mu, m=ref.m)
+                                    device="cpu", dtype=torch.float32, mu=ref.mu, m=ref.m)
     assert H.ERI.dtype == torch.float32 and H.mu[0].dtype == torch.float32
     assert H.m[0].dtype == torch.complex128
     assert _gap(ref.ERI, H.ERI.double()) < 1e-6

@@ -2,6 +2,7 @@
 option outside the ported slice refused by name."""
 
 import ast
+import inspect
 import os
 import subprocess
 import sys
@@ -59,6 +60,18 @@ def test_cuda_device_without_a_card_raises():
         pycc_tpu_torch.ccwfn(_wfn(), device="cuda")
 
 
+def test_entry_points_default_to_the_card():
+    from pycc_tpu_torch.hamiltonian import Hamiltonian, build_hamiltonian
+    from pycc_tpu_torch.utils.synth import synthetic_hamiltonian
+    for fn in (pycc_tpu_torch.ccwfn.__init__, build_hamiltonian,
+               Hamiltonian.from_numpy, synthetic_hamiltonian):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        pycc_tpu_torch.ccwfn(_wfn())
+
+
 @pytest.mark.parametrize("kwargs", [
     {"make_t3_density": True}, {"model": "CC3"}, {"storage": "df"},
     {"storage": "blocked"}, {"local": "PNO"}, {"mesh": object()},
@@ -77,7 +90,7 @@ def test_t3_scan_names_the_cc3_item():
     {"bf16_until": 1e-3}, {"chk": "amps.npz"}, {"resume": True},
 ])
 def test_solver_options_outside_the_slice_raise(kwargs):
-    cc = pycc_tpu_torch.ccwfn(_wfn())
+    cc = pycc_tpu_torch.ccwfn(_wfn(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cc.solve_cc(**kwargs)
 

@@ -127,7 +127,8 @@ def _synthetic(no, nv, seed=3):
 
 
 def _port_cc(no, F, ERI, L, t1, t2):
-    return SimpleNamespace(no=no, H=Hamiltonian.from_numpy(F, ERI, L, no),
+    return SimpleNamespace(no=no, H=Hamiltonian.from_numpy(F, ERI, L, no,
+                                                         device="cpu"),
                            t1=torch.tensor(t1), t2=torch.tensor(t2))
 
 

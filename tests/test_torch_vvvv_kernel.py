@@ -11,7 +11,8 @@ import torch
 
 torch.set_num_threads(1)
 
-from pycc_tpu_torch.ops.kernels.vvvv import vvvv_nt, vvvv_nt_reference
+from pycc_tpu_torch.ops.kernels.vvvv import (copy_bytes, vvvv_nt,
+                                             vvvv_nt_reference)
 
 
 @pytest.fixture
@@ -55,6 +56,43 @@ def test_kernel_matches_plain_version_on_card(cuda_device, mnk, dtype, bf16,
     ref = vvvv_nt_reference(A, B, bf16=bf16)
     assert vvvv_nt.launches == launches + 1
     assert out.dtype == ref.dtype
+    assert ((out - ref).abs().max() / ref.abs().max()).item() < tol
+
+
+@pytest.mark.parametrize("dtype,k,want", [
+    (torch.float64, 16, 16), (torch.float64, 77, 8),
+    (torch.float32, 16, 16), (torch.float32, 34, 8), (torch.float32, 77, 4),
+    (torch.bfloat16, 16, 16), (torch.bfloat16, 36, 8),
+    (torch.bfloat16, 34, 4), (torch.bfloat16, 77, 2)])
+def test_copy_width_follows_the_row_alignment(dtype, k, want):
+    A = torch.zeros((3, k), dtype=dtype)
+    B = torch.zeros((5, k), dtype=dtype)
+    assert copy_bytes(A, B) == want
+    # a view one element in is aligned to its element size only
+    off = torch.zeros(3 * k + 1, dtype=dtype)[1:].view(3, k)
+    low = {torch.float64: 8, torch.float32: 4, torch.bfloat16: 2}[dtype]
+    assert copy_bytes(off, B) == low
+
+
+# M and N off the block tiles (64 x 128, 128 x 128), every copy width:
+# K = 64 (16-byte rows in every type), 36 (8-byte bf16 rows), 34 (8-byte
+# f32, 4-byte bf16 rows) and 77 (odd: 8-byte f64, 4-byte f32, 2-byte bf16)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bf16,tol", [
+    (torch.float64, False, 1e-12), (torch.float32, False, 1e-5),
+    (torch.float32, True, 2e-2)])
+@pytest.mark.parametrize("mnk", [(65, 129, 64), (70, 250, 36),
+                                 (129, 131, 34), (200, 257, 77)])
+def test_kernel_ragged_tiles_and_copy_widths_on_card(cuda_device, mnk, dtype,
+                                                     bf16, tol):
+    m, n, k = mnk
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    A = torch.randn((m, k), generator=g, device=cuda_device, dtype=dtype)
+    B = torch.randn((n, k), generator=g, device=cuda_device, dtype=dtype)
+    out = vvvv_nt(A, B, bf16=bf16)
+    torch.cuda.synchronize()
+    ref = vvvv_nt_reference(A, B, bf16=bf16)
+    assert out.shape == (m, n) and out.dtype == ref.dtype
     assert ((out - ref).abs().max() / ref.abs().max()).item() < tol
 
 
