@@ -10,20 +10,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
      nvcc, both at once, and count the tensor-core instructions (DMMA for
      float64, HMMA for bf16) that cuobjdump finds in each;
   3. K1 against its plain version (A @ B.T, also its library yardstick)
-     at three shape groups, each in float64, float32 and bf16->float32,
-     with the median of 5 timed runs and the least time the card could
-     take (bound_ms: the larger of bytes / 3.35 TB/s and flop / peak);
+     at four shape groups (the last one a-block of the DF ladder of
+     phase 7), each in float64, float32 and bf16->float32, with the
+     median of 5 timed runs and the least time the card could take
+     (bound_ms: the larger of bytes / 3.35 TB/s and flop / peak);
   4. K2 against its plain version (t_energy_row_reference) at (no, nv) =
      (4, 19), (7, 45) and (24, 114), each in float64, float32 and
-     bf16->float32, with the median of 5 timed runs of one row and its
-     bound;
+     bf16->float32, and at (24, 216) (phase 7's (T)) in float64, with the
+     median of timed runs of one row and its bound;
   5. the frozen oracles on device="cuda" in DP (CCSD, CCD, CC2 and the
-     CCSD(T) triples on H2O), and precision="SP" against DP;
-  6. a real size: (H2O)_6/cc-pVDZ CCSD(T) (144 basis functions, (no, nv) =
-     (24, 114) with the frozen core) through run_rhf -> ccwfn -> solve_cc,
-     then the same (T) through the two plain paths.
-The line before the last is the kernels' JSON summary; the last line is
-{"ok": true, "device": {...}}.
+     CCSD(T) triples on H2O), precision="SP" against DP, and the DF
+     (Cholesky) oracles: storage="df" CCSD on STO-3G and, from
+     run_rhf(df=True), on cc-pVDZ, and DF-direct CCSD(T) against dense;
+  6. a real size on full storage: (H2O)_6/cc-pVDZ CCSD(T) (144 basis
+     functions, (no, nv) = (24, 114) with the frozen core) through
+     run_rhf -> ccwfn -> solve_cc, then the same (T) through the two
+     plain paths;
+  7. [df] a real size over Cholesky factors, which full storage cannot
+     hold on 80 GB: (H2O)_6/aug-cc-pVDZ DF-CCSD(T) (246 basis functions,
+     (24, 216)) through run_rhf(df=True) -> ccwfn(storage="df") ->
+     solve_cc, with the host seconds, the ladder split into W assembly
+     and K1, and the (T) also through the plain pair-symmetric scan.
+The line before the last is the kernels' JSON summary (one entry for each
+kernel on each path); the last line is {"ok": true, "device": {...}}.
 """
 
 import collections
@@ -41,6 +50,7 @@ import pycc_tpu_torch
 from pycc_tpu_torch.ops.kernels import build as kernel_build
 from pycc_tpu_torch.data import moldict
 from pycc_tpu_torch import triples
+from pycc_tpu_torch.models import dfccsd
 from pycc_tpu_torch.ops.kernels import triples as k2
 from pycc_tpu_torch.ops.kernels import vvvv
 from pycc_tpu_torch.ops.kernels.triples import (t_energy_row,
@@ -64,6 +74,28 @@ FROZEN = {
 }
 REAL_SIZE = "(H2O)_6"
 
+# name: (E(SCF), Ecorr(CCSD), E(T)) over Cholesky factors, aug-cc-pVDZ,
+# frozen core, df_tol=1e-8.  E(SCF) and Ecorr(CCSD) from pycc_tpu in
+# float64 on a CPU host:
+#   wfn = run_rhf(moldict[name], "aug-cc-pvdz", freeze_core=True, df=True,
+#                 df_tol=1e-8)
+#   pycc_tpu.ccwfn(wfn, storage="df", df_tol=1e-8).solve_cc(e_conv=1e-10,
+#                                                           r_conv=1e-10)
+# (24 iterations, naux 2873 -> 2798).  E(T) from this package's float64
+# plain pair-symmetric scan (triples.t_vikings_scan_core on the
+# triples.t_scan_df_slices slices) on an H100, with which the K2 path
+# agreed to 4e-17; that run's E(SCF) and Ecorr(CCSD) were within 7e-13
+# and 1e-12 of pycc_tpu's.
+FROZEN_DF = {
+    "(H2O)_6": (-456.281955855946, -1.391551649523, -0.036743561234),
+}
+DF_SIZE = "(H2O)_6"
+DF_NO, DF_NV = 24, 216          # (H2O)_6/aug-cc-pVDZ with the frozen core
+DF_TOL = 1e-8
+# the a-block ladder_df launches K1 on there: (o^2, blk*v, v^2)
+DF_BLK = -(-DF_NV // dfccsd._ladder_blocks(DF_NV, 0))
+K1_DF_SHAPE = (DF_NO ** 2, DF_BLK * DF_NV, DF_NV ** 2)
+
 # frozen reference-suite values (tests/test_002, tests/test_004)
 # (basis, model, freeze_core, Ecorr; for CCSD(T) the (T) energy alone)
 ORACLES = [
@@ -79,7 +111,9 @@ K1_SHAPES = [
     ((16, 361, 361), "H2O/cc-pVDZ ladder"),
     ((1000, 4999, 5003), "ragged"),
     ((576, 12996, 12996), "(H2O)_6/cc-pVDZ ladder"),
+    (K1_DF_SHAPE, "(H2O)_6/aug DF ladder block"),
 ]
+K1_FULL_SHAPE = (576, 12996, 12996)
 # the H100 SXM data sheet's dense peaks (at its 700 W limit): HBM bytes/s,
 # and flop/s for the arithmetic each kernel does in each type (float64 on
 # the FP64 tensor cores, float32 on the CUDA cores, bf16 on the tensor cores)
@@ -211,10 +245,12 @@ def phase_kernel(smi):
     return cells
 
 
+# ((no, nv), what, rows checked (None: every row), types, timed runs)
 K2_SHAPES = [
-    ((4, 19), "H2O/cc-pVDZ fzc", None),          # None: every row
-    ((7, 45), "ragged", (0, 6)),
-    ((24, 114), "(H2O)_6/cc-pVDZ fzc", (0, 23)),
+    ((4, 19), "H2O/cc-pVDZ fzc", None, "all", 5),
+    ((7, 45), "ragged", (0, 6), "all", 5),
+    ((24, 114), "(H2O)_6/cc-pVDZ fzc", (0, 23), "all", 5),
+    ((DF_NO, DF_NV), "(H2O)_6/aug-cc-pVDZ fzc", (0, 23), ("f64",), 3),
 ]
 # (label, operand dtype, stream_dtype, tolerance on max|err| / max|ref|)
 K2_TYPES = [
@@ -272,10 +308,12 @@ def _k2_inputs(no, nv, gen):
 def phase_k2(smi, shapes=K2_SHAPES):
     cells = {}
     gen = torch.Generator(device=DEVICE).manual_seed(4321)
-    for (no, nv), what, rows in shapes:
+    for (no, nv), what, rows, types, reps in shapes:
         ops64 = _k2_inputs(no, nv, gen)
         rows = tuple(range(no)) if rows is None else rows
         for label, dtype, sd, tol in K2_TYPES:
+            if types != "all" and label not in types:
+                continue
             ops = tuple(x.to(dtype) for x in ops64)
             worst = dict.fromkeys(K2_OUTPUTS, 0.0)
             err = 0.0
@@ -306,9 +344,10 @@ def phase_k2(smi, shapes=K2_SHAPES):
             t_energy_row_reference(i, *ops, no, stream_dtype=sd)   # warm-up
             torch.cuda.synchronize()
             ms = _median_ms(lambda: t_energy_row(
-                i, *ops, no, stream_dtype=sd, derived=derived))
+                i, *ops, no, stream_dtype=sd, derived=derived), reps)
             plain_ms = _median_ms(
-                lambda: t_energy_row_reference(i, *ops, no, stream_dtype=sd))
+                lambda: t_energy_row_reference(i, *ops, no, stream_dtype=sd),
+                reps)
             del derived
             in_bytes = 2 if sd == torch.bfloat16 else ops[0].element_size()
             acc_bytes = 4 if sd == torch.bfloat16 else in_bytes
@@ -375,6 +414,8 @@ def phase_oracles():
                                      % (k2_launches, cc.no, cc.ecc, e))
             if basis == "cc-pvdz":
                 eccsd_dp, et_dp = eccsd, value
+            else:
+                e_t_sto3g = e
     cc = pycc_tpu_torch.ccwfn(wfns["cc-pvdz", True], model="CCSD(T)",
                               precision="SP", device=DEVICE)
     e_sp, secs = _solve(cc, 1e-8, 1e-7)
@@ -388,6 +429,43 @@ def phase_oracles():
             and abs(et_sp - et_dp) < 1e-6):
         raise AssertionError("SP lands %.3e (CCSD), %.3e ((T)) from DP"
                              % (abs(eccsd_sp - eccsd_dp), abs(et_sp - et_dp)))
+    phase_df_oracles(wfns["sto-3g", True], e_t_sto3g)
+
+
+def phase_df_oracles(wfn_sto3g, e_t_sto3g):
+    """storage="df" on the card: CCSD on STO-3G from the dense-sourced
+    factors and on cc-pVDZ from run_rhf(df=True) against the frozen
+    oracles, and DF-direct CCSD(T) on STO-3G against the dense CCSD(T)."""
+    cases = [
+        ("sto-3g", "CCSD", lambda: wfn_sto3g, dict(df_tol=1e-12),
+         -0.070616830152761, 1e-10),
+        ("cc-pvdz", "CCSD", lambda: run_rhf(moldict["H2O"], "cc-pvdz",
+                                            freeze_core=True, df=True,
+                                            df_tol=1e-10),
+         dict(df_tol=1e-10), -0.222029814166783, 1e-9),
+        ("sto-3g", "CCSD(T)", lambda: wfn_sto3g,
+         dict(df_direct=True, df_tol=1e-11), e_t_sto3g, 1e-9),
+    ]
+    for basis, model, wfn, kw, want, tol in cases:
+        cc = pycc_tpu_torch.ccwfn(wfn(), model=model, storage="df",
+                                  device=DEVICE, **kw)
+        vvvv_nt.launches = 0
+        t_energy_row.launches = 0
+        e, secs = _solve(cc, 1e-12, 1e-12)
+        launches = (vvvv_nt.launches, t_energy_row.launches)
+        print("[oracle] H2O/%s %s storage=df %s: E = %.15f  |dE| = %.2e "
+              "(tol %.0e)  naux %d  %d iterations  %d K1 launches  %d K2 "
+              "launches  %.2f s" % (basis, model, kw, e, abs(e - want), tol,
+                                    cc.naux, cc.niter, launches[0],
+                                    launches[1], secs))
+        if not (cc.converged and abs(e - want) < tol):
+            raise AssertionError("DF oracle H2O/%s %s missed: %.3e"
+                                 % (basis, model, abs(e - want)))
+        k2_want = cc.no if model == "CCSD(T)" else 0
+        if launches != (cc.niter * dfccsd._ladder_blocks(cc.nv, cc.naux),
+                        k2_want):
+            raise AssertionError("DF %s: %s launches in %d iterations"
+                                 % (model, launches, cc.niter))
 
 
 def _timed(fn):
@@ -463,6 +541,140 @@ def phase_real_size(smi, name=REAL_SIZE):
     return launches
 
 
+def _event_ms(fn):
+    """fn's time on the card between two CUDA events, and its result."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def _ladder_split(cc):
+    """One dressed ladder and one residual at cc's amplitudes, in ms: the
+    W assembly of every a-block (`dfccsd.ladder_W`) and their K1 products
+    apart, then one whole `ladder_df` and one whole residual."""
+    dfb, t1, t2, no, nv = cc.dfb, cc.t1, cc.t2, cc.no, cc.nv
+    blk = -(-nv // dfccsd._ladder_blocks(nv, cc.naux))
+    tau2 = dfccsd._tau(t1, t2).reshape(no * no, nv * nv)
+    BL = 0.5 * dfb.Bvv - torch.einsum("ma,Pme->Pae", t1, dfb.Bov)
+    assembly = k1 = 0.0
+    for a0 in range(0, nv, blk):
+        ms, W = _event_ms(lambda: dfccsd.ladder_W(BL[:, a0:a0 + blk],
+                                                  dfb.Bvv))
+        assembly += ms
+        k1 += _event_ms(lambda: vvvv_nt(tau2, W))[0]
+        del W
+    del tau2, BL
+    ladder = _event_ms(lambda: dfccsd.ladder_df(dfb, t1, t2))[0]
+    residual = _event_ms(lambda: cc.residuals(cc.H.F, t1, t2))[0]
+    return assembly, k1, ladder, residual
+
+
+def phase_df(smi, name=DF_SIZE):
+    escf_ref, eccsd_ref, et_ref = FROZEN_DF[name]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wfn = run_rhf(moldict[name], "aug-cc-pvdz", freeze_core=True, df=True,
+                  df_tol=DF_TOL)
+    t_scf = time.perf_counter() - t0
+    t_chol = wfn.timers.total["rhf.ao_cholesky"]
+    t0 = time.perf_counter()
+    cc = pycc_tpu_torch.ccwfn(wfn, model="CCSD(T)", storage="df",
+                              df_tol=DF_TOL, device=DEVICE)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    init = {k: cc.timers.total[k] for k in (
+        "ccwfn.hamiltonian", "ccwfn.df_factors_to_mo", "ccwfn.df_recompress")}
+    nblocks = dfccsd._ladder_blocks(cc.nv, cc.naux)
+    vvvv_nt.launches = 0
+    t_energy_row.launches = 0
+    e, t_solve = _solve(cc, 1e-10, 1e-10)
+    launches = {"vvvv_nt": vvvv_nt.launches, "t_row": t_energy_row.launches}
+    peak = torch.cuda.max_memory_allocated()
+    t_t = cc.timers.total["ccwfn.triples"]
+    eccsd = float(cc.cc_energy(cc.t1, cc.t2))
+    et = e - eccsd
+    s_iter = (t_solve - t_t) / cc.niter
+    print("[df] %s/aug-cc-pVDZ DF-CCSD(T)  nbf=%d (no, nv)=(%d, %d)  naux "
+          "AO %d, recompressed %d (df_tol %.0e)  | %s"
+          % (name, wfn.basisset().nbf, cc.no, cc.nv, wfn.B_ao.shape[0],
+             cc.naux, DF_TOL, smi))
+    print("[df] host: SCF %.1f s (AO Cholesky %.1f s, the rest %.1f s); "
+          "ccwfn init %.1f s (property integrals and F %.1f s, MO transform "
+          "%.1f s, recompression on the card %.1f s)"
+          % (t_scf, t_chol, t_scf - t_chol, t_init,
+             init["ccwfn.hamiltonian"], init["ccwfn.df_factors_to_mo"],
+             init["ccwfn.df_recompress"]))
+    print("[df] E(SCF) = %.12f  |dE(SCF)| = %.2e"
+          % (wfn.energy(), abs(wfn.energy() - escf_ref)))
+    print("[df] CCSD solve %.1f s  %d iterations  %.3f s/iter  (T) %.1f s  "
+          "peak device memory %.2f GB  K1 launches %d (%d ladder blocks)  "
+          "K2 launches %d" % (t_solve - t_t, cc.niter, s_iter, t_t,
+                              peak / 1e9, launches["vvvv_nt"], nblocks,
+                              launches["t_row"]))
+    print("[df] Ecorr(CCSD) = %.12f  |dE| = %.2e"
+          % (eccsd, abs(eccsd - eccsd_ref)))
+    print("[df] E(T) = %.12f  |dE| = %.2e" % (et, abs(et - et_ref)))
+    assembly, k1, ladder, residual = _ladder_split(cc)
+    print("[df] one iteration's ladder at the converged amplitudes: W "
+          "assembly %.1f ms + K1 %.1f ms over %d blocks; ladder_df %.1f ms; "
+          "whole residual %.1f ms; solve %.1f ms an iteration  | %s"
+          % (assembly, k1, nblocks, ladder, residual, 1e3 * s_iter, smi))
+
+    # the same (T) through the plain pair-symmetric scan
+    sl = triples.t_scan_df_slices(cc.H.F, *cc.dfb, cc.no)
+    e_scan, t_scan = _timed(
+        lambda: triples.t_vikings_scan_core(*sl, cc.t1, cc.t2, cc.no))
+    del sl
+    print("[df] (T): K2 rows %.1f s E(T) %.12f | plain pair-symmetric scan "
+          "%.1f s E(T) %.12f  |diff| %.2e  | %s"
+          % (t_t, et, t_scan, e_scan, abs(e_scan - et), smi))
+    print("[df] peak device memory with the plain scan %.2f GB"
+          % (torch.cuda.max_memory_allocated() / 1e9))
+
+    ok_shapes = (cc.t2.shape == (cc.no, cc.no, cc.nv, cc.nv)
+                 and bool(torch.isfinite(cc.t2).all()) and math.isfinite(et))
+    if not (ok_shapes and cc.converged):
+        raise AssertionError("DF: not converged, t2 or E(T) not finite, or "
+                             "t2 of the wrong shape")
+    for what, got, want in (("E(SCF)", wfn.energy(), escf_ref),
+                            ("Ecorr(CCSD)", eccsd, eccsd_ref),
+                            ("E(T)", et, et_ref)):
+        if not abs(got - want) < 1e-9:
+            raise AssertionError("DF %s missed the frozen value" % what)
+    if not abs(e_scan - et) < 1e-10:
+        raise AssertionError("the plain DF (T) disagrees with the kernel's")
+    if (launches["vvvv_nt"] != cc.niter * nblocks
+            or launches["t_row"] != cc.no):
+        raise AssertionError("DF: %d K1 launches in %d iterations of %d "
+                             "blocks, %d K2 launches for no = %d"
+                             % (launches["vvvv_nt"], cc.niter, nblocks,
+                                launches["t_row"], cc.no))
+    return launches
+
+
+def _kernel_entries(k1_cells, k2_cells, full, df):
+    """The kernels line: each kernel on each path, with that path's
+    launches and the timed cell at the shape the path launches it at."""
+    k1 = dict(route="cuda", source="pycc_tpu_torch/csrc/vvvv_nt.cu",
+              replaces="pycc_tpu/ops/kernels/vvvv.py:38")
+    k2 = dict(route="cuda", source="pycc_tpu_torch/csrc/t_row.cu",
+              replaces="pycc_tpu/ops/kernels/triples.py:170")
+    return [
+        dict(name="vvvv_nt", **k1, launches=full["vvvv_nt"],
+             **k1_cells[K1_FULL_SHAPE, "f64"]),
+        dict(name="t_row", **k2, launches=full["t_row"],
+             **k2_cells[(24, 114), "f64"]),
+        dict(name="vvvv_nt/ladder_df", **k1, launches=df["vvvv_nt"],
+             **k1_cells[K1_DF_SHAPE, "f64"]),
+        dict(name="t_row/df_slices", **k2, launches=df["t_row"],
+             **k2_cells[(DF_NO, DF_NV), "f64"]),
+    ]
+
+
 def main():
     name, smi = phase_device()
     pycc_tpu_torch.set_verbosity("quiet")
@@ -470,19 +682,11 @@ def main():
     k1_cells = phase_kernel(smi)
     k2_cells = phase_k2(smi)
     phase_oracles()
-    launches = phase_real_size(smi)
+    full = phase_real_size(smi)
+    df = phase_df(smi)
     print(smi)
-    print(json.dumps({"kernels": [
-        {"name": "vvvv_nt", "route": "cuda",
-         "source": "pycc_tpu_torch/csrc/vvvv_nt.cu",
-         "replaces": "pycc_tpu/ops/kernels/vvvv.py:38",
-         "launches": launches["vvvv_nt"],
-         **k1_cells[K1_SHAPES[-1][0], "f64"]},
-        {"name": "t_row", "route": "cuda",
-         "source": "pycc_tpu_torch/csrc/t_row.cu",
-         "replaces": "pycc_tpu/ops/kernels/triples.py:170",
-         "launches": launches["t_row"],
-         **k2_cells[K2_SHAPES[-1][0], "f64"]}]}))
+    print(json.dumps({"kernels": _kernel_entries(k1_cells, k2_cells, full,
+                                                 df)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

@@ -1,24 +1,36 @@
 """CC T-amplitude solver driver.
 
-The counterpart of pycc_tpu/ccwfn.py for storage='full' and the models
-CCD, CC2, CCSD and CCSD(T):
-``ccwfn(scf_wfn, model=..., precision=..., device=...)``
-then ``solve_cc(e_conv, r_conv, maxiter, max_diis, start_diis,
-stall_limit)``.  Each iteration evaluates the residuals, takes a Jacobi
-step from diag(F), pushes the step into the on-device DIIS ring and
-extrapolates, all eagerly on `device`; the host reads one (energy, rms)
-pair per iteration.  For CCSD(T) the converged CCSD amplitudes then
-feed the (T) energy (`triples.t_vikings_scan`).
+The counterpart of pycc_tpu/ccwfn.py for storage='full' and 'df' and the
+models CCD, CC2, CCSD and CCSD(T):
+``ccwfn(scf_wfn, model=..., precision=..., device=..., storage=...)``
+(or ``ccwfn.from_df_factors(B, F, no, ...)``) then ``solve_cc(e_conv,
+r_conv, maxiter, max_diis, start_diis, stall_limit)``.  Each iteration
+evaluates the residuals, takes a Jacobi step from diag(F), pushes the
+step into the on-device DIIS ring and extrapolates, all eagerly on
+`device`; the host reads one (energy, rms) pair per iteration.  For
+CCSD(T) the converged CCSD amplitudes then feed the (T) energy
+(`triples.t_vikings_scan`).
+
+storage='df' replaces the nact^4 ERI and L by three-index Cholesky
+factors (`self.dfb`) and evaluates the residuals from them
+(models/dfccsd.py).  With df_direct (the default when the SCF
+wavefunction carries AO factors, i.e. run_rhf(df=True)) no four-index
+tensor exists anywhere: AO factors -> MO transform (host) ->
+recompression to active-space rank (on `device`).  Otherwise the dense MO
+ERI is built once, factored on `device` and dropped.
 """
 
+import dataclasses
 import time
 import warnings
 
+import numpy as np
 import torch
 
 from . import triples
-from .hamiltonian import build_hamiltonian
+from .hamiltonian import Hamiltonian, build_hamiltonian
 from .models import ccsd as eqs
+from .models import dfccsd as dfq
 from .ops.diis import DIIS
 from .utils.device import init_device
 from .utils.log import logger as log
@@ -43,9 +55,15 @@ _ENERGY = {
 _NOT_PORTED_MODELS = {
     "CC3": "Queue 1, item 8 (CC3)",
 }
+_DF_RESIDUALS = {
+    "CCD": dfq.residuals_ccd_df,
+    "CC2": dfq.residuals_cc2_df,
+    "CCSD": dfq.residuals_ccsd_df,
+    "CCSD(T)": dfq.residuals_ccsd_df,
+}
+
 _NOT_PORTED_STORAGE = {
     "blocked": "Queue 1, item 10 (blocked storage and mixed precision)",
-    "df": "Queue 1, item 5 (DF storage)",
 }
 _NOT_PORTED_INIT_KWARGS = {
     "local": "Queue 1, item 12 (local correlation)",
@@ -58,9 +76,6 @@ _NOT_PORTED_INIT_KWARGS = {
     "real_time": "Queue 1, item 11 (real-time CC)",
     "make_t3_density": "Queue 1, item 6 (post-convergence on full storage)",
     "t3_scan": "Queue 1, item 8 (CC3)",
-    "df_tol": "Queue 1, item 5 (DF storage)",
-    "df_nblocks": "Queue 1, item 5 (DF storage)",
-    "df_direct": "Queue 1, item 5 (DF storage)",
 }
 _NOT_PORTED_SOLVE_KWARGS = {
     "bf16_until": "Queue 1, item 10 (blocked storage and mixed precision)",
@@ -84,27 +99,43 @@ def _reject(kwargs, table, where):
         raise _not_ported("%s(%s=...)" % (where, name), table[name])
 
 
+def _check_model(model):
+    model = model.upper()
+    if model in _NOT_PORTED_MODELS:
+        raise _not_ported("model=%r" % model, _NOT_PORTED_MODELS[model])
+    if model not in _RESIDUALS:
+        raise ValueError("%s is not an allowed CC model." % model)
+    return model
+
+
+def _check_precision(precision):
+    precision = precision.upper()
+    if precision not in ("SP", "DP"):
+        raise ValueError("%s is not an allowed precision arithmetic."
+                         % precision)
+    return precision
+
+
 class ccwfn:
-    """An RHF-CC wave function and energy object on one torch device."""
+    """An RHF-CC wave function and energy object on one torch device.
+
+    storage='df' options: df_tol (the Cholesky tolerance, default 1e-8),
+    df_direct (None: on when scf_wfn carries AO factors), df_nblocks (the
+    ladder's a-blocks; None: `dfccsd._ladder_blocks`).  They are ignored
+    under storage='full', as pycc_tpu ignores them."""
 
     def __init__(self, scf_wfn, model="CCSD", precision="DP", device="cuda",
-                 storage="full", **kwargs):
+                 storage="full", df_tol=1e-8, df_direct=None,
+                 df_nblocks=None, **kwargs):
         time_init = time.time()
-        model = model.upper()
-        if model in _NOT_PORTED_MODELS:
-            raise _not_ported("model=%r" % model, _NOT_PORTED_MODELS[model])
-        if model not in _RESIDUALS:
-            raise ValueError("%s is not an allowed CC model." % model)
+        model = _check_model(model)
         storage = storage.lower()
         if storage in _NOT_PORTED_STORAGE:
             raise _not_ported("storage=%r" % storage,
                               _NOT_PORTED_STORAGE[storage])
-        if storage != "full":
+        if storage not in ("full", "df"):
             raise ValueError("%s is not an allowed storage mode." % storage)
-        precision = precision.upper()
-        if precision not in ("SP", "DP"):
-            raise ValueError("%s is not an allowed precision arithmetic."
-                             % precision)
+        precision = _check_precision(precision)
         _reject(kwargs, _NOT_PORTED_INIT_KWARGS, "ccwfn")
 
         self.model = model
@@ -122,10 +153,80 @@ class ccwfn:
         self.nv = self.nmo - self.no - self.nfzc
         self.nact = self.no + self.nv
 
-        self.H = build_hamiltonian(scf_wfn, device=self.device,
-                                   dtype=self.dtype)
-        self.o = slice(0, self.no)
-        self.v = slice(self.no, self.nact)
+        if storage == "full":
+            self.H = build_hamiltonian(scf_wfn, device=self.device,
+                                       dtype=self.dtype)
+            self._set_amplitudes(self.H.ERI[self.o, self.o, self.v, self.v])
+        else:
+            if df_direct is None:
+                df_direct = getattr(scf_wfn, "B_ao", None) is not None
+            self.df_direct = bool(df_direct)
+            self.df_tol = df_tol
+            self.df_nblocks = df_nblocks
+            # F and the factors are made in float64; both take the
+            # working dtype below
+            with self.timers.time("ccwfn.hamiltonian"):
+                H = build_hamiltonian(scf_wfn, device=self.device,
+                                      eri=not self.df_direct)
+            if self.df_direct:
+                B = self._df_factors_direct(scf_wfn)
+            else:
+                from .ops.cholesky import cholesky_factor_eri
+                with self.timers.time("ccwfn.df_cholesky"):
+                    B = cholesky_factor_eri(H.ERI, tol=df_tol,
+                                            device=self.device)
+            # nothing four-index stays: the factors carry the integrals
+            self.H = dataclasses.replace(H, F=H.F.to(self.dtype), ERI=None,
+                                         L=None)
+            del H
+            self._set_df(B)
+        log.info("CCWFN object initialized in %.3f seconds."
+                 % (time.time() - time_init))
+
+    @property
+    def o(self):
+        return slice(0, self.no)
+
+    @property
+    def v(self):
+        return slice(self.no, self.nact)
+
+    def _df_factors_direct(self, scf_wfn):
+        """Integral-direct factors: the AO Cholesky factors of
+        run_rhf(df=True) when they are as tight as df_tol (else made
+        here), the MO transform on the host, and the recompression to
+        active-space rank on the device.  No four-index tensor exists at
+        any point."""
+        from .ops.cholesky import recompress_factors
+        from .scf.df import cholesky_factor_ao, factors_to_mo
+
+        B_ao = getattr(scf_wfn, "B_ao", None)
+        B_tol = getattr(scf_wfn, "B_tol", None)
+        if B_ao is None or B_tol is None or B_tol > self.df_tol:
+            with self.timers.time("ccwfn.df_ao_cholesky"):
+                B_ao = cholesky_factor_ao(scf_wfn.basisset(), tol=self.df_tol)
+        C_act = np.asarray(scf_wfn.Ca_subset("AO", "ACTIVE"))
+        with self.timers.time("ccwfn.df_factors_to_mo"):
+            B_mo = factors_to_mo(np.asarray(B_ao), C_act)
+        with self.timers.time("ccwfn.df_recompress"):
+            # (each pivot reads one number back, so this waits for the card)
+            return recompress_factors(B_mo, tol=self.df_tol,
+                                      device=self.device)
+
+    def _set_df(self, B):
+        """The DF solver state from float64 factors B (naux, nact, nact):
+        the factor blocks in the working dtype, the MP2 guess assembled
+        from them, and the model's factor residuals."""
+        self.naux = B.shape[0]
+        self.dfb = dfq.df_blocks(B.to(self.dtype), self.no)
+        self._set_amplitudes(dfq._eri_oovv(self.dfb))
+        log.info("DF/Cholesky factors: naux = %d (tol %s%s)"
+                 % (self.naux, self.df_tol,
+                    ", integral-direct" if self.df_direct else ""))
+
+    def _set_amplitudes(self, eri_oovv):
+        """Denominators from diag(F), t1 = 0, the MP2 t2 guess, and the
+        model's residual and energy functions for the storage."""
         o, v = self.o, self.v
         eps = torch.diagonal(self.H.F)
         self.Dia = eps[o, None] - eps[None, v]
@@ -133,20 +234,62 @@ class ccwfn:
                       - eps[None, None, v, None] - eps[None, None, None, v])
         self.t1 = torch.zeros((self.no, self.nv), dtype=self.dtype,
                               device=self.device)
-        self.t2 = self.H.ERI[o, o, v, v] / self.Dijab
-        self._residual_fn = _RESIDUALS[model]
-        self._energy_fn = _ENERGY[model]
-        log.info("CCWFN object initialized in %.3f seconds."
-                 % (time.time() - time_init))
+        self.t2 = eri_oovv / self.Dijab
+        self._residual_fn = (_DF_RESIDUALS if self.storage == "df"
+                             else _RESIDUALS)[self.model]
+        self._energy_fn = _ENERGY[self.model]
+
+    @classmethod
+    def from_df_factors(cls, B, F, no, escf=0.0, model="CCSD",
+                        precision="DP", df_nblocks=None, mu=None,
+                        device="cuda"):
+        """A storage='df' solver straight from precomputed MO-basis
+        Cholesky/DF factors B (naux, nact, nact) and the active-space MO
+        Fock matrix F (frozen core already dropped), numpy arrays or
+        tensors: the state pycc_tpu's prepare-on-host pipeline writes
+        (examples/prepare_df_molecule.py), carried onto `device`.  mu:
+        optional (3, nact, nact) MO dipole integrals."""
+        self = cls.__new__(cls)
+        self.model = _check_model(model)
+        self.precision = _check_precision(precision)
+        self.storage = "df"
+        self.df_direct = True
+        self.df_tol = None
+        self.df_nblocks = df_nblocks
+        self.device = init_device(device)
+        self.dtype = torch.float64 if self.precision == "DP" else torch.float32
+        self.timers = Timers()
+        self.ref = None
+        self.eref = float(escf)
+        self.nfzc = 0
+
+        F = torch.as_tensor(F, dtype=self.dtype, device=self.device)
+        self.no = int(no)
+        self.nact = F.shape[0]
+        self.nmo = self.nact
+        self.nv = self.nact - self.no
+        mu = () if mu is None else tuple(
+            torch.as_tensor(m, dtype=torch.float64, device=self.device)
+            for m in mu)
+        self.H = Hamiltonian(F=F, ERI=None, L=None, mu=mu, no=self.no)
+        self._set_df(torch.as_tensor(B, dtype=torch.float64,
+                                     device=self.device))
+        return self
 
     # ------------------------------------------------------------------
     def residuals(self, F, t1, t2):
         """T1/T2 residuals r_mu = <mu|HBAR|0> for the current amplitudes."""
+        if self.storage == "df":
+            return self._residual_fn(F, self.dfb, t1, t2, self.no,
+                                     nblocks=self.df_nblocks)
         H = self.H
         return self._residual_fn(F, H.ERI, H.L, H.vvvv, t1, t2, self.no)
 
     def cc_energy(self, t1, t2, F=None):
         F = self.H.F if F is None else F
+        if self.storage == "df":
+            # t1 stays 0 under CCD, where this is the CCD energy
+            return dfq.cc_energy_df(F, self.dfb, t1, t2, self.no)
         return self._energy_fn(F, self.H.L, t1, t2, self.no)
 
     # ------------------------------------------------------------------

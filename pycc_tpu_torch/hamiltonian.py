@@ -18,7 +18,7 @@ from .utils.device import init_device
 @dataclass(frozen=True, eq=False)
 class Hamiltonian:
     F: torch.Tensor
-    ERI: torch.Tensor
+    ERI: torch.Tensor     # None under storage='df' (the factors carry it)
     L: torch.Tensor
     mu: tuple = ()        # 3 (nact,nact) real matrices (electric dipole, -r)
     m: tuple = ()         # 3 complex matrices (magnetic dipole)
@@ -39,7 +39,9 @@ class Hamiltonian:
         """<ab|ef> as one contiguous (v,v,v,v) tensor, made once.
         ERI[v,v,v,v] is a strided view of the (nact)^4 tensor, and the
         ladder's (v^2, v^2) matrix would otherwise copy v^4 elements on
-        every residual evaluation."""
+        every residual evaluation.  None when ERI is None."""
+        if self.ERI is None:
+            return None
         v = self.v
         return self.ERI[v, v, v, v].contiguous()
 
@@ -77,13 +79,17 @@ def _mo_eri_dirac(ERI_ao, C):
     return t.swapaxes(1, 2).contiguous()
 
 
-def build_hamiltonian(wfn, device="cuda", dtype=torch.float64):
+def build_hamiltonian(wfn, device="cuda", dtype=torch.float64, eri=True):
     """Build the active-space Hamiltonian from an SCF wavefunction.
 
     `wfn` is a pycc_tpu_torch.scf.RHFWavefunction.  The AO integrals come
     from the host engine; the four-index MO transform runs in float64 on
     `device`, and F/ERI/L are then cast to `dtype`.  The property
-    integrals stay in float64 (mu, Q) and complex128 (m, p)."""
+    integrals stay in float64 (mu, Q) and complex128 (m, p).
+
+    eri=False skips the four-index tensors entirely (ERI = L = None) and
+    never computes the AO ERI: ccwfn(storage='df') carries the
+    two-electron integrals as Cholesky factors instead."""
     from .scf import integrals as ints
 
     dev = init_device(device)
@@ -93,8 +99,11 @@ def build_hamiltonian(wfn, device="cuda", dtype=torch.float64):
     F = C.T @ torch.as_tensor(np.asarray(wfn.Fa()), dtype=f64, device=dev) @ C
 
     basis = wfn.basisset()
-    ERI = _mo_eri_dirac(torch.as_tensor(ints.eri(basis), device=dev), C)
-    L = 2.0 * ERI - ERI.swapaxes(2, 3)
+    ERI = L = None
+    if eri:
+        ERI = _mo_eri_dirac(torch.as_tensor(ints.eri(basis), device=dev), C)
+        L = (2.0 * ERI - ERI.swapaxes(2, 3)).to(dtype)
+        ERI = ERI.to(dtype)
 
     def mo(M):
         return C_np.T @ M @ C_np
@@ -104,5 +113,5 @@ def build_hamiltonian(wfn, device="cuda", dtype=torch.float64):
     p = tuple(mo(M) * 1.0j for M in ints.nabla(basis))
     Q = tuple(mo(M) for M in ints.traceless_quadrupole(basis))
     no = wfn.doccpi()[0] - wfn.frzcpi()[0]
-    return Hamiltonian(F=F.to(dtype), ERI=ERI.to(dtype), L=L.to(dtype), no=no,
+    return Hamiltonian(F=F.to(dtype), ERI=ERI, L=L, no=no,
                        **_properties(mu, m, p, Q, f64, dev))

@@ -2,7 +2,8 @@
 
 Builds the shared engine source `native/mdints.cpp` with g++ on first use,
 into this package's git-ignored `_build/` directory, and exposes
-`eri_native(basis)`.  A failed build raises: at 100+ basis functions the
+`eri_native(basis)` and, for the integral-direct Cholesky of scf/df.py,
+`ERIContext`.  A failed build raises: at 100+ basis functions the
 pure-Python engine (`integrals._eri_python`) is about 90x slower, so a
 silent fallback would look like a hang.
 """
@@ -43,6 +44,24 @@ def _load():
         np.ctypeslib.ndpointer(np.int32), ctypes.c_int,
         np.ctypeslib.ndpointer(np.float64),
     ]
+    lib.md_ctx_new.restype = ctypes.c_void_p
+    lib.md_ctx_new.argtypes = lib.md_eri.argtypes[:-1]
+    lib.md_ctx_free.restype = None
+    lib.md_ctx_free.argtypes = [ctypes.c_void_p]
+    lib.md_ctx_npairs.restype = ctypes.c_int
+    lib.md_ctx_npairs.argtypes = [ctypes.c_void_p]
+    lib.md_ctx_pair.restype = ctypes.c_int
+    lib.md_ctx_pair.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                ctypes.POINTER(ctypes.c_int),
+                                ctypes.POINTER(ctypes.c_int)]
+    lib.md_eri_diag.restype = ctypes.c_int
+    lib.md_eri_diag.argtypes = [ctypes.c_void_p,
+                                np.ctypeslib.ndpointer(np.float64)]
+    lib.md_eri_cols.restype = ctypes.c_int
+    lib.md_eri_cols.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                np.ctypeslib.ndpointer(np.float64),
+                                ctypes.c_double,
+                                np.ctypeslib.ndpointer(np.float64)]
     _LIB = lib
     return lib
 
@@ -65,6 +84,75 @@ def _basis_arrays(basis):
         cart_off[i] = n
         n += sh.ncart
     return ls, nprim, poff, exps, coefs, centers, cart_off, n
+
+
+class ERIContext:
+    """Persistent native shell-pair context: on-demand diagonal blocks and
+    (ab|kl) column batches for the integral-direct Cholesky (scf/df.py)."""
+
+    def __init__(self, basis):
+        self.lib = _load()
+        self.basis = basis
+        arrs = _basis_arrays(basis)
+        self.ncart = arrs[-1]
+        self._h = self.lib.md_ctx_new(len(basis.shells), *arrs)
+        if not self._h:
+            raise RuntimeError("md_ctx_new failed")
+        self.npairs = self.lib.md_ctx_npairs(self._h)
+        self.pair_shells = []
+        i = ctypes.c_int()
+        j = ctypes.c_int()
+        for p in range(self.npairs):
+            self.lib.md_ctx_pair(self._h, p, ctypes.byref(i), ctypes.byref(j))
+            self.pair_shells.append((i.value, j.value))
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self.lib.md_ctx_free(self._h)
+            self._h = None
+
+    def diag_blocks(self):
+        """List of per-pair (ncab, ncab) cartesian blocks (p|p)."""
+        shells = self.basis.shells
+        sizes = [shells[i].ncart * shells[j].ncart
+                 for (i, j) in self.pair_shells]
+        total = sum(s * s for s in sizes)
+        out = np.zeros(total, dtype=np.float64)
+        ret = self.lib.md_eri_diag(self._h, out)
+        if ret != 0:
+            raise RuntimeError("md_eri_diag failed")
+        blocks = []
+        off = 0
+        for s in sizes:
+            blocks.append(out[off:off + s * s].reshape(s, s))
+            off += s * s
+        return blocks
+
+    def cols(self, pair_idx, schwarz=None, thresh=0.0):
+        """(ab|kl) cartesian columns for ket pair `pair_idx`:
+        (ncart_tot, ncart_tot, ncab_ket), bra-symmetrized."""
+        shells = self.basis.shells
+        i, j = self.pair_shells[pair_idx]
+        nck = shells[i].ncart * shells[j].ncart
+        out = np.zeros((self.ncart, self.ncart, nck), dtype=np.float64)
+        if schwarz is None:
+            schwarz = np.ones(self.npairs)
+            thresh = 0.0
+        ret = self.lib.md_eri_cols(self._h, pair_idx,
+                                   np.ascontiguousarray(schwarz, np.float64),
+                                   float(thresh), out.reshape(-1))
+        if ret != 0:
+            raise RuntimeError("md_eri_cols failed")
+        return out
+
+
+def available():
+    """True when the native engine builds and loads here."""
+    try:
+        _load()
+        return True
+    except (OSError, subprocess.CalledProcessError):
+        return False
 
 
 def cart_to_ao_matrix(basis):

@@ -13,6 +13,7 @@ from . import integrals
 from .basis import BasisSet
 from .mol import Molecule
 from ..utils.log import logger as log
+from ..utils.timing import Timers
 
 # Frozen-core orbital counts per element (noble-gas core), Psi4 convention
 _CORE = {"H": 0, "He": 0, "Li": 1, "Be": 1, "B": 1, "C": 1, "N": 1, "O": 1,
@@ -71,12 +72,14 @@ def run_rhf(geometry, basis_name, freeze_core=False, e_conv=1e-12,
             df_tol=1e-10):
     """Run RHF-SCF. `geometry` is a Psi4-style string or a Molecule.
 
-    df=True (integral-direct SCF from AO Cholesky factors) is not ported
-    yet and raises; `df_tol` belongs to it."""
-    if df:
-        raise NotImplementedError(
-            "run_rhf(df=True) is not ported yet: ROADMAP.md Queue 1, "
-            "item 5 (DF storage).")
+    df=True runs INTEGRAL-DIRECT SCF from AO Cholesky factors
+    (scf/df.py): the nao^4 ERI never exists, Fock builds are
+    O(naux nao^2 nocc), and the factors are kept on the returned
+    wavefunction (`wfn.B_ao`, `wfn.B_tol`) so ccwfn(storage='df')
+    can reuse them without a second factorization.  At df_tol=1e-10
+    the Cholesky is numerically exact for SCF (energy error << 1e-9 Eh).
+    `wfn.timers` holds the host seconds of the AO Cholesky
+    ("rhf.ao_cholesky")."""
     mol = geometry if isinstance(geometry, Molecule) else Molecule(geometry)
     basis = BasisSet(mol, basis_name)
 
@@ -95,12 +98,29 @@ def run_rhf(geometry, basis_name, freeze_core=False, e_conv=1e-12,
     sval, svec = np.linalg.eigh(S)
     X = svec @ np.diag(sval ** -0.5) @ svec.T
 
-    ERI = integrals.eri(basis)  # (ab|cd) chemists
+    timers = Timers()
+    if df:
+        from .df import cholesky_factor_ao, fock_from_factors
+        with timers.time("rhf.ao_cholesky"):
+            B_ao = cholesky_factor_ao(basis, tol=df_tol, verbose=verbose)
+        if verbose:
+            log.info("SCF DF factors: naux = %d (tol %.1e)"
+                     % (B_ao.shape[0], df_tol))
 
-    def build_fock(D, Cocc=None):
-        J = np.einsum("pqrs,rs->pq", ERI, D, optimize=True)
-        K = np.einsum("prqs,rs->pq", ERI, D, optimize=True)
-        return H + 2.0 * J - K
+        def build_fock(D, Cocc=None):
+            if Cocc is None:
+                # recover Cocc from the (idempotent) density's eigenvectors
+                w, U = np.linalg.eigh(D)
+                Cocc = U[:, w > 0.5] * np.sqrt(w[w > 0.5])
+            return fock_from_factors(B_ao, H, Cocc)
+    else:
+        B_ao = None
+        ERI = integrals.eri(basis)  # (ab|cd) chemists
+
+        def build_fock(D, Cocc=None):
+            J = np.einsum("pqrs,rs->pq", ERI, D, optimize=True)
+            K = np.einsum("prqs,rs->pq", ERI, D, optimize=True)
+            return H + 2.0 * J - K
 
     def diag(F):
         Fp = X @ F @ X
@@ -157,4 +177,8 @@ def run_rhf(geometry, basis_name, freeze_core=False, e_conv=1e-12,
     E = np.einsum("pq,pq->", D, H + F) + Enuc
 
     nfzc = sum(_CORE[s] for s in mol.symbols) if freeze_core else 0
-    return RHFWavefunction(mol, basis, E, C, eps, F, S, ndocc, nfzc)
+    wfn = RHFWavefunction(mol, basis, E, C, eps, F, S, ndocc, nfzc)
+    wfn.B_ao = B_ao
+    wfn.B_tol = df_tol if df else None
+    wfn.timers = timers
+    return wfn

@@ -1,6 +1,6 @@
 """Connected-triples (T) energy drivers.
 
-The counterpart of pycc_tpu/triples.py for storage='full':
+The counterpart of pycc_tpu/triples.py for storage='full' and 'df':
 
 - `t_vikings(cc)`: the full-tensor (T), o^3 v^3 memory, for small systems
   and tests;
@@ -8,13 +8,18 @@ The counterpart of pycc_tpu/triples.py for storage='full':
   t3 at a time, as a plain whole-(T) reference (a Python loop over rows and
   j-chunks);
 - `t_vikings_scan(cc)`: the production (T) of `ccwfn(model="CCSD(T)")`.
-  It cuts the integral slices once and runs every row through the K2
-  kernel wrapper (`ops/kernels/triples.py`), which launches the CUDA
-  kernel on CUDA tensors.
+  It cuts the integral slices once (from the factors under storage='df',
+  `t_scan_df_slices`) and runs every row through the K2 kernel wrapper
+  (`ops/kernels/triples.py`), which launches the CUDA kernel on CUDA
+  tensors;
+- `t_vikings_scan_df_chunked`: the plain, memory-bounded (T) from factors,
+  k-chunked over one resident (o, v, v, v) tensor; called explicitly.
 
 Eager torch materialises each slab once, so the optimization barriers of
 the JAX versions have no counterpart here.
 """
+
+import torch
 
 from .ops.contract import contract
 
@@ -277,18 +282,156 @@ def scan_slices(cc):
             F[o, v].contiguous(), F.diagonal().contiguous())
 
 
+def t_scan_df_slices(F, Boo, Bov, Bvv, no):
+    """The five integral slices (plus Fov and diag F) the (T) row scan
+    consumes, assembled from Cholesky/DF factors as contiguous tensors on
+    the factors' device, in the layouts `scan_slices` cuts from the full
+    ERI: Dirac <pq|rs> = (pr|qs) = sum_P B[P,p,r] B[P,q,s]."""
+    o, v = _slices(no)
+    Wvvvo_o = contract("Pac,Pib->iabc", Bvv, Bov).contiguous()
+    Wovoo_t = contract("Pij,Pka->jkia", Boo, Bov).contiguous()
+    Evovv = contract("Pab,Pic->aibc", Bvv, Bov).contiguous()
+    Eooov = contract("Pik,Pja->ijka", Boo, Bov).contiguous()
+    Eoovv = contract("Pia,Pjb->ijab", Bov, Bov)
+    Loovv = (2.0 * Eoovv - Eoovv.swapaxes(2, 3)).contiguous()
+    return (Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, F[o, v].contiguous(),
+            F.diagonal().contiguous())
+
+
 def t_vikings_scan(cc):
-    """The (T) energy of a converged ccwfn on full storage, as a 0-d
-    tensor: the slices once, then one K2 row per occupied index (the CUDA
-    kernel on CUDA tensors, its plain version on CPU tensors)."""
-    from .ccwfn import _not_ported
+    """The (T) energy of a converged ccwfn, as a 0-d tensor: the slices
+    once (cut from the full ERI, or under storage='df' assembled from the
+    factors by `t_scan_df_slices`), then one K2 row per occupied index
+    (the CUDA kernel on CUDA tensors, its plain version on CPU tensors)."""
     storage = getattr(cc, "storage", "full")
-    if storage == "df":
-        raise _not_ported("t_vikings_scan(storage='df')",
-                          "Queue 1, item 5 (DF storage)")
     if storage == "blocked":
+        from .ccwfn import _not_ported
         raise _not_ported("t_vikings_scan(storage='blocked')",
                           "Queue 1, item 10 (blocked storage and mixed "
                           "precision)")
     from .ops.kernels.triples import t_vikings_rows
-    return t_vikings_rows(*scan_slices(cc), cc.t1, cc.t2, cc.no)
+    if storage == "df":
+        sl = t_scan_df_slices(cc.H.F, *cc.dfb, cc.no)
+    else:
+        sl = scan_slices(cc)
+    return t_vikings_rows(*sl, cc.t1, cc.t2, cc.no)
+
+
+# ---------------------------------------------------------------------------
+# The k-chunked (T) from factors: one resident (o, v, v, v) integral tensor
+# ---------------------------------------------------------------------------
+
+def _t3c_chunk_ij(i, j, k0, kc, W, Wovoo_t, t2, eps_o, eps_v):
+    """_t3c_slab_ij restricted to the k-window [k0, k0+kc): (K,a,b,c).
+
+    W is Wvvvo in the occupied-major kace assembly (== slab_layouts'
+    Wvvvo_o): W[i] has exactly the (a,b,c) layout the Wi/Wj terms use,
+    and the full-k terms take the k-window."""
+    K = slice(k0, k0 + kc)
+    Wi, Wj, WK = W[i], W[j], W[K]
+    t3 = contract("bae,kce->kabc", Wi, t2[K, j])
+    t3 += contract("cae,kbe->kabc", Wi, t2[j, K])
+    t3 += contract("kace,be->kabc", WK, t2[j, i])
+    t3 += contract("kbce,ae->kabc", WK, t2[i, j])
+    t3 += contract("cbe,kae->kabc", Wj, t2[i, K])
+    t3 += contract("abe,kce->kabc", Wj, t2[K, i])
+    t3 -= contract("kmc,mab->kabc", Wovoo_t[j, K], t2[i])
+    t3 -= contract("kmb,mac->kabc", Wovoo_t[K, j], t2[i])
+    t3 -= contract("mb,kmca->kabc", Wovoo_t[i, j], t2[K])
+    t3 -= contract("ma,kmcb->kabc", Wovoo_t[j, i], t2[K])
+    t3 -= contract("kma,mbc->kabc", Wovoo_t[K, i], t2[j])
+    t3 -= contract("kmc,mba->kabc", Wovoo_t[i, K], t2[j])
+    denom = (eps_o[i] + eps_o[j] + eps_o[K][:, None, None, None]
+             - eps_v[None, :, None, None]
+             - eps_v[None, None, :, None]
+             - eps_v[None, None, None, :])
+    return t3 / denom
+
+
+def _chunk_X(t3, WK, Lj_k, Fov_k, Ej_k):
+    """X1/X2/X2l increments of one k-chunk slab for one external pair.
+    Evovv[d,k,b,c] = (db|kc) = W[k,d,c,b], a label permutation of the
+    same resident tensor, so no second (o, v, v, v) tensor is needed."""
+    td = t3 - t3.swapaxes(1, 3)
+    T = 2.0 * t3 - t3.swapaxes(2, 3) - t3.swapaxes(1, 3)
+    X1 = contract("kabc,kbc->a", td, Lj_k)
+    X2 = contract("kabc,kc->ab", td, Fov_k)
+    X2 += contract("kabc,kdcb->ad", T, WK)
+    X2l = contract("kabc,klc->lab", T, Ej_k)
+    return X1, X2, X2l
+
+
+def _t_df_row_chunked(i, W, Wovoo_t, Eooov, Loovv, Fov, eps, t1, t2, no,
+                      kc):
+    """One fixed-i row of the (T) energy with k-chunked slabs, using the
+    pair-permutation symmetry (see _t_vikings_row_sym_jc): each chunk slab
+    built for j >= i feeds both the (i,j) and the (j,i) accumulators, so
+    the n^7 slab build runs once per unordered pair."""
+    eps_o, eps_v = eps[:no], eps[no:]
+    t2w = 4.0 * t2 - 2.0 * t2.swapaxes(2, 3)
+    e = 0.0
+    for j in range(i, no):
+        Xij = Xji = None
+        for k0 in range(0, no, kc):
+            K = slice(k0, k0 + kc)
+            t3 = _t3c_chunk_ij(i, j, k0, kc, W, Wovoo_t, t2, eps_o, eps_v)
+            dij = _chunk_X(t3, W[K], Loovv[j, K], Fov[K], Eooov[j, K])
+            dji = _chunk_X(t3.swapaxes(1, 2), W[K], Loovv[i, K], Fov[K],
+                           Eooov[i, K])
+            Xij = dij if Xij is None else tuple(
+                x + d for x, d in zip(Xij, dij))
+            Xji = dji if Xji is None else tuple(
+                x + d for x, d in zip(Xji, dji))
+        X1, X2, X2l = Xij
+        e = e + (2.0 * contract("a,a->", t1[i], X1)
+                 + contract("ab,ab->", t2w[i, j], X2)
+                 - contract("lab,lab->", t2w[i], X2l))
+        if j > i:
+            Y1, Y2, Y2l = Xji
+            e = e + (2.0 * contract("a,a->", t1[j], Y1)
+                     + contract("ab,ab->", t2w[j, i], Y2)
+                     - contract("lab,lab->", t2w[j], Y2l))
+    return e
+
+
+def _t_df_kc(no, nv, max_elems=2 ** 26):
+    """Largest divisor of no whose chunk slab (kc, v, v, v) stays under
+    max_elems elements (the symmetric row holds ~7 chunk-sized temps)."""
+    cap = max(1, int(max_elems // max(1, nv ** 3)))
+    kc = 1
+    for d in range(1, no + 1):
+        if no % d == 0 and d <= cap:
+            kc = d
+    return kc
+
+
+def t_vikings_scan_df_chunked(dfb, F, t1, t2, no, kc=None):
+    """(T) from factors with ONE resident (o, v, v, v) integral tensor and
+    k-chunked slabs, as a plain 0-d tensor: Wvvvo in the kace assembly
+    serves the slab terms (W[i] is exactly the Wi layout) and the Evovv
+    energy term ((ac|bk) and (db|kc) are label permutations of the same
+    factor product).  Working set W + ~7 chunk slabs, against the two
+    (o, v, v, v) slices (and K2's G) of `t_vikings_scan`; it gives the
+    same energy.  Called explicitly; nothing chooses it by size.  kc must
+    divide no (default `_t_df_kc`)."""
+    nv = F.shape[0] - no
+    if kc is None:
+        kc = _t_df_kc(no, nv)
+    if no % kc:
+        raise ValueError("kc=%d must divide no=%d" % (kc, no))
+    Boo, Bov, Bvv = dfb
+    # one (v, v, v) sheet at a time: W[k,a,c,e] = sum_P Bvv[P,a,e] Bov[P,k,c]
+    W = torch.empty((no, nv, nv, nv), dtype=Bvv.dtype, device=Bvv.device)
+    for k in range(no):
+        W[k] = contract("Pae,Pc->ace", Bvv, Bov[:, k])
+    Wovoo_t = contract("Pij,Pka->jkia", Boo, Bov)
+    Eooov = contract("Pik,Pja->ijka", Boo, Bov)
+    Eoovv = contract("Pia,Pjb->ijab", Bov, Bov)
+    Loovv = 2.0 * Eoovv - Eoovv.swapaxes(2, 3)
+    Fov = F[:no, no:]
+    eps = F.diagonal()
+    e = 0.0
+    for i in range(no):
+        e = e + _t_df_row_chunked(i, W, Wovoo_t, Eooov, Loovv, Fov, eps,
+                                  t1, t2, no, kc)
+    return e

@@ -73,7 +73,7 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"make_t3_density": True}, {"model": "CC3"}, {"storage": "df"},
+    {"make_t3_density": True}, {"model": "CC3"}, {"real_time": True},
     {"storage": "blocked"}, {"local": "PNO"}, {"mesh": object()},
 ])
 def test_options_outside_the_slice_raise(kwargs):

@@ -41,5 +41,11 @@ def test_native_eri_matches_python_engine():
 
 
 def test_df_scf_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tscf.run_rhf(H2O, "sto-3g", df=True)
+    """The DF (integral-direct Cholesky) SCF, once refused, equals the
+    exact SCF at a tight df_tol and keeps its AO factors."""
+    wfn = tscf.run_rhf(H2O, "cc-pvdz", freeze_core=True, df=True,
+                       df_tol=1e-10)
+    assert abs(wfn.energy() - _pair("cc-pvdz")[1].energy()) < 1e-9
+    assert wfn.B_ao is not None and wfn.B_tol == 1e-10
+    nbf = wfn.basisset().nbf
+    assert wfn.B_ao.shape[1:] == (nbf, nbf)

@@ -109,3 +109,40 @@ def test_wrapper_rejects_bad_operands_on_card(cuda_device):
         vvvv_nt(A, A, bf16=True)              # bf16 mode takes f32/bf16
     with pytest.raises(ValueError):
         vvvv_nt(A, A.cpu())                   # mixed devices
+
+
+# the dressed DF ladder's shape, (o^2, blk*v, v^2), with v = 45 off every
+# tile and a ragged last a-block
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bf16,tol", [
+    (torch.float64, False, 1e-12), (torch.float32, False, 1e-5),
+    (torch.float32, True, 2e-2)])
+def test_kernel_at_a_df_ladder_shape_on_card(cuda_device, dtype, bf16, tol):
+    m, n, k = 16, 6 * 45, 45 * 45
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    A = torch.randn((m, k), generator=g, device=cuda_device, dtype=dtype)
+    B = torch.randn((n, k), generator=g, device=cuda_device, dtype=dtype)
+    out = vvvv_nt(A, B, bf16=bf16)
+    torch.cuda.synchronize()
+    ref = vvvv_nt_reference(A, B, bf16=bf16)
+    assert out.shape == (m, n) and out.dtype == ref.dtype
+    assert ((out - ref).abs().max() / ref.abs().max()).item() < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nblocks", [1, 4])
+def test_ladder_df_on_card_matches_cpu(cuda_device, nblocks):
+    from pycc_tpu_torch.models.dfccsd import df_blocks, ladder_df
+    rng = np.random.default_rng(3)
+    no, nv, naux = 4, 45, 60
+    B = 0.1 * rng.standard_normal((naux, no + nv, no + nv))
+    B = torch.from_numpy(0.5 * (B + B.transpose(0, 2, 1)))
+    t1 = torch.from_numpy(0.05 * rng.standard_normal((no, nv)))
+    t2 = torch.from_numpy(0.05 * rng.standard_normal((no, no, nv, nv)))
+    ref = ladder_df(df_blocks(B, no), t1, t2, nblocks=nblocks)
+    launches = vvvv_nt.launches
+    out = ladder_df(df_blocks(B.to(cuda_device), no), t1.to(cuda_device),
+                    t2.to(cuda_device), nblocks=nblocks)
+    torch.cuda.synchronize()
+    assert vvvv_nt.launches == launches + nblocks
+    assert (out.cpu() - ref).abs().max().item() < 1e-12
