@@ -11,7 +11,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      float64, HMMA for bf16) that cuobjdump finds in each;
   3. K1 against its plain version (A @ B.T, also its library yardstick)
      at four shape groups (the last one a-block of the DF ladder of
-     phase 7), each in float64, float32 and bf16->float32, with the
+     phase 7), each in float64, float32 and bf16->float32, and at the
+     EOM sigma batch of phase 6b in float64, with the
      median of 5 timed runs and the least time the card could take
      (bound_ms: the larger of bytes / 3.35 TB/s and flop / peak);
   4. K2 against its plain version (t_energy_row_reference) at (no, nv) =
@@ -19,13 +20,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
      bf16->float32, and at (24, 216) (phase 7's (T)) in float64, with the
      median of timed runs of one row and its bound;
   5. the frozen oracles on device="cuda" in DP (CCSD, CCD, CC2 and the
-     CCSD(T) triples on H2O), precision="SP" against DP, and the DF
+     CCSD(T) triples on H2O; Lambda, densities and EOM-CCSD roots of
+     tests/test_005, test_011 and test_006), precision="SP" against DP,
+     and the DF
      (Cholesky) oracles: storage="df" CCSD on STO-3G and, from
      run_rhf(df=True), on cc-pVDZ, and DF-direct CCSD(T) against dense;
   6. a real size on full storage: (H2O)_6/cc-pVDZ CCSD(T) (144 basis
      functions, (no, nv) = (24, 114) with the frozen core) through
      run_rhf -> ccwfn -> solve_cc, then the same (T) through the two
      plain paths;
+  6b. [post] post-convergence on phase 6's ccwfn: the (T) density scan
+     (its E(T) held to K2's), HBAR, Lambda-CCSD(T) (K1 on the pre-laid
+     'ijef,efab' operand, one launch an iteration), the densities and
+     their energy (held to E(CCSD) + E(T)), and EOM-CCSD for 3 roots (one
+     K1 launch a sigma batch), with the residuals recomputed from the
+     returned subspace and the sigma through K1 held to the plain one;
   7. [df] a real size over Cholesky factors, which full storage cannot
      hold on 80 GB: (H2O)_6/aug-cc-pVDZ DF-CCSD(T) (246 basis functions,
      (24, 216)) through run_rhf(df=True) -> ccwfn(storage="df") ->
@@ -44,12 +53,14 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 import pycc_tpu_torch
 from pycc_tpu_torch.ops.kernels import build as kernel_build
 from pycc_tpu_torch.data import moldict
 from pycc_tpu_torch import triples
+from pycc_tpu_torch.cceom import sigma_block
 from pycc_tpu_torch.models import dfccsd
 from pycc_tpu_torch.ops.kernels import triples as k2
 from pycc_tpu_torch.ops.kernels import vvvv
@@ -107,13 +118,19 @@ ORACLES = [
     ("cc-pvdz", "CCSD(T)", True, -0.003861236558801),
 ]
 
-K1_SHAPES = [
-    ((16, 361, 361), "H2O/cc-pVDZ ladder"),
-    ((1000, 4999, 5003), "ragged"),
-    ((576, 12996, 12996), "(H2O)_6/cc-pVDZ ladder"),
-    (K1_DF_SHAPE, "(H2O)_6/aug DF ladder block"),
-]
+# the EOM roots of phase 6b, and the sigma batch K1 sees there: the
+# Davidson adds one vector a root that has not converged
+EOM_ROOTS = 3
 K1_FULL_SHAPE = (576, 12996, 12996)
+K1_EOM_SHAPE = (EOM_ROOTS * 576, 12996, 12996)
+# (shape, what, types: "all" or the labels of K1_TYPES timed there)
+K1_SHAPES = [
+    ((16, 361, 361), "H2O/cc-pVDZ ladder", "all"),
+    ((1000, 4999, 5003), "ragged", "all"),
+    (K1_FULL_SHAPE, "(H2O)_6/cc-pVDZ ladder", "all"),
+    (K1_DF_SHAPE, "(H2O)_6/aug DF ladder block", "all"),
+    (K1_EOM_SHAPE, "(H2O)_6 EOM sigma batch", ("f64",)),
+]
 # the H100 SXM data sheet's dense peaks (at its 700 W limit): HBM bytes/s,
 # and flop/s for the arithmetic each kernel does in each type (float64 on
 # the FP64 tensor cores, float32 on the CUDA cores, bf16 on the tensor cores)
@@ -200,12 +217,14 @@ def _median_ms(fn, reps=5):
 def phase_kernel(smi):
     cells = {}
     gen = torch.Generator(device=DEVICE).manual_seed(1234)
-    for (m, n, k), what in K1_SHAPES:
+    for (m, n, k), what, types in K1_SHAPES:
         A64 = torch.randn((m, k), generator=gen, device=DEVICE,
                           dtype=torch.float64)
         B64 = torch.randn((n, k), generator=gen, device=DEVICE,
                           dtype=torch.float64)
         for label, dtype, bf16, tol in K1_TYPES:
+            if types != "all" and label not in types:
+                continue
             A, B = A64.to(dtype), B64.to(dtype)
             out = vvvv_nt(A, B, bf16=bf16)
             torch.cuda.synchronize()
@@ -429,7 +448,82 @@ def phase_oracles():
             and abs(et_sp - et_dp) < 1e-6):
         raise AssertionError("SP lands %.3e (CCSD), %.3e ((T)) from DP"
                              % (abs(eccsd_sp - eccsd_dp), abs(et_sp - et_dp)))
+    phase_post_oracles(wfns)
     phase_df_oracles(wfns["sto-3g", True], e_t_sto3g)
+
+
+# the all-electron H2O/STO-3G of tests/test_011 (bohr)
+H2O_T011 = """
+O 0.000000000000000   0.000000000000000   0.143225857166674
+H 0.000000000000000  -1.638037301628121  -1.136549142277225
+H 0.000000000000000   1.638037301628121  -1.136549142277225
+symmetry c1
+units bohr
+"""
+
+
+def _lambda(cc, e_conv, r_conv, **kw):
+    """HBAR and a solved Lambda for a converged cc, with the K1 launches
+    of the Lambda solve."""
+    hb = pycc_tpu_torch.cchbar(cc)
+    lam = pycc_tpu_torch.cclambda(cc, hb)
+    vvvv_nt.launches = 0
+    lecc = lam.solve_lambda(e_conv, r_conv, **kw)
+    return hb, lam, lecc, vvvv_nt.launches
+
+
+def phase_post_oracles(wfns):
+    """Lambda, densities and EOM-CCSD on the card in DP against the frozen
+    values of tests/test_005, test_011 and test_006."""
+    for basis, oracle in (("sto-3g", -0.068826452648939),
+                          ("cc-pvdz", -0.217838951550509)):
+        cc = pycc_tpu_torch.ccwfn(wfns[basis, True], device=DEVICE)
+        ecc, _ = _solve(cc, 1e-12, 1e-12)
+        hb, lam, lecc, launches = _lambda(cc, 1e-12, 1e-12)
+        dens = pycc_tpu_torch.ccdensity(cc, lam)
+        edens = dens.compute_energy()
+        print("[oracle] H2O/%s Lambda-CCSD: pseudo-E = %.15f  |dE| = %.2e  "
+              "%d iterations  %d K1 launches  density E - Ecorr = %.2e"
+              % (basis, lecc, abs(lecc - oracle), lam.niter, launches,
+                 edens - ecc))
+        if not (lam.converged and abs(lecc - oracle) < 1e-11
+                and abs(edens - ecc) < 1e-12):
+            raise AssertionError("Lambda/density oracle H2O/%s missed" % basis)
+        if launches < lam.niter:
+            raise AssertionError("Lambda: %d K1 launches in %d iterations"
+                                 % (launches, lam.niter))
+        if basis == "cc-pvdz":
+            eom = pycc_tpu_torch.cceom(hb)
+            vvvv_nt.launches = 0
+            E, _ = eom.solve_eom(N=3, e_conv=1e-9, r_conv=1e-7)
+            launches = vvvv_nt.launches
+            ref = np.array([0.246365746068, 0.313591867750, 0.354390071110])
+            print("[oracle] H2O/cc-pvdz EOM-CCSD fzc roots %s  max|dE| = "
+                  "%.2e  %d K1 launches" % (np.array2string(E, precision=12),
+                                            np.abs(E - ref).max(), launches))
+            if not (eom.converged and np.abs(E - ref).max() < 1e-7
+                    and launches > 0):
+                raise AssertionError("EOM-CCSD oracle missed")
+
+    wfn = run_rhf(H2O_T011, "sto-3g", freeze_core=False)
+    for t3_scan in (None, True):
+        cc = pycc_tpu_torch.ccwfn(wfn, model="CCSD(T)", make_t3_density=True,
+                                  t3_scan=t3_scan, device=DEVICE)
+        ecc = cc.solve_cc(1e-12, 1e-12, 75, max_diis=0)
+        et = ecc - float(cc.cc_energy(cc.t1, cc.t2))
+        et_tjl = float(triples.t_tjl(cc))
+        _, lam, lcc, _ = _lambda(cc, 1e-12, 1e-12, maxiter=75, max_diis=0)
+        dens = pycc_tpu_torch.ccdensity(cc, lam)
+        dens.compute_energy()
+        gaps = (abs(lcc - -0.069084521221746),
+                abs(dens.eone - 0.104463374777302),
+                abs(dens.etwo - -0.175243393781829))
+        print("[oracle] H2O/sto-3g all-electron CCSD(T) t3_scan=%s: density "
+              "(T) - t_tjl = %.2e  |d lcc| = %.2e  |d eone| = %.2e  "
+              "|d etwo| = %.2e" % ((t3_scan, abs(et - et_tjl)) + gaps))
+        if not (abs(et - et_tjl) < 1e-14 and max(gaps) < 1e-11):
+            raise AssertionError("CCSD(T) density oracle (t3_scan=%s) missed"
+                                 % t3_scan)
 
 
 def phase_df_oracles(wfn_sto3g, e_t_sto3g):
@@ -468,10 +562,13 @@ def phase_df_oracles(wfn_sto3g, e_t_sto3g):
                                  % (model, launches, cc.niter))
 
 
-def _timed(fn):
+def _synced(fn):
+    """fn's result and its seconds on the host clock, the card drained at
+    both ends."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = float(fn())
+    out = fn()
+    torch.cuda.synchronize()
     return out, time.perf_counter() - t0
 
 
@@ -510,11 +607,11 @@ def phase_real_size(smi, name=REAL_SIZE):
     sl = triples.scan_slices(cc)
     t1, t2, no = cc.t1, cc.t2, cc.no
     t2w = 4.0 * t2 - 2.0 * t2.swapaxes(2, 3)
-    e_rows, t_rows = _timed(lambda: sum(
+    e_rows, t_rows = _synced(lambda: float(sum(
         t_row_finalize(i, t_energy_row_reference(i, *sl, t2, no), t1, t2w)
-        for i in range(no)))
-    e_scan, t_scan = _timed(
-        lambda: triples.t_vikings_scan_core(*sl, t1, t2, no))
+        for i in range(no))))
+    e_scan, t_scan = _synced(
+        lambda: float(triples.t_vikings_scan_core(*sl, t1, t2, no)))
     print("[real] (T): kernel rows %.1f s E(T) %.12f | plain rows %.1f s "
           "E(T) %.12f | plain pair-symmetric scan %.1f s E(T) %.12f  | %s"
           % (t_t, et, t_rows, e_rows, t_scan, e_scan, smi))
@@ -538,7 +635,106 @@ def phase_real_size(smi, name=REAL_SIZE):
         raise AssertionError("%d K1 launches in %d iterations, %d K2 launches "
                              "for no = %d" % (launches["vvvv_nt"], cc.niter,
                                               launches["t_row"], cc.no))
-    return launches
+    return launches, cc, eccsd, et
+
+
+def _eom_checks(eom, C, E):
+    """The per-root residual norms |sigma x - omega x| of the Ritz vectors
+    x of the returned subspace C, with sigma recomputed through K1;
+    max|sigma_K1(x) - sigma_plain(x)| / max|sigma_plain(x)|; max|omega -
+    E|; and the seconds of sigma(x) through K1 and through the plain
+    ladder."""
+    S = torch.cat([eom.sigma(C[i:i + 2 * EOM_ROOTS])
+                   for i in range(0, C.shape[0], 2 * EOM_ROOTS)])
+    w, a = np.linalg.eig((C @ S.T).double().cpu().numpy())
+    idx = np.real(w).argsort()[:EOM_ROOTS]
+    a = torch.as_tensor(np.real(a[:, idx]).T.copy(), dtype=C.dtype,
+                        device=C.device)
+    x = a @ C
+    del S
+    s_k1, t_k1 = _synced(lambda: eom.sigma(x))
+    s_plain, t_plain = _synced(
+        lambda: eom.sigma(x, ladder=vvvv_nt_reference))
+    omega = torch.as_tensor(np.real(w[idx]), dtype=C.dtype, device=C.device)
+    rn = torch.linalg.norm(s_k1 - omega[:, None] * x, dim=1).tolist()
+    rel = ((s_k1 - s_plain).abs().max() / s_plain.abs().max()).item()
+    return rn, rel, np.abs(np.real(w[idx]) - E).max(), t_k1, t_plain
+
+
+def phase_post(cc, eccsd, et_k2, smi, name=REAL_SIZE):
+    """Post-convergence on phase 6's converged (H2O)_6 CCSD(T) ccwfn: the
+    (T) density, HBAR, Lambda, the densities and EOM-CCSD, each timed, with
+    K1's launches counted from 0 over the Lambda solve and over the EOM
+    solve alone."""
+    et_ref = FROZEN[name][2]
+    torch.cuda.reset_peak_memory_stats()
+    et_d, t_dens = _synced(lambda: float(cc.t3_density()))
+    hb, t_hbar = _synced(lambda: pycc_tpu_torch.cchbar(cc))
+    _, t_efab = _synced(lambda: hb.Hvvvv_efab)
+    lam = pycc_tpu_torch.cclambda(cc, hb)
+    vvvv_nt.launches = 0
+    lecc, t_lam = _synced(lambda: lam.solve_lambda(1e-10, 1e-10))
+    lam_launches = vvvv_nt.launches
+    peak_lam = torch.cuda.max_memory_allocated()
+
+    def densities():
+        dens = pycc_tpu_torch.ccdensity(cc, lam)
+        dens.compute_energy()
+        return dens.eone, dens.etwo
+    (eone, etwo), t_den = _synced(densities)
+    e_total = eccsd + et_k2
+
+    eom = pycc_tpu_torch.cceom(hb)
+    vvvv_nt.launches = 0
+    (E, C), t_eom = _synced(lambda: eom.solve_eom(
+        N=EOM_ROOTS, e_conv=1e-8, r_conv=1e-6))
+    eom_launches = vvvv_nt.launches
+    peak = torch.cuda.max_memory_allocated()
+    n_sigma = cc.timers.count["eom.sigma"]
+    rn, rel, dw, t_k1, t_plain = _eom_checks(eom, C, E)
+
+    print("[post] %s/cc-pVDZ CCSD(T) post-convergence  | %s" % (name, smi))
+    print("[post] (T) density scan %.1f s: E(T) = %.12f  |E(T) - K2's| = "
+          "%.2e  |dE| from frozen = %.2e"
+          % (t_dens, et_d, abs(et_d - et_k2), abs(et_d - et_ref)))
+    print("[post] HBAR %.2f s (+ pre-laid efab operand %.3f s)  Lambda %.2f s "
+          "%d iterations %.3f s/iter  pseudo-E = %.12f  K1 launches %d  peak "
+          "device memory through Lambda %.2f GB"
+          % (t_hbar, t_efab, t_lam, lam.niter, t_lam / lam.niter, lecc,
+             lam_launches, peak_lam / 1e9))
+    print("[post] densities + compute_energy %.2f s: eone + etwo = %.12f  "
+          "E(CCSD) + E(T) = %.12f  |diff| = %.2e"
+          % (t_den, eone + etwo, e_total, abs(eone + etwo - e_total)))
+    print("[post] EOM-CCSD %d roots %.1f s (the %s guess on the host %.1f "
+          "s): %s Eh  %d iterations  subspace %d  sigma batches %d  K1 "
+          "launches %d  residual norms %s  |Ritz - E| %.2e  peak device "
+          "memory %.2f GB"
+          % (EOM_ROOTS, t_eom, "HBAR_SS", cc.timers.total["eom.guess"],
+             np.array2string(E, precision=10), eom.niter, C.shape[0],
+             n_sigma, eom_launches, ", ".join("%.2e" % r for r in rn), dw,
+             peak / 1e9))
+    print("[post] sigma of the %d Ritz vectors: through K1 %.3f s, through "
+          "the plain ladder %.3f s, rel diff %.2e  | %s"
+          % (EOM_ROOTS, t_k1, t_plain, rel, smi))
+
+    if not (abs(et_d - et_k2) < 1e-10 and abs(et_d - et_ref) < 1e-9):
+        raise AssertionError("the (T)-density E(T) missed K2's or the frozen")
+    if not (lam.converged and math.isfinite(lecc)):
+        raise AssertionError("Lambda did not converge")
+    if lam_launches < lam.niter:
+        raise AssertionError("Lambda: %d K1 launches in %d iterations"
+                             % (lam_launches, lam.niter))
+    if not abs(eone + etwo - e_total) < 1e-9:
+        raise AssertionError("the density energy missed E(CCSD) + E(T)")
+    if not (eom.converged and np.all(np.isfinite(E)) and np.all(E > 0)):
+        raise AssertionError("EOM-CCSD did not converge to 3 real positive "
+                             "roots: %s" % E)
+    if not (max(rn) <= 1e-6 and rel <= 1e-12):
+        raise AssertionError("EOM: residual norms %s, sigma K1 vs plain %.2e"
+                             % (rn, rel))
+    if eom_launches < 1:
+        raise AssertionError("EOM-CCSD launched K1 no time")
+    return {"lambda": lam_launches, "eom": eom_launches}
 
 
 def _event_ms(fn):
@@ -626,8 +822,8 @@ def phase_df(smi, name=DF_SIZE):
 
     # the same (T) through the plain pair-symmetric scan
     sl = triples.t_scan_df_slices(cc.H.F, *cc.dfb, cc.no)
-    e_scan, t_scan = _timed(
-        lambda: triples.t_vikings_scan_core(*sl, cc.t1, cc.t2, cc.no))
+    e_scan, t_scan = _synced(
+        lambda: float(triples.t_vikings_scan_core(*sl, cc.t1, cc.t2, cc.no)))
     del sl
     print("[df] (T): K2 rows %.1f s E(T) %.12f | plain pair-symmetric scan "
           "%.1f s E(T) %.12f  |diff| %.2e  | %s"
@@ -656,7 +852,7 @@ def phase_df(smi, name=DF_SIZE):
     return launches
 
 
-def _kernel_entries(k1_cells, k2_cells, full, df):
+def _kernel_entries(k1_cells, k2_cells, full, post, df):
     """The kernels line: each kernel on each path, with that path's
     launches and the timed cell at the shape the path launches it at."""
     k1 = dict(route="cuda", source="pycc_tpu_torch/csrc/vvvv_nt.cu",
@@ -668,6 +864,10 @@ def _kernel_entries(k1_cells, k2_cells, full, df):
              **k1_cells[K1_FULL_SHAPE, "f64"]),
         dict(name="t_row", **k2, launches=full["t_row"],
              **k2_cells[(24, 114), "f64"]),
+        dict(name="vvvv_nt/lambda", **k1, launches=post["lambda"],
+             **k1_cells[K1_FULL_SHAPE, "f64"]),
+        dict(name="vvvv_nt/eom", **k1, launches=post["eom"],
+             **k1_cells[K1_EOM_SHAPE, "f64"]),
         dict(name="vvvv_nt/ladder_df", **k1, launches=df["vvvv_nt"],
              **k1_cells[K1_DF_SHAPE, "f64"]),
         dict(name="t_row/df_slices", **k2, launches=df["t_row"],
@@ -682,11 +882,14 @@ def main():
     k1_cells = phase_kernel(smi)
     k2_cells = phase_k2(smi)
     phase_oracles()
-    full = phase_real_size(smi)
+    full, cc, eccsd, et = phase_real_size(smi)
+    post = phase_post(cc, eccsd, et, smi)
+    del cc
+    torch.cuda.empty_cache()
     df = phase_df(smi)
     print(smi)
     print(json.dumps({"kernels": _kernel_entries(k1_cells, k2_cells, full,
-                                                 df)}))
+                                                 post, df)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

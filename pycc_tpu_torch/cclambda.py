@@ -1,0 +1,232 @@
+"""Lambda-amplitude solver: the left-hand eigenvector of HBAR.
+
+The counterpart of pycc_tpu/cclambda.py for storage='full' and the models
+CCD, CC2, CCSD and CCSD(T).  The residual is a plain function of (hbar, t,
+l); its Hvvvv ladder ('ijef,efab') runs through K1 on the HBAR's pre-laid
+operand.  `solve_lambda` is the T-amplitude solver's loop: a Jacobi step
+from diag(F), the pseudo-energy of the pre-extrapolation update, the
+on-device DIIS ring from `start_diis`, and one host read per iteration.
+For CCSD(T) the (T) sources S1/S2 come from `triples.t3_lambda_sources`.
+"""
+
+import time
+import warnings
+
+import torch
+
+from .cchbar import build_hbar
+from .models.ccsd import build_tau, slices, vvvv_contract_efab
+from .ops.contract import contract
+from .ops.diis import DIIS
+from .utils.log import logger as log
+
+_NOT_PORTED_SOLVE_KWARGS = {
+    "chk": "Queue 1, item 10 (checkpoint/resume)",
+    "chk_every": "Queue 1, item 10 (checkpoint/resume)",
+    "chk_ring": "Queue 1, item 10 (checkpoint/resume)",
+    "resume": "Queue 1, item 10 (checkpoint/resume)",
+}
+
+
+def build_Goo(t2, l2):
+    return contract("mjab,ijab->mi", t2, l2)
+
+
+def build_Gvv(t2, l2):
+    return -1.0 * contract("ijeb,ijab->ae", t2, l2)
+
+
+def lambda_residuals(model, hb, F, ERI, L, t1, t2, l1, l2, no,
+                     S1=None, S2=None):
+    """r_L1, r_L2 for CCD/CC2/CCSD (+ optional (T) source terms S1/S2).
+    hb is a cchbar.HBar."""
+    o, v = slices(no)
+    Goo = build_Goo(t2, l2)
+    Gvv = build_Gvv(t2, l2)
+    ccd = model == "CCD"
+    cc2 = model == "CC2"
+
+    Hovvo_s = 2.0 * hb.Hovvo - hb.Hovov.swapaxes(2, 3)
+
+    if ccd:
+        r1 = torch.zeros_like(l1)
+    else:
+        r1 = 2.0 * hb.Hov
+        if S1 is not None:
+            r1 = r1 + S1
+        r1 = r1 + contract("ie,ea->ia", l1, hb.Hvv)
+        r1 -= contract("ma,im->ia", l1, hb.Hoo)
+        r1 += contract("imef,efam->ia", l2, hb.Hvvvo)
+        r1 -= contract("mnae,iemn->ia", l2, hb.Hovoo)
+        r1 += contract("me,ieam->ia", l1, Hovvo_s)
+        if cc2:
+            tmp = contract("me,nmfe->nf", l1, t2)
+            r1 += contract("nf,inaf->ia", tmp, 2.0 * L[o, o, v, v])
+            tmp = contract("me,mnfe->nf", l1, build_tau(t1, t2))
+            r1 -= contract("nf,inaf->ia", tmp, 2.0 * ERI[o, o, v, v])
+            r1 += contract("nf,inaf->ia", tmp, ERI[o, o, v, v].swapaxes(2, 3))
+        else:
+            r1 -= 2.0 * contract("ef,eifa->ia", Gvv, hb.Hvovv)
+            r1 += contract("ef,eiaf->ia", Gvv, hb.Hvovv)
+            r1 -= 2.0 * contract("mn,mina->ia", Goo, hb.Hooov)
+            r1 += contract("mn,imna->ia", Goo, hb.Hooov)
+
+    r2 = L[o, o, v, v]
+    if not ccd:
+        if S2 is not None:
+            r2 = r2 + 0.5 * S2
+        r2 = r2 + 2.0 * contract("ia,jb->ijab", l1, hb.Hov)
+        r2 -= contract("ja,ib->ijab", l1, hb.Hov)
+        r2 += 2.0 * contract("ie,ejab->ijab", l1, hb.Hvovv)
+        r2 -= contract("ie,ejba->ijab", l1, hb.Hvovv)
+        r2 -= 2.0 * contract("mb,jima->ijab", l1, hb.Hooov)
+        r2 += contract("mb,ijma->ijab", l1, hb.Hooov)
+    if cc2:
+        r2 = r2 + contract("ijeb,ea->ijab", l2,
+                           F[v, v] - contract("me,ma->ae", F[o, v], t1))
+        r2 -= contract("mjab,im->ijab", l2,
+                       F[o, o] + contract("ie,me->mi", t1, F[o, v]))
+    else:
+        r2 = r2 + contract("ijeb,ea->ijab", l2, hb.Hvv)
+        r2 -= contract("mjab,im->ijab", l2, hb.Hoo)
+        r2 += 0.5 * contract("mnab,ijmn->ijab", l2, hb.Hoooo)
+        r2 += 0.5 * vvvv_contract_efab(l2, hb.Hvvvv_efab)
+        r2 += contract("mjeb,ieam->ijab", l2, Hovvo_s)
+        r2 -= contract("mibe,jema->ijab", l2, hb.Hovov)
+        r2 -= contract("mieb,jeam->ijab", l2, hb.Hovvo)
+        r2 += contract("ae,ijeb->ijab", Gvv, L[o, o, v, v])
+        r2 -= contract("mi,mjab->ijab", Goo, L[o, o, v, v])
+    r2 = r2 + r2.permute(1, 0, 3, 2)
+    return r1, r2
+
+
+def lambda_residuals_from_F(model, F, ERI, L, t1, t2, l1, l2, no):
+    """Rebuild HBAR from F on the fly (the real-time path's residual)."""
+    if model == "CC3":
+        from .ccwfn import _not_ported
+        raise _not_ported("lambda_residuals_from_F(model='CC3')",
+                          "Queue 1, item 8 (CC3)")
+    hb = build_hbar(model, F, ERI, L, t1, t2, no)
+    return lambda_residuals(model, hb, F, ERI, L, t1, t2, l1, l2, no)
+
+
+def pseudoenergy(ERI, l2, no):
+    o, v = slices(no)
+    return 0.5 * contract("ijab,ijab->", ERI[o, o, v, v], l2)
+
+
+class cclambda:
+    """cclambda(ccwfn, hbar).solve_lambda(...) on ccwfn's device, with
+    l1 = 2 t1 and l2 = 2 (2 t2 - t2^T) as the start."""
+
+    def __init__(self, ccwfn, hbar):
+        from .ccwfn import _not_ported
+        if getattr(ccwfn, "storage", "full") == "df":
+            raise _not_ported("cclambda(storage='df')",
+                              "Queue 1, item 9 (DF post-convergence stack)")
+        if ccwfn.model == "CC3":
+            raise _not_ported("cclambda(model='CC3')", "Queue 1, item 8 (CC3)")
+        self.ccwfn = ccwfn
+        self.hbar = hbar
+        self.l1 = 2.0 * ccwfn.t1
+        self.l2 = 2.0 * (2.0 * ccwfn.t2 - ccwfn.t2.swapaxes(2, 3))
+
+    def residuals(self, F, t1, t2, l1, l2):
+        """Standalone residuals rebuilding HBAR from F (for RT-CC)."""
+        cc = self.ccwfn
+        return lambda_residuals_from_F(cc.model, F, cc.H.ERI, cc.H.L,
+                                       t1, t2, l1, l2, cc.no)
+
+    def solve_lambda_mixed(self, *args, **kwargs):
+        from .ccwfn import _not_ported
+        raise _not_ported("cclambda.solve_lambda_mixed",
+                          "Queue 1, item 10 (blocked storage and mixed "
+                          "precision)")
+
+    def solve_lambda(self, e_conv=1e-7, r_conv=1e-7, maxiter=100, max_diis=8,
+                     start_diis=1, stall_limit=10, **kwargs):
+        """Iterate the Lambda equations to the requested tolerances; returns
+        the pseudo-energy.  max_diis=0 turns DIIS off; the noise-floor stop
+        after `stall_limit` iterations without a 2% rms gain sets
+        `self.converged` from the energy change alone, as in solve_cc."""
+        from .ccwfn import _reject
+        _reject(kwargs, _NOT_PORTED_SOLVE_KWARGS, "solve_lambda")
+        tstart = time.time()
+        cc = self.ccwfn
+        no = cc.no
+        H = cc.H
+        hb = getattr(self.hbar, "hbar", self.hbar)
+        model = cc.model
+        t1, t2 = cc.t1, cc.t2
+
+        S1 = getattr(cc, "S1", None)
+        S2 = getattr(cc, "S2", None)
+        if model == "CCSD(T)" and S1 is None:
+            from .triples import t3_lambda_sources
+            S1, S2 = t3_lambda_sources(cc)
+
+        eps = torch.diagonal(H.F).to(self.l1.dtype)
+        D1 = eps[:no, None] - eps[None, no:]
+        D2 = (eps[:no, None, None, None] + eps[None, :no, None, None]
+              - eps[None, None, no:, None] - eps[None, None, None, no:])
+        use_diis = max_diis > 0
+        diis = DIIS((self.l1, self.l2), max_diis=max(max_diis, 1))
+        state = diis.init() if use_diis else None
+
+        l1, l2 = self.l1, self.l2
+        lecc = float(pseudoenergy(H.ERI, l2, no))
+        log.info("\nLCC Iter %3d: LCC PseudoE = %.15f  dE = % .5E"
+                 % (0, lecc, -lecc))
+        rms = float("inf")
+        ediff = float("nan")
+        best_rms = float("inf")
+        stalled = 0
+        for niter in range(1, maxiter + 1):
+            with cc.timers.time("lambda.iteration"):
+                lecc_last = lecc
+                r1, r2 = lambda_residuals(model, hb, H.F, H.ERI, H.L, t1, t2,
+                                          l1, l2, no, S1, S2)
+                inc1 = r1 / D1
+                inc2 = r2 / D2
+                l1n = l1 + inc1
+                l2n = l2 + inc2
+                rms_t = torch.sqrt(torch.sum(inc1 * inc1)
+                                   + torch.sum(inc2 * inc2))
+                lecc_t = pseudoenergy(H.ERI, l2n, no)
+                if use_diis:
+                    diis.push(state, (l1n, l2n), (l1, l2))
+                    if niter >= start_diis:
+                        l1, l2 = diis.extrapolate(state, (l1n, l2n))
+                    else:
+                        l1, l2 = l1n, l2n
+                else:
+                    l1, l2 = l1n, l2n
+                # the one host read of the iteration
+                lecc, rms = torch.stack([lecc_t, rms_t]).tolist()
+            self.l1, self.l2 = l1n, l2n
+            self.niter = niter
+            ediff = lecc - lecc_last
+            log.info("LCC Iter %3d: LCC PseudoE = %.15f  dE = % .5E  "
+                     "rms = % .5E" % (niter, lecc, ediff, rms))
+            if rms < 0.98 * best_rms:
+                best_rms = rms
+                stalled = 0
+            else:
+                stalled += 1
+                if stall_limit and stalled >= stall_limit and rms >= r_conv:
+                    self.converged = abs(ediff) < e_conv
+                    log.info("\nLambda-CC hit the working-precision noise "
+                             "floor (rms %.3E > r_conv %.1E, no improvement "
+                             "in %d iterations); stopping with dE = %.3E.\n"
+                             % (rms, r_conv, stall_limit, ediff))
+                    return lecc
+            if abs(ediff) < e_conv and rms < r_conv:
+                self.converged = True
+                log.info("\nLambda-CC has converged in %.3f seconds.\n"
+                         % (time.time() - tstart))
+                return lecc
+        self.l1, self.l2 = l1, l2
+        self.converged = False
+        warnings.warn("Lambda-CC did NOT converge in %d iterations "
+                      "(dE=%.2e rms=%.2e)" % (maxiter, ediff, rms))
+        return lecc

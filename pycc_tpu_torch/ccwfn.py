@@ -9,7 +9,10 @@ evaluates the residuals, takes a Jacobi step from diag(F), pushes the
 step into the on-device DIIS ring and extrapolates, all eagerly on
 `device`; the host reads one (energy, rms) pair per iteration.  For
 CCSD(T) the converged CCSD amplitudes then feed the (T) energy
-(`triples.t_vikings_scan`).
+(`triples.t_vikings_scan`, through K2), or with make_t3_density=True the
+(T) density (`ccwfn.t3_density`, which also leaves the Lambda sources and
+density blocks for cclambda/ccdensity; t3_scan=True/False forces its slab
+scan or its full-tensor form).
 
 storage='df' replaces the nact^4 ERI and L by three-index Cholesky
 factors (`self.dfb`) and evaluates the residuals from them
@@ -74,8 +77,6 @@ _NOT_PORTED_INIT_KWARGS = {
     "filter": "Queue 1, item 12 (local correlation)",
     "mesh": "Queue 1, item 13 (multi-device)",
     "real_time": "Queue 1, item 11 (real-time CC)",
-    "make_t3_density": "Queue 1, item 6 (post-convergence on full storage)",
-    "t3_scan": "Queue 1, item 8 (CC3)",
 }
 _NOT_PORTED_SOLVE_KWARGS = {
     "bf16_until": "Queue 1, item 10 (blocked storage and mixed precision)",
@@ -126,7 +127,8 @@ class ccwfn:
 
     def __init__(self, scf_wfn, model="CCSD", precision="DP", device="cuda",
                  storage="full", df_tol=1e-8, df_direct=None,
-                 df_nblocks=None, **kwargs):
+                 df_nblocks=None, make_t3_density=False, t3_scan=None,
+                 **kwargs):
         time_init = time.time()
         model = _check_model(model)
         storage = storage.lower()
@@ -137,8 +139,13 @@ class ccwfn:
             raise ValueError("%s is not an allowed storage mode." % storage)
         precision = _check_precision(precision)
         _reject(kwargs, _NOT_PORTED_INIT_KWARGS, "ccwfn")
+        if storage == "df" and make_t3_density:
+            raise _not_ported("ccwfn(storage='df', make_t3_density=True)",
+                              "Queue 1, item 9 (DF post-convergence stack)")
 
         self.model = model
+        self.make_t3_density = bool(make_t3_density)
+        self.t3_scan = t3_scan
         self.storage = storage
         self.precision = precision
         self.device = init_device(device)
@@ -253,6 +260,8 @@ class ccwfn:
         self.model = _check_model(model)
         self.precision = _check_precision(precision)
         self.storage = "df"
+        self.make_t3_density = False
+        self.t3_scan = None
         self.df_direct = True
         self.df_tol = None
         self.df_nblocks = df_nblocks
@@ -371,7 +380,10 @@ class ccwfn:
                 if self.model == "CCSD(T)":
                     log.info("E(CCSD) = %20.15f" % ecc)
                     with self.timers.time("ccwfn.triples"):
-                        et = float(triples.t_vikings_scan(self))
+                        if self.make_t3_density:
+                            et = float(self.t3_density())
+                        else:
+                            et = float(triples.t_vikings_scan(self))
                     log.info("E(T)    = %20.15f" % et)
                     ecc = ecc + et
                 self.ecc = ecc
@@ -383,6 +395,13 @@ class ccwfn:
         warnings.warn("CCWFN did NOT converge in %d iterations "
                       "(dE=%.2e rms=%.2e)" % (maxiter, ediff, rms))
         return ecc
+
+    def t3_density(self):
+        """E(T) with the (T) density blocks and Lambda sources, which stay
+        on this object for cclambda and ccdensity (`triples.t3_density`,
+        or the slab scan `t3_density_scan` past o^3 v^3 = 2e8 or when
+        t3_scan=True)."""
+        return triples.t3_density_energy(self)
 
     def _report(self, ecc):
         log.info("E(REF)  = %20.15f" % self.eref)

@@ -7,7 +7,8 @@ spin-adapted RHF-CC equations (Stanton, Gauss, Watts, Bartlett, JCP 94,
 
 Conventions: t1 (o,v), t2 (o,o,v,v); ERI in Dirac <pq|rs>; L = 2<pq|rs> -
 <pq|sr>; `vvvv` is <ab|ef> as one contiguous (v,v,v,v) tensor
-(Hamiltonian.vvvv).  All functions take F explicitly.
+(Hamiltonian.vvvv).  All functions take F explicitly.  `vvvv_contract`
+and `vvvv_contract_efab` (Lambda's left form) run the ladder through K1.
 """
 
 import torch
@@ -32,6 +33,14 @@ def vvvv_contract(tau, W):
     na, nb = W.shape[0], W.shape[1]
     out = vvvv_nt(tau.reshape(no1 * no2, nv * nv), W.reshape(na * nb, nv * nv))
     return out.reshape(no1, no2, na, nb)
+
+
+def vvvv_contract_efab(tau, Wt):
+    """'ijef,efab->ijab' (the left-Hvvvv form of Lambda) through K1, on the
+    pre-laid operand Wt[a,b,e,f] = W[e,f,a,b] (cchbar.HBar.Hvvvv_efab),
+    made once per HBAR: its (ab, ef) matrix is K1's B, so nothing is
+    transposed here."""
+    return vvvv_contract(tau, Wt)
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,13 @@ The counterpart of pycc_tpu/triples.py for storage='full' and 'df':
   (`ops/kernels/triples.py`), which launches the CUDA kernel on CUDA
   tensors;
 - `t_vikings_scan_df_chunked`: the plain, memory-bounded (T) from factors,
-  k-chunked over one resident (o, v, v, v) tensor; called explicitly.
+  k-chunked over one resident (o, v, v, v) tensor; called explicitly;
+- `t_vikings_inverted` and `t_tjl`: the virtual-driven and the Lee/Rendell
+  restricted-triples (T), two oracles with other reduction orders;
+- the (T) density of CCSD(T) (storage='full'): `t3_density` over the full
+  T3 tensor and `t3_density_scan`, one pass per (i, j) slab pair; both
+  leave the Lambda sources S1/S2 and the density blocks on the ccwfn
+  (`t3_density_energy` picks one, `t3_lambda_sources` reads them).
 
 Eager torch materialises each slab once, so the optimization barriers of
 the JAX versions have no counterpart here.
@@ -58,6 +64,19 @@ def t3c_full(Wvvvo, Wovoo, t2, F, no):
     return t3 / t3_denom(F, no)
 
 
+def t3d_full(t1, t2, Woovv, F, no):
+    """Disconnected T3 over the full index space."""
+    o, v = _slices(no)
+    Fov = F[o, v]
+    t3 = contract("ijab,kc->ijkabc", Woovv, t1)
+    t3 += contract("ikac,jb->ijkabc", Woovv, t1)
+    t3 += contract("jkbc,ia->ijkabc", Woovv, t1)
+    t3 += contract("ijab,kc->ijkabc", t2, Fov)
+    t3 += contract("ikac,jb->ijkabc", t2, Fov)
+    t3 += contract("jkbc,ia->ijkabc", t2, Fov)
+    return t3 / t3_denom(F, no)
+
+
 def _swap_ac(t3):
     return t3.swapaxes(3, 5)
 
@@ -88,6 +107,211 @@ def t_vikings(cc):
     X1, X2 = _vikings_X(F, ERI, L, t2, t3, no)
     ET = 2.0 * contract("ia,ia->", t1, X1)
     return ET + contract("ijab,ijab->", 4.0 * t2 - 2.0 * t2.swapaxes(2, 3), X2)
+
+
+def t_vikings_inverted(cc):
+    """Virtual-driven (T): the X tensors of `t_vikings` accumulated one
+    virtual slab (fixed first virtual index of T3 and X2) at a time, a
+    different reduction order kept as a numerical cross-check."""
+    no = cc.no
+    F, ERI, L = cc.H.F, cc.H.ERI, cc.H.L
+    t1, t2 = cc.t1, cc.t2
+    o, v = _slices(no)
+    t3 = t3c_full(ERI[v, v, v, o], ERI[o, v, o, o], t2, F, no)
+    td = t3 - _swap_ac(t3)
+    T = 2.0 * t3 - _swap_bc(t3) - _swap_ac(t3)
+    t2w = 4.0 * t2 - 2.0 * t2.swapaxes(2, 3)
+    e = 0.0
+    for a in range(t3.shape[3]):
+        X1a = contract("ijkbc,jkbc->i", td[:, :, :, a], L[o, o, v, v])
+        X2a = contract("ijkbc,kc->ijb", td[:, :, :, a], F[o, v])
+        X2a += contract("ijkbc,dkbc->ijd", T[:, :, :, a], ERI[v, o, v, v])
+        X2a -= contract("ijkbc,jklc->ilb", T[:, :, :, a], ERI[o, o, o, v])
+        e = e + 2.0 * contract("i,i->", t1[:, a], X1a)
+        e = e + contract("ijb,ijb->", t2w[:, :, a], X2a)
+    return e
+
+
+def t_tjl(cc):
+    """Lee/Rendell restricted-triples (T): one (v, v, v) block per
+    occupied triple i >= j >= k, the a >= b >= c triangle of each block
+    kept by a mask, and the degenerate triples weighted."""
+    no, nv = cc.no, cc.nv
+    F, ERI = cc.H.F, cc.H.ERI
+    t1, t2 = cc.t1, cc.t2
+    o, v = _slices(no)
+    dt, dev = F.dtype, F.device
+
+    a_ = torch.arange(nv, device=dev)
+    dab = (a_[:, None, None] == a_[None, :, None]).to(dt)
+    dac = (a_[:, None, None] == a_[None, None, :]).to(dt)
+    dbc = (a_[None, :, None] == a_[None, None, :]).to(dt)
+    Vdeg = 1.0 + dab + dac + dbc
+    tri_abc = ((a_[:, None, None] >= a_[None, :, None])
+               & (a_[None, :, None] >= a_[None, None, :]))
+
+    Wvvvo = ERI[v, v, v, o]
+    Wovoo = ERI[o, v, o, o]
+    Woovv = ERI[o, o, v, v]
+    Fov = F[o, v]
+    eps = torch.diagonal(F)
+    Fv = eps[no:]
+
+    def P(x, perm):
+        return x.permute(*perm)
+
+    e = 0.0
+    for i in range(no):
+        for j in range(i + 1):
+            for k in range(j + 1):
+                W3 = contract("bae,ce->abc", Wvvvo[:, :, :, i], t2[k, j])
+                W3 += contract("cae,be->abc", Wvvvo[:, :, :, i], t2[j, k])
+                W3 += contract("ace,be->abc", Wvvvo[:, :, :, k], t2[j, i])
+                W3 += contract("bce,ae->abc", Wvvvo[:, :, :, k], t2[i, j])
+                W3 += contract("cbe,ae->abc", Wvvvo[:, :, :, j], t2[i, k])
+                W3 += contract("abe,ce->abc", Wvvvo[:, :, :, j], t2[k, i])
+                W3 -= contract("mc,mab->abc", Wovoo[:, :, j, k], t2[i])
+                W3 -= contract("mb,mac->abc", Wovoo[:, :, k, j], t2[i])
+                W3 -= contract("mb,mca->abc", Wovoo[:, :, i, j], t2[k])
+                W3 -= contract("ma,mcb->abc", Wovoo[:, :, j, i], t2[k])
+                W3 -= contract("ma,mbc->abc", Wovoo[:, :, k, i], t2[j])
+                W3 -= contract("mc,mba->abc", Wovoo[:, :, i, k], t2[j])
+
+                V3 = W3 + contract("ab,c->abc", Woovv[i, j], t1[k])
+                V3 += contract("ac,b->abc", Woovv[i, k], t1[j])
+                V3 += contract("bc,a->abc", Woovv[j, k], t1[i])
+                V3 += contract("ab,c->abc", t2[i, j], Fov[k])
+                V3 += contract("ac,b->abc", t2[i, k], Fov[j])
+                V3 += contract("bc,a->abc", t2[j, k], Fov[i])
+                V3 = V3 / Vdeg
+
+                X3 = (W3 * V3
+                      + P(W3, (0, 2, 1)) * P(V3, (0, 2, 1))
+                      + P(W3, (1, 0, 2)) * P(V3, (1, 0, 2))
+                      + P(W3, (1, 2, 0)) * P(V3, (1, 2, 0))
+                      + P(W3, (2, 0, 1)) * P(V3, (2, 0, 1))
+                      + P(W3, (2, 1, 0)) * P(V3, (2, 1, 0)))
+                Y3 = V3 + P(V3, (1, 2, 0)) + P(V3, (2, 0, 1))
+                Z3 = P(V3, (0, 2, 1)) + P(V3, (1, 0, 2)) + P(V3, (2, 1, 0))
+
+                denom = (eps[i] + eps[j] + eps[k] - Fv[:, None, None]
+                         - Fv[None, :, None] - Fv[None, None, :])
+                w = 2.0 - ((i == j) + (i == k) + (j == k))
+                term = ((Y3 - 2.0 * Z3) * (W3 + P(W3, (1, 2, 0))
+                                           + P(W3, (2, 0, 1)))
+                        + (Z3 - 2.0 * Y3) * (P(W3, (0, 2, 1))
+                                             + P(W3, (1, 0, 2))
+                                             + P(W3, (2, 1, 0)))
+                        + 3.0 * X3)
+                e = e + torch.where(tri_abc, term / denom, 0.0).sum() * w
+    return e
+
+
+# ---------------------------------------------------------------------------
+# (T) contributions to the Lambda residuals and the one-/two-electron
+# densities: the full-tensor form and the per-(i,j) slab scan
+# ---------------------------------------------------------------------------
+
+def _perm_v(t3, order):
+    """Permute the three virtual axes (3,4,5) of the full T3 tensor."""
+    axes = (0, 1, 2) + tuple(3 + "abc".index(c) for c in order)
+    return t3.permute(*axes)
+
+
+def _perm_o(t3, order):
+    """Permute the three occupied axes (0,1,2)."""
+    axes = tuple("ijk".index(c) for c in order) + (3, 4, 5)
+    return t3.permute(*axes)
+
+
+def _X3_v(M):
+    return (8.0 * M - 4.0 * _perm_v(M, "bac") - 4.0 * _perm_v(M, "acb")
+            - 4.0 * _perm_v(M, "cba") + 2.0 * _perm_v(M, "cab")
+            + 2.0 * _perm_v(M, "bca"))
+
+
+def _X3_o(M):
+    return (8.0 * M - 4.0 * _perm_o(M, "jik") - 4.0 * _perm_o(M, "ikj")
+            - 4.0 * _perm_o(M, "kji") + 2.0 * _perm_o(M, "kij")
+            + 2.0 * _perm_o(M, "jki"))
+
+
+def _require_full(cc, what):
+    """The (T) density reads the full ERI: other storage names its item."""
+    storage = getattr(cc, "storage", "full")
+    if storage != "full":
+        from .ccwfn import _not_ported
+        item = {"df": "Queue 1, item 9 (DF post-convergence stack)"}.get(
+            storage, "Queue 1, item 10 (blocked storage and mixed precision)")
+        raise _not_ported("%s(storage=%r)" % (what, storage), item)
+
+
+def _keep_t3_density(cc, Doo, Dvv, Dov, Goovv, Gooov, Gvvvo, S1, S2):
+    """Leave the (T) density blocks and Lambda sources on the ccwfn, where
+    ccdensity and cclambda look for them."""
+    cc.Doo_t3, cc.Dvv_t3, cc.Dov_t3 = Doo, Dvv, Dov
+    cc.Goovv, cc.Gooov, cc.Gvvvo = Goovv, Gooov, Gvvvo
+    cc.S1, cc.S2 = S1, S2
+
+
+def t3_density(cc):
+    """(T) corrections over the full T3 tensor (o^3 v^3 memory; small
+    systems and tests): Lambda sources S1/S2, 1-pdm blocks Doo/Dvv/Dov,
+    2-pdm blocks Goovv/Gooov/Gvvvo, kept on the ccwfn; returns E(T) as a
+    0-d tensor."""
+    _require_full(cc, "t3_density")
+    no = cc.no
+    F, ERI, L = cc.H.F, cc.H.ERI, cc.H.L
+    t1, t2 = cc.t1, cc.t2
+    o, v = _slices(no)
+    M = t3c_full(ERI[v, v, v, o], ERI[o, v, o, o], t2, F, no)
+    N = t3d_full(t1, t2, ERI[o, o, v, v], F, no)
+    X3 = _X3_v(M)
+    Y3 = _X3_v(N)
+    W = 2.0 * X3 + Y3
+    Md_ac = M - _swap_ac(M)
+    T = 2.0 * M - _swap_bc(M) - _swap_ac(M)
+
+    X2 = contract("ijkabc,kc->ijab", Md_ac, F[o, v])
+    X2 += contract("ijkabc,dkbc->ijad", T, ERI[v, o, v, v])
+    X2 -= contract("ijkabc,jklc->ilab", T, ERI[o, o, o, v])
+
+    Dvv = 0.5 * contract("ijkacd,ijkbcd->ab", M, X3 + Y3)
+    Dov = contract("ijkabc,jkbc->ia", Md_ac, 4.0 * t2 - 2.0 * t2.swapaxes(2, 3))
+    Z3 = 2.0 * M - 2.0 * _swap_bc(M) - _perm_v(M, "bac") + _perm_v(M, "bca")
+    Goovv = 4.0 * contract("ijkabc,kc->ijab", Z3, t1)
+    Gooov = -contract("ijkabc,lkbc->jila", W, t2)
+    Gvvvo = contract("ijkabc,kicd->abdj", W, t2)
+
+    S1 = 2.0 * contract("ijkabc,jkbc->ia", M - _perm_v(M, "bac"), L[o, o, v, v])
+    S2 = -contract("ijkabc,jklc->ilab", W, ERI[o, o, o, v])
+    S2 += contract("ijkabc,kdcb->ijad", W, ERI[o, v, v, v])
+    S2 = S2 + S2.permute(1, 0, 3, 2)
+
+    Doo = -0.5 * contract("iklabc,jklabc->ij", M, _X3_o(M) + _X3_o(N))
+
+    ET = contract("ia,ia->", t1, S1)
+    ET += contract("ijab,ijab->", 4.0 * t2 - 2.0 * t2.swapaxes(2, 3), X2)
+    _keep_t3_density(cc, Doo, Dvv, Dov, Goovv, Gooov, Gvvvo, S1, S2)
+    return ET
+
+
+def t3_density_energy(cc):
+    """E(T) with the (T) density: the full-tensor form while o^3 v^3 is
+    at most 2e8 elements, else the slab scan; the ccwfn's t3_scan
+    (True/False) overrides the choice."""
+    scan = getattr(cc, "t3_scan", None)
+    if scan is None:
+        scan = cc.no ** 3 * cc.nv ** 3 > 2e8
+    return t3_density_scan(cc) if scan else t3_density(cc)
+
+
+def t3_lambda_sources(cc):
+    """S1/S2 Lambda-residual sources for CCSD(T) (computes and keeps the
+    whole (T) density set the first time)."""
+    if getattr(cc, "S1", None) is None:
+        t3_density_energy(cc)
+    return cc.S1, cc.S2
 
 
 # ---------------------------------------------------------------------------
@@ -315,6 +539,136 @@ def t_vikings_scan(cc):
     else:
         sl = scan_slices(cc)
     return t_vikings_rows(*sl, cc.t1, cc.t2, cc.no)
+
+
+# ---------------------------------------------------------------------------
+# The (T) density from per-(i,j) slabs
+# ---------------------------------------------------------------------------
+
+def _perm_v_slab(s, order):
+    """Permute the three virtual axes (1,2,3) of a (k,a,b,c) slab."""
+    axes = (0,) + tuple(1 + "abc".index(c) for c in order)
+    return s.permute(*axes)
+
+
+# X3 combination (8 - 4 P_ab - 4 P_bc - 4 P_ac + 2 P_cab + 2 P_bca)
+_X3_TERMS = ((-4.0, "bac"), (-4.0, "acb"), (-4.0, "cba"), (2.0, "cab"),
+             (2.0, "bca"))
+
+
+def _X3_v_slab(s):
+    """X3 of a (k,a,b,c) slab, formed explicitly (one slab of memory)."""
+    out = 8.0 * s
+    for c, order in _X3_TERMS:
+        out.add_(_perm_v_slab(s, order), alpha=c)
+    return out
+
+
+def _t3d_slab_ij(i, j, t1, t2, Eoovv, Fov, eps_o, eps_v):
+    """Disconnected T3[i, j] slab (k,a,b,c)."""
+    t3 = contract("ab,kc->kabc", Eoovv[i, j], t1)
+    t3 += contract("kac,b->kabc", Eoovv[i], t1[j])
+    t3 += contract("kbc,a->kabc", Eoovv[j], t1[i])
+    t3 += contract("ab,kc->kabc", t2[i, j], Fov)
+    t3 += contract("kac,b->kabc", t2[i], Fov[j])
+    t3 += contract("kbc,a->kabc", t2[j], Fov[i])
+    denom = (eps_o[i] + eps_o[j] + eps_o[:, None, None, None]
+             - eps_v[None, :, None, None]
+             - eps_v[None, None, :, None]
+             - eps_v[None, None, None, :])
+    return t3 / denom
+
+
+def density_slices(cc):
+    """The integral slices the (T)-density scan consumes, cut once from
+    the full ERI/L as contiguous tensors on cc's device: (Wvvvo_o,
+    Wovoo_t, Evovv, Eooov, Eoovv, Loovv, Fov, eps)."""
+    o, v = _slices(cc.no)
+    Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps = scan_slices(cc)
+    return (Wvvvo_o, Wovoo_t, Evovv, Eooov,
+            cc.H.ERI[o, o, v, v].contiguous(), Loovv, Fov, eps)
+
+
+def t3_density_scan(cc):
+    """The nine outputs of `t3_density` (kept on the ccwfn the same way)
+    with O(o v^3) working memory: one connected and one disconnected slab
+    per ordered (i, j) pair feed every accumulation
+    (`t3_density_scan_core`).  Returns E(T) as a 0-d tensor."""
+    _require_full(cc, "t3_density_scan")
+    ET, Doo, Dvv, Dov, Goovv, Gooov, Gvvvo, S1, S2 = t3_density_scan_core(
+        *density_slices(cc), cc.t1, cc.t2, cc.no)
+    _keep_t3_density(cc, Doo, Dvv, Dov, Goovv, Gooov, Gvvvo, S1, S2)
+    return ET
+
+
+def _t3_density_pair(i, j, acc, Wvvvo_o, Wovoo_t, Evovv, Eooov, Eoovv,
+                     Loovv, Fov, eps_o, eps_v, t1, t2, tt):
+    """Every (T)-density accumulation of one ordered pair (i, j), in place
+    on `acc`, from its slabs M (connected) and N (disconnected).
+
+    The occupied-permutation combination of the full form's Doo is
+    rewritten on the same slab: T3 is unchanged by one permutation applied
+    to its occupied and virtual axes together, and X3 commutes with the
+    virtual ones, so sum_{klabc} M[i,k,l,abc] X3_o(M+N)[j,k,l,abc] is the
+    sum over slabs (k, l) of M[i,abc] X3_v(M+N)[j,abc].  Likewise
+    Eovvv[k,d,c,b] = <kd|cb> = Evovv[d,k,b,c], so S2's vvv term reuses
+    Evovv."""
+    X2, Dvv, Dov, Goovv, S1, Gooov, Gvvvo_t, S2, Doo = acc
+    M = _t3c_slab_ij(i, j, Wvvvo_o, Wovoo_t, t2, eps_o, eps_v)
+    N = _t3d_slab_ij(i, j, t1, t2, Eoovv, Fov, eps_o, eps_v)
+
+    M_ac = M.swapaxes(1, 3)
+    Md = M - M_ac
+    T = 2.0 * M - M.swapaxes(2, 3) - M_ac
+    X2[i, j] += (contract("kabc,kc->ab", Md, Fov)
+                 + contract("kabc,dkbc->ad", T, Evovv))
+    X2[i] -= contract("kabc,klc->lab", T, Eooov[j])
+    Dov[i] += contract("kabc,kbc->a", Md, tt[j])
+    del Md, T
+
+    Z3 = (2.0 * (M - M.swapaxes(2, 3)) - M.swapaxes(1, 2)
+          + _perm_v_slab(M, "bca"))
+    Goovv[i, j] += 4.0 * contract("kabc,kc->ab", Z3, t1)
+    del Z3
+    S1[i] += 2.0 * contract("kabc,kbc->a", M - M.swapaxes(1, 2), Loovv[j])
+
+    X = _X3_v_slab(M + N)
+    Dvv += 0.5 * contract("kacd,kbcd->ab", M, X)
+    Doo -= 0.5 * contract("xabc,yabc->xy", M, X)
+    del X
+
+    W = _X3_v_slab(2.0 * M + N)
+    del M, N
+    Gooov[j, i] -= contract("kabc,lkbc->la", W, t2)
+    Gvvvo_t[j] += contract("kabc,kcd->abd", W, t2[:, i])
+    S2[i] -= contract("kabc,klc->lab", W, Eooov[j])
+    S2[i, j] += contract("kabc,dkbc->ad", W, Evovv)
+
+
+def t3_density_scan_core(Wvvvo_o, Wovoo_t, Evovv, Eooov, Eoovv, Loovv, Fov,
+                         eps, t1, t2, no):
+    """Slice-fed (T)-density core: returns (ET, Doo, Dvv, Dov, Goovv,
+    Gooov, Gvvvo, S1, S2).  One pass per ordered pair (i, j): its two
+    slabs are built once and X3 of each combination formed explicitly
+    (o v^3 elements each), and every consumer contracts them once."""
+    nv = Fov.shape[1]
+    z = dict(dtype=Fov.dtype, device=Fov.device)
+    acc = (torch.zeros((no, no, nv, nv), **z), torch.zeros((nv, nv), **z),
+           torch.zeros((no, nv), **z), torch.zeros((no, no, nv, nv), **z),
+           torch.zeros((no, nv), **z), torch.zeros((no, no, no, nv), **z),
+           torch.zeros((no, nv, nv, nv), **z),
+           torch.zeros((no, no, nv, nv), **z), torch.zeros((no, no), **z))
+    eps_o, eps_v = eps[:no], eps[no:]
+    tt = 4.0 * t2 - 2.0 * t2.swapaxes(2, 3)
+    for i in range(no):
+        for j in range(no):
+            _t3_density_pair(i, j, acc, Wvvvo_o, Wovoo_t, Evovv, Eooov,
+                             Eoovv, Loovv, Fov, eps_o, eps_v, t1, t2, tt)
+    X2, Dvv, Dov, Goovv, S1, Gooov, Gvvvo_t, S2, Doo = acc
+    Gvvvo = Gvvvo_t.permute(1, 2, 3, 0)
+    S2 = S2 + S2.permute(1, 0, 3, 2)
+    ET = contract("ia,ia->", t1, S1) + contract("ijab,ijab->", tt, X2)
+    return ET, Doo, Dvv, Dov, Goovv, Gooov, Gvvvo, S1, S2
 
 
 # ---------------------------------------------------------------------------

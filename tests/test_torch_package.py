@@ -2,10 +2,13 @@
 option outside the ported slice refused by name."""
 
 import ast
+import contextlib
 import inspect
+import io
 import os
 import subprocess
 import sys
+import types
 
 import pytest
 import torch
@@ -14,6 +17,7 @@ torch.set_num_threads(1)
 
 import pycc_tpu_torch
 from pycc_tpu_torch.scf import run_rhf
+from pycc_tpu_torch.triples import t_vikings
 
 from .common import H2O
 
@@ -27,7 +31,7 @@ def _wfn():
 def test_import_loads_no_jax_or_triton():
     code = ("import sys, pycc_tpu_torch, pycc_tpu_torch.ops.kernels, "
             "pycc_tpu_torch.ops.kernels.triples, pycc_tpu_torch.triples, "
-            "pycc_tpu_torch.utils.synth; "
+            "pycc_tpu_torch.utils.synth, pycc_tpu_torch.cceom; "
             "print(sorted(m for m in ('jax', 'triton') if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True)
@@ -73,7 +77,8 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"make_t3_density": True}, {"model": "CC3"}, {"real_time": True},
+    {"make_t3_density": True, "storage": "df"}, {"model": "CC3"},
+    {"real_time": True},
     {"storage": "blocked"}, {"local": "PNO"}, {"mesh": object()},
 ])
 def test_options_outside_the_slice_raise(kwargs):
@@ -83,7 +88,85 @@ def test_options_outside_the_slice_raise(kwargs):
 
 def test_t3_scan_names_the_cc3_item():
     with pytest.raises(NotImplementedError, match="item 8"):
-        pycc_tpu_torch.ccwfn(_wfn(), t3_scan=True)
+        pycc_tpu_torch.ccwfn(_wfn(), model="CC3", t3_scan=True)
+
+
+@pytest.mark.parametrize("t3_scan", [None, True, False])
+def test_make_t3_density_and_t3_scan_are_accepted_for_ccsd_t(t3_scan):
+    cc = pycc_tpu_torch.ccwfn(_wfn(), model="CCSD(T)", make_t3_density=True,
+                              t3_scan=t3_scan, device="cpu")
+    assert cc.make_t3_density and cc.t3_scan is t3_scan
+    with contextlib.redirect_stdout(io.StringIO()):
+        e = cc.solve_cc(e_conv=1e-10, r_conv=1e-10)
+    # the (T) came from the density, which left the Lambda sources
+    assert cc.converged and cc.S1.shape == cc.t1.shape
+    assert abs(e - float(cc.cc_energy(cc.t1, cc.t2))
+               - float(t_vikings(cc))) < 1e-12
+
+
+def _converged(**kw):
+    cc = pycc_tpu_torch.ccwfn(_wfn(), device="cpu", **kw)
+    with contextlib.redirect_stdout(io.StringIO()):
+        cc.solve_cc(e_conv=1e-8, r_conv=1e-8)
+    return cc
+
+
+def _full_hbar():
+    cc = _converged()
+    with contextlib.redirect_stdout(io.StringIO()):
+        return cc, pycc_tpu_torch.cchbar(cc)
+
+
+def _lambda_chk():
+    cc, hb = _full_hbar()
+    pycc_tpu_torch.cclambda(cc, hb).solve_lambda(chk="l.npz")
+
+
+def _eom_resume():
+    _, hb = _full_hbar()
+    pycc_tpu_torch.cceom(hb).solve_eom(resume=True)
+
+
+def _cc3_onepdm():
+    cc, hb = _full_hbar()
+    with contextlib.redirect_stdout(io.StringIO()):
+        dens = pycc_tpu_torch.ccdensity(cc, pycc_tpu_torch.cclambda(cc, hb),
+                                        onlyone=True)
+    cc.model = "CC3"
+    dens.compute_onepdm(cc.t1, cc.t2, cc.t1, cc.t2)
+
+
+def _cc3_lambda_residuals():
+    from pycc_tpu_torch.cclambda import lambda_residuals_from_F
+    cc = _converged()
+    H = cc.H
+    lambda_residuals_from_F("CC3", H.F, H.ERI, H.L, cc.t1, cc.t2, cc.t1,
+                            cc.t2, cc.no)
+
+
+@pytest.mark.parametrize("call,item", [
+    (lambda: pycc_tpu_torch.cchbar(_converged(storage="df")), "item 9"),
+    (lambda: _converged(storage="df").t3_density(), "item 9"),
+    (lambda: pycc_tpu_torch.cchbar(types.SimpleNamespace(storage="blocked")),
+     "item 10"),
+    (lambda: pycc_tpu_torch.cchbar(types.SimpleNamespace(mesh=object())),
+     "item 13"),
+    (_lambda_chk, "item 10"),
+    (_eom_resume, "item 10"),
+    (_cc3_onepdm, "item 8"),
+    (_cc3_lambda_residuals, "item 8"),
+], ids=["hbar-df", "t3-density-df", "hbar-blocked", "hbar-mesh", "lambda-chk", "eom-resume",
+        "onepdm-cc3", "lambda-cc3"])
+def test_post_convergence_options_outside_the_slice_name_their_item(call,
+                                                                    item):
+    with pytest.raises(NotImplementedError, match=item):
+        call()
+
+
+def test_post_convergence_entry_points_are_exported():
+    for name in ("cchbar", "cclambda", "ccdensity", "cceom"):
+        assert name in pycc_tpu_torch.__all__
+        assert isinstance(getattr(pycc_tpu_torch, name), type)
 
 
 @pytest.mark.parametrize("kwargs", [

@@ -146,3 +146,50 @@ def test_ladder_df_on_card_matches_cpu(cuda_device, nblocks):
     torch.cuda.synchronize()
     assert vvvv_nt.launches == launches + nblocks
     assert (out.cpu() - ref).abs().max().item() < 1e-12
+
+
+# Lambda's left ladder 'ijef,efab' on the operand pre-laid once per HBAR
+# (cchbar.HBar.Hvvvv_efab), v = 37 off every tile
+@pytest.mark.cuda
+def test_kernel_on_the_prelaid_efab_operand_on_card(cuda_device):
+    from pycc_tpu_torch.models.ccsd import vvvv_contract_efab
+    no, nv = 5, 37
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    tau = torch.randn((no, no, nv, nv), generator=g, device=cuda_device,
+                      dtype=torch.float64)
+    W = torch.randn((nv, nv, nv, nv), generator=g, device=cuda_device,
+                    dtype=torch.float64)
+    Wt = W.permute(2, 3, 0, 1).contiguous()
+    launches = vvvv_nt.launches
+    out = vvvv_contract_efab(tau, Wt)
+    torch.cuda.synchronize()
+    assert vvvv_nt.launches == launches + 1
+    ref = vvvv_nt_reference(tau.reshape(no * no, nv * nv),
+                            Wt.reshape(nv * nv, nv * nv))
+    ref = ref.reshape(no, no, nv, nv)
+    assert ((out - ref).abs().max() / ref.abs().max()).item() < 1e-12
+    assert (out - torch.einsum("ijef,efab->ijab", tau, W)).abs().max() < 1e-9
+
+
+# the EOM sigma of a block of k vectors: one K1 launch at (k o^2, v^2, v^2)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_kernel_at_a_batched_eom_shape_on_card(cuda_device, dtype, tol):
+    from pycc_tpu_torch.cchbar import build_hbar
+    from pycc_tpu_torch.cceom import sigma_block
+    from pycc_tpu_torch.utils.synth import mp2_guess, synthetic_hamiltonian
+    no, nv, k = 4, 19, 3
+    H = synthetic_hamiltonian(no, nv, seed=3, dtype=dtype, device=cuda_device)
+    t1, t2, _ = mp2_guess(H)
+    hb = build_hbar("CCSD", H.F, H.ERI, H.L, t1, t2, no)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    C = torch.randn((k, no * nv + (no * nv) ** 2), generator=g,
+                    device=cuda_device, dtype=dtype)
+    launches = vvvv_nt.launches
+    S = sigma_block(hb, C, H.L, t2, no)
+    torch.cuda.synchronize()
+    assert vvvv_nt.launches == launches + 1
+    ref = sigma_block(hb, C, H.L, t2, no, ladder=vvvv_nt_reference)
+    assert S.shape == ref.shape and S.dtype == dtype
+    assert ((S - ref).abs().max() / ref.abs().max()).item() < tol
