@@ -12,17 +12,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
   3. K1 against its plain version (A @ B.T, also its library yardstick)
      at four shape groups (the last one a-block of the DF ladder of
      phase 7), each in float64, float32 and bf16->float32, and at the
-     EOM sigma batch of phase 6b in float64, with the
-     median of 5 timed runs and the least time the card could take
-     (bound_ms: the larger of bytes / 3.35 TB/s and flop / peak);
+     EOM sigma batch of phase 6b and the stacked complex / in_Y1 ladder
+     of phase 6c in float64, with the median of 5 timed runs and the
+     least time the card could take (bound_ms: the larger of bytes /
+     3.35 TB/s and flop / peak);
   4. K2 against its plain version (t_energy_row_reference) at (no, nv) =
      (4, 19), (7, 45) and (24, 114), each in float64, float32 and
      bf16->float32, and at (24, 216) (phase 7's (T)) in float64, with the
      median of timed runs of one row and its bound;
   5. the frozen oracles on device="cuda" in DP (CCSD, CCD, CC2 and the
      CCSD(T) triples on H2O; Lambda, densities and EOM-CCSD roots of
-     tests/test_005, test_011 and test_006), precision="SP" against DP,
-     and the DF
+     tests/test_005, test_011 and test_006; the linear-response
+     polarizability of tests/test_007 and the MU/M/M*/P/P*/Q
+     pseudoresponses of test_013), precision="SP" against DP, and the DF
      (Cholesky) oracles: storage="df" CCSD on STO-3G and, from
      run_rhf(df=True), on cc-pVDZ, and DF-direct CCSD(T) against dense;
   6. a real size on full storage: (H2O)_6/cc-pVDZ CCSD(T) (144 basis
@@ -35,6 +37,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      their energy (held to E(CCSD) + E(T)), and EOM-CCSD for 3 roots (one
      K1 launch a sigma batch), with the residuals recomputed from the
      returned subspace and the sigma through K1 held to the plain one;
+  6c. [resp] linear response on the same ccwfn and its Lambda: the 21
+     pertbars (12 complex), the conditioning probe, the MU-MU dynamic
+     polarizability (linresp: 3 right and 3 left solves, K1 in every
+     r_X and r_Y and once an in_Y1) and one complex M_X right solve
+     (K1 on stacked real and imaginary rows), with every returned vector's
+     residual recomputed and each K1 ladder held to the plain one;
   7. [df] a real size over Cholesky factors, which full storage cannot
      hold on 80 GB: (H2O)_6/aug-cc-pVDZ DF-CCSD(T) (246 basis functions,
      (24, 216)) through run_rhf(df=True) -> ccwfn(storage="df") ->
@@ -61,6 +69,7 @@ from pycc_tpu_torch.ops.kernels import build as kernel_build
 from pycc_tpu_torch.data import moldict
 from pycc_tpu_torch import triples
 from pycc_tpu_torch.cceom import sigma_block
+from pycc_tpu_torch.ccresponse import in_Y1, in_Y2, r_X, r_Y
 from pycc_tpu_torch.models import dfccsd
 from pycc_tpu_torch.ops.kernels import triples as k2
 from pycc_tpu_torch.ops.kernels import vvvv
@@ -123,6 +132,9 @@ ORACLES = [
 EOM_ROOTS = 3
 K1_FULL_SHAPE = (576, 12996, 12996)
 K1_EOM_SHAPE = (EOM_ROOTS * 576, 12996, 12996)
+# the response ladders of phase 6c: a complex X2 or Y2 as stacked real and
+# imaginary rows, and in_Y1's two l2 ladders stacked, are both (2 o^2, ...)
+K1_RESP_SHAPE = (2 * 576, 12996, 12996)
 # (shape, what, types: "all" or the labels of K1_TYPES timed there)
 K1_SHAPES = [
     ((16, 361, 361), "H2O/cc-pVDZ ladder", "all"),
@@ -130,6 +142,7 @@ K1_SHAPES = [
     (K1_FULL_SHAPE, "(H2O)_6/cc-pVDZ ladder", "all"),
     (K1_DF_SHAPE, "(H2O)_6/aug DF ladder block", "all"),
     (K1_EOM_SHAPE, "(H2O)_6 EOM sigma batch", ("f64",)),
+    (K1_RESP_SHAPE, "(H2O)_6 complex/in_Y1 ladder", ("f64",)),
 ]
 # the H100 SXM data sheet's dense peaks (at its 700 W limit): HBM bytes/s,
 # and flop/s for the arithmetic each kernel does in each type (float64 on
@@ -449,6 +462,7 @@ def phase_oracles():
         raise AssertionError("SP lands %.3e (CCSD), %.3e ((T)) from DP"
                              % (abs(eccsd_sp - eccsd_dp), abs(et_sp - et_dp)))
     phase_post_oracles(wfns)
+    phase_response_oracles()
     phase_df_oracles(wfns["sto-3g", True], e_t_sto3g)
 
 
@@ -524,6 +538,59 @@ def phase_post_oracles(wfns):
         if not (abs(et - et_tjl) < 1e-14 and max(gaps) < 1e-11):
             raise AssertionError("CCSD(T) density oracle (t3_scan=%s) missed"
                                  % t3_scan)
+
+
+def _response(cc, conv):
+    """A ccresponse over a converged cc: Lambda to conv, then the
+    densities' object the response driver takes."""
+    _, lam, _, _ = _lambda(cc, conv, conv)
+    return pycc_tpu_torch.ccresponse(pycc_tpu_torch.ccdensity(cc, lam))
+
+
+def phase_response_oracles():
+    """Linear response on the card in DP against the frozen values of
+    tests/test_007 (the H2O/aug-cc-pVDZ polarizability, all electrons)
+    and test_013 (the H2O/STO-3G pseudoresponses, complex M and P
+    among them)."""
+    h2o = moldict["H2O"]
+    cc = pycc_tpu_torch.ccwfn(run_rhf(h2o, "aug-cc-pvdz", freeze_core=False),
+                              device=DEVICE)
+    _solve(cc, 1e-12, 1e-12)
+    resp = _response(cc, 1e-12)
+    vvvv_nt.launches = 0
+    tensor, secs = _synced(lambda: resp.linresp("MU", "MU", 0.0656))
+    polar = np.diag(tensor)
+    ref = np.array([9.92992070420665, 13.443740151331559, 11.342765745046526])
+    gaps = np.abs(polar - ref).tolist() + [abs(polar.mean()
+                                               - 11.572142200333)]
+    print("[oracle] H2O/aug-cc-pvdz linresp MU-MU at 0.0656: alpha diag %s  "
+          "max|d| = %.2e  %d K1 launches  %.2f s"
+          % (np.array2string(polar, precision=10), max(gaps),
+             vvvv_nt.launches, secs))
+    if not (max(gaps) < 1e-8 and np.abs(tensor - np.diag(polar)).max() < 1e-6
+            and vvvv_nt.launches > 0):
+        raise AssertionError("polarizability oracle missed")
+
+    cc = pycc_tpu_torch.ccwfn(run_rhf(h2o, "sto-3g", freeze_core=False),
+                              device=DEVICE)
+    cc.solve_cc(1e-13, 1e-13, 200)
+    resp = _response(cc, 1e-13)
+    check, secs = _synced(lambda: resp.pertcheck(0.01))
+    ref = {
+        "MU_X_0.010000": 0.059711553704, "MU_Y_0.010000": 7.341419446523,
+        "MU_Z_0.010000": 3.071438076138, "MU_X_-0.010000": 0.056273457658,
+        "M_X_0.010000": 0.607770924164, "M_Y_0.010000": 0.710225214533,
+        "M_Z_0.010000": 0.775111802368, "M*_X_-0.010000": 0.586575382108,
+        "P_X_-0.010000": 0.097163221394, "P_Y_-0.010000": 2.169072875250,
+        "P_Z_-0.010000": 1.497365713340, "P*_X_0.010000": 0.103276788499,
+        "Q_XX_0.010000": 5.942498696750, "Q_YZ_0.010000": 19.240803761856,
+        "Q_ZZ_0.010000": 0.250165812115, "Q_XY_-0.010000": 0.192591582644,
+    }
+    gap = max(abs(complex(check[k]).real - v) for k, v in ref.items())
+    print("[oracle] H2O/sto-3g pertcheck at +-0.01: %d pseudoresponses, max|d| "
+          "over the %d frozen = %.2e  %.2f s" % (len(check), len(ref), gap, secs))
+    if not (len(check) == 48 and gap < 1e-10):
+        raise AssertionError("pertcheck oracle missed: %.3e" % gap)
 
 
 def phase_df_oracles(wfn_sto3g, e_t_sto3g):
@@ -734,7 +801,169 @@ def phase_post(cc, eccsd, et_k2, smi, name=REAL_SIZE):
                              % (rn, rel))
     if eom_launches < 1:
         raise AssertionError("EOM-CCSD launched K1 no time")
-    return {"lambda": lam_launches, "eom": eom_launches}
+    return {"lambda": lam_launches, "eom": eom_launches}, lam
+
+
+RESP_OMEGA = 0.0656
+RESP_CONV = 1e-10
+
+
+def _recording(resp):
+    """Make resp record each solve_right and solve_left it runs, linresp's
+    own among them: (side, pertbar, omega, v1, v2, converged, iterations)
+    in call order."""
+    solves = []
+    for side in ("right", "left"):
+        def call(A, omega, *args, _solve=getattr(resp, "solve_" + side),
+                 _side=side, **kw):
+            v1, v2, pseudo = _solve(A, omega, *args, **kw)
+            solves.append((_side, A, omega, v1, v2, resp.converged,
+                           resp.niter))
+            return v1, v2, pseudo
+        setattr(resp, "solve_" + side, call)
+    return solves
+
+
+def _resp_residuals(resp, solves):
+    """max|r / (D + omega)| of each recorded solve's returned vectors, r_X
+    or r_Y recomputed (r_Y's inhomogeneous terms from the X of the right
+    solve before it)."""
+    cc, hb, aux = resp.ccwfn, resp._hb(), resp._aux
+    l1, l2 = resp.cclambda.l1, resp.cclambda.l2
+    out = []
+    X = None
+    for side, A, omega, v1, v2, _, _ in solves:
+        Ad = resp._Adict(A)
+        if side == "right":
+            r1, r2 = r_X(hb, cc.H.L, cc.t2, Ad, omega, v1, v2, cc.no, aux)
+            X = (v1, v2)
+        else:
+            imY1 = in_Y1(hb, cc.H.L, cc.t2, l1, l2, Ad, *X, cc.no, aux)
+            imY2 = in_Y2(hb, cc.H.L, cc.H.ERI, cc.t2, l1, l2, Ad, *X, cc.no,
+                         aux)
+            r1, r2 = r_Y(hb, cc.H.L, cc.t2, imY1, imY2, omega, v1, v2, cc.no,
+                         aux)
+        out.append(max((r1 / (resp.Dia + omega)).abs().max().item(),
+                       (r2 / (resp.Dijab + omega)).abs().max().item()))
+    return out
+
+
+def _rel(a, b):
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def _ladder_checks(resp, A, X, Y, Xm):
+    """Each response ladder through K1 against the plain product on the
+    converged vectors, max|diff| / max|plain|: r_X on the MU_X X (X) and
+    on the complex M_X X (Xm), r_Y on the MU_X Y (Y), and in_Y1 of pertbar
+    A over X.  r_X and r_Y are taken without their inhomogeneous terms:
+    (HBAR - omega) X and its left form are far from 0, where the converged
+    residuals are not."""
+    cc, hb, aux = resp.ccwfn, resp._hb(), resp._aux
+    l1, l2 = resp.cclambda.l1, resp.cclambda.l2
+    no, L, t2 = cc.no, cc.H.L, cc.t2
+
+    def rel(fn, *args):
+        k1, plain = fn(*args), fn(*args, ladder=vvvv_nt_reference)
+        if isinstance(k1, torch.Tensor):
+            k1, plain = (k1,), (plain,)
+        return max(_rel(a, b) for a, b in zip(k1, plain))
+
+    def zero(v1, v2):
+        return {"Avo": torch.zeros_like(v1.T), "Avvoo": torch.zeros_like(v2)}
+
+    (X1, X2), (Y1, Y2) = X, Y
+    return {
+        "r_X MU_X": rel(r_X, hb, L, t2, zero(X1, X2), RESP_OMEGA, X1, X2, no,
+                        aux),
+        "r_Y MU_X": rel(r_Y, hb, L, t2, torch.zeros_like(Y1),
+                        torch.zeros_like(Y2), RESP_OMEGA, Y1, Y2, no, aux),
+        "in_Y1 MU_X": rel(in_Y1, hb, L, t2, l1, l2, resp._Adict(A), X1, X2,
+                          no, aux),
+        "r_X M_X": rel(r_X, hb, L, t2, zero(*Xm), RESP_OMEGA, *Xm, no, aux),
+    }
+
+
+def phase_resp(cc, lam, smi, name=REAL_SIZE):
+    """Linear response on phase 6's converged (H2O)_6 CCSD(T) ccwfn and its
+    Lambda (with the (T) sources, taken as pycc_tpu takes it): the
+    pertbars, the conditioning probe, the MU-MU polarizability and one
+    complex M_X right solve, each timed, with K1's launches counted from 0
+    over linresp and over the M_X solve."""
+    dens = pycc_tpu_torch.ccdensity(cc, lam)
+    torch.cuda.reset_peak_memory_stats()
+    timers = cc.timers
+    resp, t_init = _synced(lambda: pycc_tpu_torch.ccresponse(dens))
+    perts = list({id(A): A for A in resp.pertbar.values()}.values())
+    n_complex = sum(A.Avo.is_complex() for A in perts)
+    sigma, t_probe = _synced(lambda: resp.estimate_conditioning(RESP_OMEGA))
+    solves = _recording(resp)
+
+    def iters():
+        return {side: (timers.count["response.%s_iteration" % side],
+                       timers.total["response.%s_iteration" % side])
+                for side in ("right", "left")}
+    before = iters()
+    vvvv_nt.launches = 0
+    tensor, t_lr = _synced(lambda: resp.linresp(
+        "MU", "MU", RESP_OMEGA, e_conv=RESP_CONV, r_conv=RESP_CONV))
+    lr_launches = vvvv_nt.launches
+    after = iters()
+    lr = {side: (after[side][0] - before[side][0],
+                 after[side][1] - before[side][1]) for side in after}
+    vvvv_nt.launches = 0
+    (X1m, X2m, pm), t_m = _synced(lambda: resp.solve_right(
+        resp.pertbar["M_X"], RESP_OMEGA, RESP_CONV, RESP_CONV))
+    m_launches, m_iters = vvvv_nt.launches, resp.niter
+    peak = torch.cuda.max_memory_allocated()
+
+    resid = _resp_residuals(resp, solves)
+    converged = [(side, ok, niter) for side, _, _, _, _, ok, niter in solves]
+    (_, A, _, X1, X2, _, _), (_, _, _, Y1, Y2, _, _) = solves[:2]
+    rels = _ladder_checks(resp, A, (X1, X2), (Y1, Y2), (X1m, X2m))
+    alpha = np.diag(tensor)
+    # the recording wrappers refer to resp: drop them, so that resp and its
+    # 9.4 GB of pertbars go when this phase returns, not at the next
+    # garbage collection
+    del resp.solve_right, resp.solve_left
+
+    print("[resp] %s/cc-pVDZ CCSD(T) linear response at omega = %.4f  | %s"
+          % (name, RESP_OMEGA, smi))
+    print("[resp] ccresponse %.2f s (%d pertbars, %d complex)  conditioning "
+          "probe %.2f s: sigma_min <= %.6f"
+          % (t_init, len(perts), n_complex, t_probe, sigma))
+    print("[resp] linresp MU-MU %.2f s: right %d iterations %.4f s/iter, left "
+          "%d iterations %.4f s/iter, K1 launches %d; alpha diag %s"
+          % (t_lr, lr["right"][0], lr["right"][1] / lr["right"][0],
+             lr["left"][0], lr["left"][1] / lr["left"][0], lr_launches,
+             np.array2string(alpha, precision=10)))
+    print("[resp] solve_right M_X (complex) %.2f s: %d iterations %.4f s/iter "
+          " pseudoresponse %.10f%+.10fj  K1 launches %d"
+          % (t_m, m_iters, t_m / m_iters, pm.real, pm.imag, m_launches))
+    print("[resp] max|r/(D + omega)| of each returned vector, recomputed "
+          "(linresp right/left by component, then M_X): %s"
+          % ", ".join("%.1e" % r for r in resid))
+    print("[resp] K1 vs the plain ladder, max|diff|/max|plain|: %s  | peak "
+          "device memory %.2f GB  | %s"
+          % ("  ".join("%s %.1e" % kv for kv in rels.items()), peak / 1e9,
+             smi))
+
+    bad = [(side, niter) for side, ok, niter in converged if not ok]
+    if bad:
+        raise AssertionError("response solves did not converge: %s" % bad)
+    if not max(resid) <= 10 * RESP_CONV:
+        raise AssertionError("a returned vector's max|r/D| is %.2e"
+                             % max(resid))
+    if not max(rels.values()) <= 1e-12:
+        raise AssertionError("K1 and the plain ladder differ: %s" % rels)
+    n_iter = lr["right"][0] + lr["left"][0]
+    if lr_launches < n_iter or m_launches < m_iters:
+        raise AssertionError("K1: %d launches in %d linresp iterations, %d in "
+                             "%d M_X iterations" % (lr_launches, n_iter,
+                                                    m_launches, m_iters))
+    if not (np.all(np.isfinite(alpha)) and np.all(alpha > 0)):
+        raise AssertionError("alpha diagonal %s" % alpha)
+    return {"response": lr_launches, "response_complex": m_launches}
 
 
 def _event_ms(fn):
@@ -852,7 +1081,7 @@ def phase_df(smi, name=DF_SIZE):
     return launches
 
 
-def _kernel_entries(k1_cells, k2_cells, full, post, df):
+def _kernel_entries(k1_cells, k2_cells, full, post, resp, df):
     """The kernels line: each kernel on each path, with that path's
     launches and the timed cell at the shape the path launches it at."""
     k1 = dict(route="cuda", source="pycc_tpu_torch/csrc/vvvv_nt.cu",
@@ -868,6 +1097,11 @@ def _kernel_entries(k1_cells, k2_cells, full, post, df):
              **k1_cells[K1_FULL_SHAPE, "f64"]),
         dict(name="vvvv_nt/eom", **k1, launches=post["eom"],
              **k1_cells[K1_EOM_SHAPE, "f64"]),
+        dict(name="vvvv_nt/response", **k1, launches=resp["response"],
+             **k1_cells[K1_FULL_SHAPE, "f64"]),
+        dict(name="vvvv_nt/response_complex", **k1,
+             launches=resp["response_complex"],
+             **k1_cells[K1_RESP_SHAPE, "f64"]),
         dict(name="vvvv_nt/ladder_df", **k1, launches=df["vvvv_nt"],
              **k1_cells[K1_DF_SHAPE, "f64"]),
         dict(name="t_row/df_slices", **k2, launches=df["t_row"],
@@ -883,13 +1117,14 @@ def main():
     k2_cells = phase_k2(smi)
     phase_oracles()
     full, cc, eccsd, et = phase_real_size(smi)
-    post = phase_post(cc, eccsd, et, smi)
-    del cc
+    post, lam = phase_post(cc, eccsd, et, smi)
+    resp = phase_resp(cc, lam, smi)
+    del cc, lam
     torch.cuda.empty_cache()
     df = phase_df(smi)
     print(smi)
     print(json.dumps({"kernels": _kernel_entries(k1_cells, k2_cells, full,
-                                                 post, df)}))
+                                                 post, resp, df)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

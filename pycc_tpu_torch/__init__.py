@@ -2,9 +2,9 @@
 
 RHF (host numpy and the native C++ ERI engine) -> MO Hamiltonian (torch)
 -> CCD / CC2 / CCSD / CCSD(T) on one torch device, then HBAR, Lambda,
-densities and EOM-CCSD on full storage, with the particle-particle
-ladders and the (T) rows through hand-written CUDA kernels on NVIDIA
-Hopper.  Every entry point takes a `device` (default "cuda", which
+densities, EOM-CCSD and linear response on full storage, with the
+particle-particle ladders and the (T) rows through hand-written CUDA
+kernels on NVIDIA Hopper.  Every entry point takes a `device` (default "cuda", which
 raises without a card; the CPU is used only when asked for) and dtype or
 precision; nothing picks a device by itself.  pycc_tpu, beside it, is the
 reference the port is tested against; this package never imports JAX.
@@ -16,10 +16,12 @@ from .cchbar import cchbar
 from .cclambda import cclambda
 from .ccdensity import ccdensity
 from .cceom import cceom
+from .ccresponse import ccresponse, pertbar
 from .hamiltonian import Hamiltonian, build_hamiltonian
 from .utils.log import set_verbosity
 
 __all__ = ["scf", "ccwfn", "cchbar", "cclambda", "ccdensity", "cceom",
-           "Hamiltonian", "build_hamiltonian", "set_verbosity"]
+           "ccresponse", "pertbar", "Hamiltonian", "build_hamiltonian",
+           "set_verbosity"]
 
 __version__ = "0.1.0"

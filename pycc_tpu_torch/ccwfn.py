@@ -255,7 +255,8 @@ class ccwfn:
         Fock matrix F (frozen core already dropped), numpy arrays or
         tensors: the state pycc_tpu's prepare-on-host pipeline writes
         (examples/prepare_df_molecule.py), carried onto `device`.  mu:
-        optional (3, nact, nact) MO dipole integrals."""
+        optional (3, nact, nact) MO dipole integrals, cast to the working
+        dtype as F is; without them H.mu is `()`."""
         self = cls.__new__(cls)
         self.model = _check_model(model)
         self.precision = _check_precision(precision)
@@ -278,7 +279,7 @@ class ccwfn:
         self.nmo = self.nact
         self.nv = self.nact - self.no
         mu = () if mu is None else tuple(
-            torch.as_tensor(m, dtype=torch.float64, device=self.device)
+            torch.as_tensor(m, dtype=self.dtype, device=self.device)
             for m in mu)
         self.H = Hamiltonian(F=F, ERI=None, L=None, mu=mu, no=self.no)
         self._set_df(torch.as_tensor(B, dtype=torch.float64,

@@ -84,8 +84,11 @@ def build_hamiltonian(wfn, device="cuda", dtype=torch.float64, eri=True):
 
     `wfn` is a pycc_tpu_torch.scf.RHFWavefunction.  The AO integrals come
     from the host engine; the four-index MO transform runs in float64 on
-    `device`, and F/ERI/L are then cast to `dtype`.  The property
-    integrals stay in float64 (mu, Q) and complex128 (m, p).
+    `device`, and F/ERI/L are then cast to `dtype`, as are the real
+    property integrals (mu, Q); the complex ones (m, p) stay complex128,
+    as in pycc_tpu.  A Hamiltonian without property integrals holds the
+    empty tuple `()` for each of them (never None): the response code
+    tests them for emptiness.
 
     eri=False skips the four-index tensors entirely (ERI = L = None) and
     never computes the AO ERI: ccwfn(storage='df') carries the
@@ -114,4 +117,4 @@ def build_hamiltonian(wfn, device="cuda", dtype=torch.float64, eri=True):
     Q = tuple(mo(M) for M in ints.traceless_quadrupole(basis))
     no = wfn.doccpi()[0] - wfn.frzcpi()[0]
     return Hamiltonian(F=F.to(dtype), ERI=ERI, L=L, no=no,
-                       **_properties(mu, m, p, Q, f64, dev))
+                       **_properties(mu, m, p, Q, dtype, dev))

@@ -8,7 +8,8 @@ spin-adapted RHF-CC equations (Stanton, Gauss, Watts, Bartlett, JCP 94,
 Conventions: t1 (o,v), t2 (o,o,v,v); ERI in Dirac <pq|rs>; L = 2<pq|rs> -
 <pq|sr>; `vvvv` is <ab|ef> as one contiguous (v,v,v,v) tensor
 (Hamiltonian.vvvv).  All functions take F explicitly.  `vvvv_contract`
-and `vvvv_contract_efab` (Lambda's left form) run the ladder through K1.
+and `vvvv_contract_efab` (Lambda's left form) run the ladder through K1,
+complex amplitudes as stacked real and imaginary rows.
 """
 
 import torch
@@ -25,22 +26,39 @@ def build_tau(t1, t2, f1=1.0, f2=1.0):
     return f1 * t2 + f2 * contract("ia,jb->ijab", t1, t1)
 
 
-def vvvv_contract(tau, W):
+def vvvv_contract(tau, W, ladder=vvvv_nt):
     """'ijef,abef->ijab' as one (o^2, v^2) x (v^2, v^2)^T product through
-    the K1 kernel (ops/kernels/vvvv.py).  W must be contiguous, so that
-    its (v^2, v^2) matrix is a view."""
+    `ladder(A, B)` = A @ B.T: the K1 kernel (ops/kernels/vvvv.py) by
+    default, `vvvv_nt_reference` for the plain product.  W must be
+    contiguous, so that its (v^2, v^2) matrix is a view.
+
+    A complex tau (the response amplitudes of the M and P perturbations)
+    against a real W is still one real product: its real and imaginary
+    rows stacked as one (2 o^2, v^2) matrix, recombined after.  A complex
+    W is not reached by the ported modules (real-time CC is)."""
+    if W.is_complex():
+        from ..ccwfn import _not_ported
+        raise _not_ported("vvvv_contract with a complex W",
+                          "Queue 1, item 11 (real-time CC)")
     no1, no2, nv, _ = tau.shape
     na, nb = W.shape[0], W.shape[1]
-    out = vvvv_nt(tau.reshape(no1 * no2, nv * nv), W.reshape(na * nb, nv * nv))
+    A = tau.reshape(no1 * no2, nv * nv)
+    B = W.reshape(na * nb, nv * nv)
+    if A.is_complex():
+        m = A.shape[0]
+        out = ladder(torch.cat([A.real, A.imag]), B)
+        out = torch.complex(out[:m], out[m:])
+    else:
+        out = ladder(A, B)
     return out.reshape(no1, no2, na, nb)
 
 
-def vvvv_contract_efab(tau, Wt):
-    """'ijef,efab->ijab' (the left-Hvvvv form of Lambda) through K1, on the
-    pre-laid operand Wt[a,b,e,f] = W[e,f,a,b] (cchbar.HBar.Hvvvv_efab),
-    made once per HBAR: its (ab, ef) matrix is K1's B, so nothing is
-    transposed here."""
-    return vvvv_contract(tau, Wt)
+def vvvv_contract_efab(tau, Wt, ladder=vvvv_nt):
+    """'ijef,efab->ijab' (the left-Hvvvv form of Lambda and the response
+    Y2) through K1, on the pre-laid operand Wt[a,b,e,f] = W[e,f,a,b]
+    (cchbar.HBar.Hvvvv_efab), made once per HBAR: its (ab, ef) matrix is
+    K1's B, so nothing is transposed here."""
+    return vvvv_contract(tau, Wt, ladder)
 
 
 # ---------------------------------------------------------------------------

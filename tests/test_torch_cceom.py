@@ -142,3 +142,26 @@ def test_array_guess_and_collapse():
                   guess=seeds, maxM=4)
     assert eom.converged
     assert np.allclose(E, E0, atol=1e-8)
+
+
+@functools.lru_cache(maxsize=None)
+def _c2h4():
+    """tests/test_021's C2H4/cc-pVDZ, frozen core: the converged CCSD
+    energy and its EOM solver."""
+    from pycc_tpu_torch.data import moldict
+    cc = pycc_tpu_torch.ccwfn(run_rhf(moldict["C2H4"], "cc-pvdz",
+                                      freeze_core=True), device="cpu")
+    ecc = _quiet(cc.solve_cc, e_conv=1e-12, r_conv=1e-12)
+    return ecc, pycc_tpu_torch.cceom(_quiet(pycc_tpu_torch.cchbar, cc))
+
+
+@pytest.mark.parametrize("guess", ["HBAR_SS", "CIS", "UNIT"])
+def test_eom_ccsd_c2h4_fc_oracle(guess):
+    """tests/test_021::test_eom_ccsd_c2h4_fc, one guess a case."""
+    ecc, eom = _c2h4()
+    assert abs(ecc - -0.305587255584445) < 1e-9
+    E, _ = _quiet(eom.solve_eom, N=3, e_conv=1e-7, r_conv=1e-7, maxiter=75,
+                  guess=guess)
+    assert eom.converged, guess
+    ref = np.array([0.324575036764, 0.328021971344, 0.334479736844])
+    assert np.allclose(E, ref, atol=1e-6), (guess, E)

@@ -54,3 +54,35 @@ def test_from_numpy_carries_arrays_and_casts():
     assert H.ERI.dtype == torch.float32 and H.mu[0].dtype == torch.float32
     assert H.m[0].dtype == torch.complex128
     assert _gap(ref.ERI, H.ERI.double()) < 1e-6
+
+
+def test_sp_casts_mu_and_q_as_pycc_tpu_does():
+    import jax.numpy as jnp
+    wfn = scf("H2O", "cc-pvdz")
+    ref = jham.build_hamiltonian(wfn, dtype=jnp.float32)
+    port = tham.build_hamiltonian(wfn, dtype=torch.float32, device="cpu")
+    want = {"mu": torch.float32, "Q": torch.float32,
+            "m": torch.complex128, "p": torch.complex128}
+    for name, dtype in want.items():
+        r, t = getattr(ref, name), getattr(port, name)
+        assert {str(x.dtype) for x in r} == {str(dtype).replace("torch.", "")}
+        assert {x.dtype for x in t} == {dtype}, name
+        assert max(_gap(a, b) for a, b in zip(r, t)) < 1e-6, name
+
+
+def test_from_df_factors_casts_mu_to_the_working_dtype():
+    from pycc_tpu_torch import ccwfn
+    rng = np.random.default_rng(5)
+    no, nv, naux = 2, 4, 8
+    n = no + nv
+    B = 0.1 * rng.standard_normal((naux, n, n))
+    B = 0.5 * (B + B.transpose(0, 2, 1))
+    F = np.diag(np.concatenate([np.linspace(-1.0, -0.5, no),
+                                np.linspace(0.3, 1.0, nv)]))
+    mu = 0.1 * rng.standard_normal((3, n, n))
+    for precision, dtype in (("SP", torch.float32), ("DP", torch.float64)):
+        cc = ccwfn.from_df_factors(B, F, no, mu=mu, precision=precision,
+                                   device="cpu")
+        assert len(cc.H.mu) == 3
+        assert all(m.dtype == dtype for m in cc.H.mu), precision
+    assert ccwfn.from_df_factors(B, F, no, device="cpu").H.mu == ()

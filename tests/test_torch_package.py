@@ -31,7 +31,8 @@ def _wfn():
 def test_import_loads_no_jax_or_triton():
     code = ("import sys, pycc_tpu_torch, pycc_tpu_torch.ops.kernels, "
             "pycc_tpu_torch.ops.kernels.triples, pycc_tpu_torch.triples, "
-            "pycc_tpu_torch.utils.synth, pycc_tpu_torch.cceom; "
+            "pycc_tpu_torch.utils.synth, pycc_tpu_torch.cceom, "
+            "pycc_tpu_torch.ccresponse; "
             "print(sorted(m for m in ('jax', 'triton') if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True)
@@ -164,9 +165,27 @@ def test_post_convergence_options_outside_the_slice_name_their_item(call,
 
 
 def test_post_convergence_entry_points_are_exported():
-    for name in ("cchbar", "cclambda", "ccdensity", "cceom"):
+    for name in ("cchbar", "cclambda", "ccdensity", "cceom", "ccresponse",
+                 "pertbar"):
         assert name in pycc_tpu_torch.__all__
         assert isinstance(getattr(pycc_tpu_torch, name), type)
+
+
+def _response():
+    cc, hb = _full_hbar()
+    return pycc_tpu_torch.ccresponse(types.SimpleNamespace(
+        ccwfn=cc, cclambda=pycc_tpu_torch.cclambda(cc, hb)))
+
+
+@pytest.mark.parametrize("call,item", [
+    (lambda: pycc_tpu_torch.ccresponse(types.SimpleNamespace(
+        ccwfn=types.SimpleNamespace(storage="df"), cclambda=None)), "item 9"),
+    (lambda: _response().solve_right_mixed("MU_X", 0.1), "item 10"),
+    (lambda: _response().solve_left_mixed("MU_X", 0.1), "item 10"),
+], ids=["response-df", "right-mixed", "left-mixed"])
+def test_response_options_outside_the_slice_name_their_item(call, item):
+    with pytest.raises(NotImplementedError, match=item):
+        call()
 
 
 @pytest.mark.parametrize("kwargs", [

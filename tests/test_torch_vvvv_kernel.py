@@ -193,3 +193,71 @@ def test_kernel_at_a_batched_eom_shape_on_card(cuda_device, dtype, tol):
     ref = sigma_block(hb, C, H.L, t2, no, ladder=vvvv_nt_reference)
     assert S.shape == ref.shape and S.dtype == dtype
     assert ((S - ref).abs().max() / ref.abs().max()).item() < tol
+
+
+# the response ladders: a complex tau (M and P perturbations) against a
+# real W is one K1 launch on the stacked (2 o^2, v^2) real and imaginary
+# rows, v = 37 off every tile
+@pytest.mark.cuda
+@pytest.mark.parametrize("efab", [False, True])
+def test_complex_ladder_is_one_launch_on_card(cuda_device, efab):
+    from pycc_tpu_torch.models.ccsd import vvvv_contract, vvvv_contract_efab
+    no, nv = 5, 37
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    tau = torch.complex(
+        torch.randn((no, no, nv, nv), generator=g, device=cuda_device,
+                    dtype=torch.float64),
+        torch.randn((no, no, nv, nv), generator=g, device=cuda_device,
+                    dtype=torch.float64))
+    W = torch.randn((nv, nv, nv, nv), generator=g, device=cuda_device,
+                    dtype=torch.float64)
+    fn = vvvv_contract_efab if efab else vvvv_contract
+    launches = vvvv_nt.launches
+    out = fn(tau, W)
+    torch.cuda.synchronize()
+    assert vvvv_nt.launches == launches + 1
+    ref = fn(tau, W, vvvv_nt_reference)
+    assert out.dtype == torch.complex128 and out.shape == ref.shape
+    assert ((out - ref).abs().max() / ref.abs().max()).item() < 1e-12
+
+
+# in_Y1's two Hvvvv terms, 'imfg,fgae' and 'imgf,fgea': one K1 launch on
+# l2 and its virtual-swapped copy stacked, for a real and a complex X
+@pytest.mark.cuda
+@pytest.mark.parametrize("complex_x", [False, True])
+def test_in_Y1_stacked_ladder_is_one_launch_on_card(cuda_device, complex_x):
+    import types
+    from pycc_tpu_torch.cchbar import build_hbar
+    from pycc_tpu_torch.ccresponse import build_response_aux, in_Y1, pertbar
+    from pycc_tpu_torch.utils.synth import mp2_guess, synthetic_hamiltonian
+    no, nv = 4, 19
+    H = synthetic_hamiltonian(no, nv, seed=3, device=cuda_device)
+    t1, t2, _ = mp2_guess(H)
+    hb = build_hbar("CCSD", H.F, H.ERI, H.L, t1, t2, no)
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+
+    def rand(*shape):
+        return 0.02 * torch.randn(shape, generator=g, device=cuda_device,
+                                  dtype=torch.float64)
+    p0 = rand(no + nv, no + nv)
+    pert = p0 + p0.T
+    X1, X2 = rand(no, nv), rand(no, no, nv, nv)
+    if complex_x:
+        pert = 1j * (p0 - p0.T)
+        X1, X2 = torch.complex(X1, rand(no, nv)), torch.complex(
+            X2, rand(no, no, nv, nv))
+    cc = types.SimpleNamespace(o=slice(0, no), v=slice(no, no + nv), t1=t1,
+                               t2=t2)
+    A = pertbar(pert, cc)
+    Ad = {k: getattr(A, k) for k in ("Aov", "Aoo", "Avv", "Avo", "Aovoo",
+                                     "Avvoo", "Avvvo")}
+    l1, l2 = rand(no, nv), rand(no, no, nv, nv)
+    aux = build_response_aux(hb)
+    launches = vvvv_nt.launches
+    out = in_Y1(hb, H.L, t2, l1, l2, Ad, X1, X2, no, aux)
+    torch.cuda.synchronize()
+    assert vvvv_nt.launches == launches + 1
+    ref = in_Y1(hb, H.L, t2, l1, l2, Ad, X1, X2, no, aux,
+                ladder=vvvv_nt_reference)
+    assert out.is_complex() == complex_x
+    assert ((out - ref).abs().max() / ref.abs().max()).item() < 1e-12
