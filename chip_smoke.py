@@ -12,8 +12,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
   3. K1 against its plain version (A @ B.T, also its library yardstick)
      at four shape groups (the last one a-block of the DF ladder of
      phase 7), each in float64, float32 and bf16->float32, and at the
-     EOM sigma batch of phase 6b and the stacked complex / in_Y1 ladder
-     of phase 6c in float64, with the median of 5 timed runs and the
+     EOM sigma batch of phase 6b, the stacked complex / in_Y1 ladder
+     of phase 6c and the CC3 ladder of phase 6d in float64, with the median of 5 timed runs and the
      least time the card could take (bound_ms: the larger of bytes /
      3.35 TB/s and flop / peak);
   4. K2 against its plain version (t_energy_row_reference) at (no, nv) =
@@ -27,6 +27,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      pseudoresponses of test_013), precision="SP" against DP, and the DF
      (Cholesky) oracles: storage="df" CCSD on STO-3G and, from
      run_rhf(df=True), on cc-pVDZ, and DF-direct CCSD(T) against dense;
+     the CC3 energy, Lambda pseudo-energy and CFOUR dipole of
+     tests/test_009 and DF CC3 on STO-3G against dense (tests/test_026);
   6. a real size on full storage: (H2O)_6/cc-pVDZ CCSD(T) (144 basis
      functions, (no, nv) = (24, 114) with the frozen core) through
      run_rhf -> ccwfn -> solve_cc, then the same (T) through the two
@@ -43,6 +45,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
      r_X and r_Y and once an in_Y1) and one complex M_X right solve
      (K1 on stacked real and imaginary rows), with every returned vector's
      residual recomputed and each K1 ladder held to the plain one;
+  6d. [cc3] CC3 at a real size on full storage: (H2O)_4/cc-pVDZ (96
+     basis functions, (no, nv) = (16, 76) with the frozen core, o^3 v^3 =
+     1.8e9, so the slab forms) through run_rhf -> ccwfn(model="CC3") ->
+     solve_cc -> cchbar -> cclambda -> ccdensity.compute_onepdm and the
+     CC3 dipole, K1 in the CCSD part of every CC3 residual and in the
+     CCSD-form ladder of every Lambda-CC3 step; one residual and one
+     Lambda step timed by part and held to their plain-ladder selves, the
+     residual recomputed at the returned amplitudes, E(CC3) held to the
+     frozen pycc_tpu value;
   7. [df] a real size over Cholesky factors, which full storage cannot
      hold on 80 GB: (H2O)_6/aug-cc-pVDZ DF-CCSD(T) (246 basis functions,
      (24, 216)) through run_rhf(df=True) -> ccwfn(storage="df") ->
@@ -69,14 +80,18 @@ from pycc_tpu_torch.ops.kernels import build as kernel_build
 from pycc_tpu_torch.data import moldict
 from pycc_tpu_torch import triples
 from pycc_tpu_torch.cceom import sigma_block
+from pycc_tpu_torch.cclambda import cc3_extra_fn, lambda_residuals
+from pycc_tpu_torch.ccdensity import build_Moo, build_Mvv
 from pycc_tpu_torch.ccresponse import in_Y1, in_Y2, r_X, r_Y
-from pycc_tpu_torch.models import dfccsd
+from pycc_tpu_torch.models import cc3, dfccsd
+from pycc_tpu_torch.models.ccsd import residuals_ccsd
 from pycc_tpu_torch.ops.kernels import triples as k2
 from pycc_tpu_torch.ops.kernels import vvvv
 from pycc_tpu_torch.ops.kernels.triples import (t_energy_row,
                                                 t_energy_row_reference,
                                                 t_row_finalize)
 from pycc_tpu_torch.ops.kernels.vvvv import vvvv_nt, vvvv_nt_reference
+from pycc_tpu_torch.scf import integrals as ints
 from pycc_tpu_torch.scf import run_rhf
 
 DEVICE = "cuda:0"
@@ -93,6 +108,19 @@ FROZEN = {
     "(H2O)_6": (-456.223927411946, -1.295563980852, -0.022743160994),
 }
 REAL_SIZE = "(H2O)_6"
+
+# name: (Ecorr(CC3), Lambda-CC3 pseudo-energy), cc-pVDZ, frozen core,
+# from pycc_tpu in float64 on a CPU host (its slab-row forms, 20 CC3 and 18
+# Lambda iterations):
+#   cc = pycc_tpu.ccwfn(run_rhf(moldict[name], "cc-pvdz", freeze_core=True),
+#                       model="CC3")
+#   cc.solve_cc(1e-10, 1e-10)
+#   pycc_tpu.cclambda(cc, pycc_tpu.cchbar(cc)).solve_lambda(1e-10, 1e-10)
+FROZEN_CC3 = {
+    "(H2O)_4": (-0.877321787710256, -0.862491519909963),
+}
+CC3_SIZE = "(H2O)_4"
+CC3_NO, CC3_NV = 16, 76
 
 # name: (E(SCF), Ecorr(CCSD), E(T)) over Cholesky factors, aug-cc-pVDZ,
 # frozen core, df_tol=1e-8.  E(SCF) and Ecorr(CCSD) from pycc_tpu in
@@ -135,6 +163,8 @@ K1_EOM_SHAPE = (EOM_ROOTS * 576, 12996, 12996)
 # the response ladders of phase 6c: a complex X2 or Y2 as stacked real and
 # imaginary rows, and in_Y1's two l2 ladders stacked, are both (2 o^2, ...)
 K1_RESP_SHAPE = (2 * 576, 12996, 12996)
+# the CC3 ladders of phase 6d, the CCSD residual's and Lambda's: (o^2, v^2, v^2)
+K1_CC3_SHAPE = (CC3_NO ** 2, CC3_NV ** 2, CC3_NV ** 2)
 # (shape, what, types: "all" or the labels of K1_TYPES timed there)
 K1_SHAPES = [
     ((16, 361, 361), "H2O/cc-pVDZ ladder", "all"),
@@ -143,6 +173,7 @@ K1_SHAPES = [
     (K1_DF_SHAPE, "(H2O)_6/aug DF ladder block", "all"),
     (K1_EOM_SHAPE, "(H2O)_6 EOM sigma batch", ("f64",)),
     (K1_RESP_SHAPE, "(H2O)_6 complex/in_Y1 ladder", ("f64",)),
+    (K1_CC3_SHAPE, "(H2O)_4 CC3 ladder", ("f64",)),
 ]
 # the H100 SXM data sheet's dense peaks (at its 700 W limit): HBM bytes/s,
 # and flop/s for the arithmetic each kernel does in each type (float64 on
@@ -464,6 +495,7 @@ def phase_oracles():
     phase_post_oracles(wfns)
     phase_response_oracles()
     phase_df_oracles(wfns["sto-3g", True], e_t_sto3g)
+    phase_cc3_oracles(wfns["sto-3g", True])
 
 
 # the all-electron H2O/STO-3G of tests/test_011 (bohr)
@@ -627,6 +659,77 @@ def phase_df_oracles(wfn_sto3g, e_t_sto3g):
                         k2_want):
             raise AssertionError("DF %s: %s launches in %d iterations"
                                  % (model, launches, cc.niter))
+
+
+def cc3_dipole(cc, lam):
+    """The CC3 dipole mu . opdm + M(t1) . opdm_cc3 from the CC3 one-pdm,
+    the T1-transformed dipole blocks M from build_Moo/build_Mvv (as
+    pycc_tpu's rtcc.dipole forms it), as numpy (3,)."""
+    dens = pycc_tpu_torch.ccdensity(cc, lam, onlyone=True)
+    opdm, opdm_cc3 = dens.compute_onepdm(cc.t1, cc.t2, lam.l1, lam.l2)
+    no, nv = cc.no, cc.nv
+    out = []
+    for mu in cc.H.mu:
+        M = torch.zeros_like(mu)
+        M[:no, :no] = build_Moo(no, nv, mu, cc.t1)
+        M[no:, no:] = build_Mvv(no, nv, mu, cc.t1)
+        out.append((mu * opdm).sum() + (M * opdm_cc3).sum())
+    return torch.stack(out).cpu().numpy()
+
+
+def scf_dipole(wfn):
+    """The SCF dipole: nuclear + 2 tr(C_occ^T mu_AO C_occ)."""
+    mu_ao = ints.dipole(wfn.basisset())
+    C, nd = wfn.Ca(), wfn.ndocc
+    return np.array([wfn.molecule().nuclear_dipole()[ax]
+                     + 2 * np.trace(C[:, :nd].T @ mu_ao[ax] @ C[:, :nd])
+                     for ax in range(3)])
+
+
+def phase_cc3_oracles(wfn_sto3g):
+    """CC3 on the card against tests/test_009 (H2O_Teach/cc-pVDZ, all
+    electrons: Psi4's E(CC3), CFOUR's Lambda pseudo-energy and dipole)
+    and tests/test_026 (DF CC3 on H2O/STO-3G against dense storage)."""
+    wfn = run_rhf(moldict["H2O_Teach"], "cc-pvdz", freeze_core=False)
+    cc = pycc_tpu_torch.ccwfn(wfn, model="CC3", device=DEVICE)
+    vvvv_nt.launches = 0
+    ecc, secs = _solve(cc, 1e-12, 1e-12)
+    launches = vvvv_nt.launches
+    _, lam, lecc, lam_launches = _lambda(cc, 1e-12, 1e-12)
+    mu = cc3_dipole(cc, lam)
+    ref = np.array([0, 0, 0.7703875967]) - scf_dipole(wfn)    # CFOUR
+    gaps = (abs(ecc - -0.227888246840310), abs(lecc - -0.2233231845185215),
+            abs(mu[1] - ref[1]), abs(mu[2] - ref[2]))
+    print("[oracle] H2O_Teach/cc-pvdz CC3 all-electron: Ecorr = %.15f  "
+          "|dE| = %.2e  %d iterations  %d K1 launches  %.2f s | Lambda "
+          "pseudo-E = %.15f  |dE| = %.2e  %d iterations  %d K1 launches | "
+          "dipole y, z %.12f %.12f  |d| = %.2e %.2e"
+          % (ecc, gaps[0], cc.niter, launches, secs, lecc, gaps[1],
+             lam.niter, lam_launches, mu[1], mu[2], gaps[2], gaps[3]))
+    if not (cc.converged and lam.converged and max(gaps[:2]) < 1e-11
+            and max(gaps[2:]) < 1e-10):
+        raise AssertionError("CC3 oracles missed: %s" % (gaps,))
+    if launches < cc.niter or lam_launches < lam.niter:
+        raise AssertionError("CC3: %d K1 launches in %d iterations, Lambda "
+                             "%d in %d" % (launches, cc.niter, lam_launches,
+                                           lam.niter))
+
+    dense = pycc_tpu_torch.ccwfn(wfn_sto3g, model="CC3", device=DEVICE)
+    e_dense, _ = _solve(dense, 1e-12, 1e-12)
+    cc = pycc_tpu_torch.ccwfn(wfn_sto3g, model="CC3", storage="df",
+                              df_tol=1e-13, device=DEVICE)
+    vvvv_nt.launches = 0
+    e_df, secs = _solve(cc, 1e-12, 1e-12)
+    print("[oracle] H2O/sto-3g CC3 storage=df (df_tol 1e-13): E = %.15f  "
+          "dense %.15f  |diff| = %.2e  naux %d  %d iterations  %d K1 "
+          "launches  %.2f s" % (e_df, e_dense, abs(e_df - e_dense), cc.naux,
+                                cc.niter, vvvv_nt.launches, secs))
+    if not (cc.converged and dense.converged and abs(e_df - e_dense) < 1e-9):
+        raise AssertionError("DF CC3 missed dense: %.3e"
+                             % abs(e_df - e_dense))
+    if vvvv_nt.launches != cc.niter * dfccsd._ladder_blocks(cc.nv, cc.naux):
+        raise AssertionError("DF CC3: %d K1 launches in %d iterations"
+                             % (vvvv_nt.launches, cc.niter))
 
 
 def _synced(fn):
@@ -966,6 +1069,135 @@ def phase_resp(cc, lam, smi, name=REAL_SIZE):
     return {"response": lr_launches, "response_complex": m_launches}
 
 
+def _cc3_residual_split(cc):
+    """One CC3 residual at cc's amplitudes, in ms by part: the CCSD
+    residual (K1 in its ladder), the rest of the prep (the T1-dressed
+    intermediates and their slab layouts), and the T3 slab loop; then
+    max|diff| / max|plain| against the residual with the plain ladder, and
+    max|r / D| of the residual."""
+    H, t1, t2, no = cc.H, cc.t1, cc.t2, cc.no
+    ccsd_ms, _ = _event_ms(lambda: residuals_ccsd(H.F, H.ERI, H.L, H.vvvv,
+                                                  t1, t2, no))
+    prep_ms, prep = _event_ms(lambda: cc3.cc3_scan_prep(
+        H.F, H.ERI, H.L, H.vvvv, t1, t2, no))
+    rows_ms, (r1, r2) = _event_ms(lambda: cc3._cc3_xs_rows(*prep, t2, no,
+                                                           False))
+    del prep
+    p1, p2 = cc3.residuals_cc3_scan(H.F, H.ERI, H.L, H.vvvv, t1, t2, no,
+                                    ladder=vvvv_nt_reference)
+    rel = max(_rel(r1, p1), _rel(r2, p2))
+    rd = max((r1 / cc.Dia).abs().max().item(),
+             (r2 / cc.Dijab).abs().max().item())
+    return ccsd_ms, prep_ms - ccsd_ms, rows_ms, rel, rd
+
+
+def _cc3_lambda_split(cc, hb, lam):
+    """One Lambda-CC3 step's residual at the converged (t, l), in ms by
+    part: the CCSD form (K1 in its 'ijef,efab' ladder), the extras' prep,
+    the t3 side and the l3 side; then max|diff| / max|plain| of the whole
+    residual against the one whose CCSD form takes the plain ladder (the
+    extras, which hold no ladder, are shared)."""
+    H, t1, t2, no = cc.H, cc.t1, cc.t2, cc.no
+    l1, l2 = lam.l1, lam.l2
+
+    def ccsd(ladder=vvvv_nt):
+        return lambda_residuals("CC3", hb.hbar, H.F, H.ERI, H.L, t1, t2, l1,
+                                l2, no, ladder=ladder)
+    ccsd_ms, (r1, r2) = _event_ms(ccsd)
+    p1, p2 = ccsd(vvvv_nt_reference)
+    prep_ms, prep = _event_ms(lambda: cc3.cc3_lambda_prep(H.F, H.ERI, H.L,
+                                                          t1, t2, no))
+    t3_ms, Y1 = _event_ms(lambda: cc3._cc3_lambda_t3_rows(prep, t2, l2, no,
+                                                          False))
+    l3_ms, (Y1l, Y2) = _event_ms(lambda: cc3._cc3_lambda_l3_rows(
+        prep, t2, l1, l2, no))
+    del prep
+    Y1 = Y1 + Y1l
+    Y2 = Y2 + Y2.permute(1, 0, 3, 2)
+    rel = max(_rel(r1 + Y1, p1 + Y1), _rel(r2 + Y2, p2 + Y2))
+    return ccsd_ms, prep_ms, t3_ms, l3_ms, rel
+
+
+def phase_cc3(smi, name=CC3_SIZE):
+    """CC3 at a real size on full storage: SCF, ccwfn(model="CC3"), the
+    solve, HBAR, Lambda-CC3, the CC3 one-pdm and dipole, each timed, with
+    K1's launches counted from 0 over the CC3 solve and over Lambda."""
+    escf_ref, eccsd_ref, et_ref = FROZEN[name]
+    ecc3_ref, lcc3_ref = FROZEN_CC3[name]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wfn = run_rhf(moldict[name], "cc-pvdz", freeze_core=True)
+    t_scf = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cc = pycc_tpu_torch.ccwfn(wfn, model="CC3", device=DEVICE)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    vvvv_nt.launches = 0
+    ecc, t_solve = _solve(cc, 1e-10, 1e-10)
+    cc_launches = vvvv_nt.launches
+    s_iter = cc.timers.total["ccwfn.iteration"] / cc.niter
+    hb, t_hbar = _synced(lambda: pycc_tpu_torch.cchbar(cc))
+    lam = pycc_tpu_torch.cclambda(cc, hb)
+    vvvv_nt.launches = 0
+    lecc, t_lam = _synced(lambda: lam.solve_lambda(1e-10, 1e-10))
+    lam_launches = vvvv_nt.launches
+    l_iter = cc.timers.total["lambda.iteration"] / lam.niter
+    mu, t_pdm = _synced(lambda: cc3_dipole(cc, lam))
+    peak = torch.cuda.max_memory_allocated()
+    scan = (cc._residual_fn is cc3.residuals_cc3_scan
+            and cc3_extra_fn(cc) is cc3.cc3_lambda_extra_scan)
+    r_ccsd, r_prep, r_rows, r_rel, rd = _cc3_residual_split(cc)
+    l_ccsd, l_prep, l_t3, l_l3, l_rel = _cc3_lambda_split(cc, hb, lam)
+    dt = ecc - (eccsd_ref + et_ref)
+
+    print("[cc3] %s/cc-pVDZ CC3  nbf=%d (no, nv)=(%d, %d)  o^3 v^3 = %.2e "
+          "(slab forms: %s)  | %s"
+          % (name, wfn.basisset().nbf, cc.no, cc.nv,
+             float(cc.no ** 3 * cc.nv ** 3), scan, smi))
+    print("[cc3] E(SCF) = %.12f  |dE(SCF)| = %.2e  SCF %.1f s (host)  "
+          "Hamiltonian + ccwfn init %.1f s"
+          % (wfn.energy(), abs(wfn.energy() - escf_ref), t_scf, t_init))
+    print("[cc3] CC3 solve %.1f s  %d iterations  %.3f s/iter  K1 launches "
+          "%d | HBAR %.2f s | Lambda-CC3 %.1f s  %d iterations  %.3f s/iter  "
+          "K1 launches %d | one-pdm + dipole %.2f s | peak device memory "
+          "%.2f GB" % (t_solve, cc.niter, s_iter, cc_launches, t_hbar, t_lam,
+                       lam.niter, l_iter, lam_launches, t_pdm, peak / 1e9))
+    print("[cc3] one CC3 residual: CCSD part %.1f ms, intermediates %.1f ms, "
+          "T3 slab loop %.1f ms; K1 vs plain ladder rel diff %.1e; max|r/D| "
+          "at the returned amplitudes %.2e" % (r_ccsd, r_prep, r_rows, r_rel,
+                                              rd))
+    print("[cc3] one Lambda-CC3 step: CCSD form %.1f ms, intermediates %.1f "
+          "ms, t3 side %.1f ms, l3 side %.1f ms; K1 vs plain ladder rel diff "
+          "%.1e  | %s" % (l_ccsd, l_prep, l_t3, l_l3, l_rel, smi))
+    print("[cc3] Ecorr(CC3) = %.12f  |dE| from frozen = %.2e | Lambda "
+          "pseudo-E = %.12f  |dE| from frozen = %.2e | dipole (a.u.) %s | "
+          "E(CC3) - (Ecorr(CCSD) + E(T)) = %.6f Eh"
+          % (ecc, abs(ecc - ecc3_ref), lecc, abs(lecc - lcc3_ref),
+             np.array2string(mu, precision=8), dt))
+
+    if not abs(wfn.energy() - escf_ref) < 1e-9:
+        raise AssertionError("E(SCF) missed the frozen value")
+    if not (scan and cc.converged and lam.converged):
+        raise AssertionError("CC3: slab forms %s, converged %s, Lambda %s"
+                             % (scan, cc.converged, lam.converged))
+    if cc_launches < cc.niter or lam_launches < lam.niter:
+        raise AssertionError("CC3: %d K1 launches in %d iterations, Lambda "
+                             "%d in %d" % (cc_launches, cc.niter,
+                                           lam_launches, lam.niter))
+    if not (r_rel <= 1e-12 and l_rel <= 1e-12):
+        raise AssertionError("K1 and the plain ladder differ: residual "
+                             "%.2e, Lambda %.2e" % (r_rel, l_rel))
+    if not rd <= 10 * 1e-10:
+        raise AssertionError("max|r/D| at the returned amplitudes %.2e" % rd)
+    if not (abs(dt) < 5e-3 and np.all(np.isfinite(mu))):
+        raise AssertionError("E(CC3) lands %.2e Eh from E(CCSD(T)), dipole "
+                             "%s" % (dt, mu))
+    if not (abs(ecc - ecc3_ref) < 1e-9 and abs(lecc - lcc3_ref) < 1e-9):
+        raise AssertionError("E(CC3) or the Lambda pseudo-energy missed the "
+                             "frozen value")
+    return {"cc3": cc_launches, "cc3_lambda": lam_launches}
+
+
 def _event_ms(fn):
     """fn's time on the card between two CUDA events, and its result."""
     start = torch.cuda.Event(enable_timing=True)
@@ -1081,7 +1313,7 @@ def phase_df(smi, name=DF_SIZE):
     return launches
 
 
-def _kernel_entries(k1_cells, k2_cells, full, post, resp, df):
+def _kernel_entries(k1_cells, k2_cells, full, post, resp, cc3_, df):
     """The kernels line: each kernel on each path, with that path's
     launches and the timed cell at the shape the path launches it at."""
     k1 = dict(route="cuda", source="pycc_tpu_torch/csrc/vvvv_nt.cu",
@@ -1102,6 +1334,10 @@ def _kernel_entries(k1_cells, k2_cells, full, post, resp, df):
         dict(name="vvvv_nt/response_complex", **k1,
              launches=resp["response_complex"],
              **k1_cells[K1_RESP_SHAPE, "f64"]),
+        dict(name="vvvv_nt/cc3", **k1, launches=cc3_["cc3"],
+             **k1_cells[K1_CC3_SHAPE, "f64"]),
+        dict(name="vvvv_nt/cc3_lambda", **k1, launches=cc3_["cc3_lambda"],
+             **k1_cells[K1_CC3_SHAPE, "f64"]),
         dict(name="vvvv_nt/ladder_df", **k1, launches=df["vvvv_nt"],
              **k1_cells[K1_DF_SHAPE, "f64"]),
         dict(name="t_row/df_slices", **k2, launches=df["t_row"],
@@ -1121,10 +1357,12 @@ def main():
     resp = phase_resp(cc, lam, smi)
     del cc, lam
     torch.cuda.empty_cache()
+    cc3_launches = phase_cc3(smi)
+    torch.cuda.empty_cache()
     df = phase_df(smi)
     print(smi)
-    print(json.dumps({"kernels": _kernel_entries(k1_cells, k2_cells, full,
-                                                 post, resp, df)}))
+    print(json.dumps({"kernels": _kernel_entries(
+        k1_cells, k2_cells, full, post, resp, cc3_launches, df)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

@@ -301,10 +301,16 @@ class ccdensity:
         log.info("CC Correlation Energy  = %20.15f" % self.ecc)
         return self.ecc
 
-    def compute_onepdm(self, t1, t2, l1, l2):
+    def compute_onepdm(self, t1, t2, l1, l2, real_time=False):
+        """The (nact, nact) one-electron density at (t, l); for CC3 the pair
+        (opdm, opdm_cc3), opdm_cc3 holding the triples Doo/Dvv blocks that
+        go with the T1-transformed property integrals (`build_Moo`,
+        `build_Mvv`), over the full T3/L3 or one slab at a time
+        (`ccwfn.t3_slabs`)."""
         cc = self.ccwfn
         if cc.model == "CC3":
-            from .ccwfn import _not_ported
-            raise _not_ported("ccdensity.compute_onepdm(model='CC3')",
-                              "Queue 1, item 8 (CC3)")
+            from .ccwfn import t3_slabs
+            from .models.cc3 import cc3_onepdm, cc3_onepdm_scan
+            fn = cc3_onepdm_scan if t3_slabs(cc) else cc3_onepdm
+            return fn(cc, t1, t2, l1, l2, real_time=real_time)
         return onepdm(cc.model, t1, t2, l1, l2, cc.no, cc.nact)

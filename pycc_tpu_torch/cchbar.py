@@ -47,8 +47,9 @@ class HBar:
 
 
 def build_hbar(model, F, ERI, L, t1, t2, no):
-    """All HBAR blocks for the given model ('CCSD'/'CCSD(T)' share the CCSD
-    forms; 'CCD' and 'CC2' have their own).  Hvvvv is contiguous."""
+    """All HBAR blocks for the given model ('CCSD', 'CCSD(T)' and 'CC3'
+    share the CCSD forms; 'CCD' and 'CC2' have their own).  Hvvvv is
+    contiguous."""
     o, v = slices(no)
     tau = build_tau(t1, t2)
     ccd = model == "CCD"

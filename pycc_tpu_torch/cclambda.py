@@ -1,12 +1,15 @@
 """Lambda-amplitude solver: the left-hand eigenvector of HBAR.
 
 The counterpart of pycc_tpu/cclambda.py for storage='full' and the models
-CCD, CC2, CCSD and CCSD(T).  The residual is a plain function of (hbar, t,
-l); its Hvvvv ladder ('ijef,efab') runs through K1 on the HBAR's pre-laid
-operand.  `solve_lambda` is the T-amplitude solver's loop: a Jacobi step
-from diag(F), the pseudo-energy of the pre-extrapolation update, the
-on-device DIIS ring from `start_diis`, and one host read per iteration.
-For CCSD(T) the (T) sources S1/S2 come from `triples.t3_lambda_sources`.
+CCD, CC2, CCSD, CCSD(T) and CC3.  The residual is a plain function of
+(hbar, t, l); its Hvvvv ladder ('ijef,efab') runs through K1 on the HBAR's
+pre-laid operand.  `solve_lambda` is the T-amplitude solver's loop: a
+Jacobi step from diag(F), the pseudo-energy of the pre-extrapolation
+update, the on-device DIIS ring from `start_diis`, and one host read per
+iteration.  For CCSD(T) the (T) sources S1/S2 come from
+`triples.t3_lambda_sources`; CC3 adds the T3/L3 terms of models/cc3.py to
+the CCSD form, over the full tensors or one slab at a time
+(`ccwfn.t3_slabs`).
 """
 
 import time
@@ -15,9 +18,11 @@ import warnings
 import torch
 
 from .cchbar import build_hbar
+from .models import cc3
 from .models.ccsd import build_tau, slices, vvvv_contract_efab
 from .ops.contract import contract
 from .ops.diis import DIIS
+from .ops.kernels.vvvv import vvvv_nt
 from .utils.log import logger as log
 
 _NOT_PORTED_SOLVE_KWARGS = {
@@ -37,9 +42,10 @@ def build_Gvv(t2, l2):
 
 
 def lambda_residuals(model, hb, F, ERI, L, t1, t2, l1, l2, no,
-                     S1=None, S2=None):
+                     S1=None, S2=None, ladder=vvvv_nt):
     """r_L1, r_L2 for CCD/CC2/CCSD (+ optional (T) source terms S1/S2).
-    hb is a cchbar.HBar."""
+    hb is a cchbar.HBar; the Hvvvv ladder goes through `ladder` (K1 by
+    default, `vvvv_nt_reference` for the plain product)."""
     o, v = slices(no)
     Goo = build_Goo(t2, l2)
     Gvv = build_Gvv(t2, l2)
@@ -90,7 +96,7 @@ def lambda_residuals(model, hb, F, ERI, L, t1, t2, l1, l2, no,
         r2 = r2 + contract("ijeb,ea->ijab", l2, hb.Hvv)
         r2 -= contract("mjab,im->ijab", l2, hb.Hoo)
         r2 += 0.5 * contract("mnab,ijmn->ijab", l2, hb.Hoooo)
-        r2 += 0.5 * vvvv_contract_efab(l2, hb.Hvvvv_efab)
+        r2 += 0.5 * vvvv_contract_efab(l2, hb.Hvvvv_efab, ladder)
         r2 += contract("mjeb,ieam->ijab", l2, Hovvo_s)
         r2 -= contract("mibe,jema->ijab", l2, hb.Hovov)
         r2 -= contract("mieb,jeam->ijab", l2, hb.Hovvo)
@@ -100,14 +106,31 @@ def lambda_residuals(model, hb, F, ERI, L, t1, t2, l1, l2, no,
     return r1, r2
 
 
-def lambda_residuals_from_F(model, F, ERI, L, t1, t2, l1, l2, no):
-    """Rebuild HBAR from F on the fly (the real-time path's residual)."""
+def cc3_extra_fn(cc):
+    """The Lambda-CC3 extras for cc: the slab form or the full-tensor form
+    (`ccwfn.t3_slabs`)."""
+    from .ccwfn import t3_slabs
+    return cc3.cc3_lambda_extra_scan if t3_slabs(cc) else cc3.cc3_lambda_extra
+
+
+def lambda_residuals_from_F(model, F, ERI, L, t1, t2, l1, l2, no,
+                            real_time=False, F_ref=None):
+    """Rebuild HBAR from F on the fly (the real-time path's residual); CC3
+    takes the CCSD form plus its T3/L3 extras (the slab form past o^3 v^3
+    = 2e8 elements)."""
+    base = "CCSD" if model == "CC3" else model
+    hb = build_hbar(base, F, ERI, L, t1, t2, no)
+    r1, r2 = lambda_residuals(base, hb, F, ERI, L, t1, t2, l1, l2, no)
     if model == "CC3":
-        from .ccwfn import _not_ported
-        raise _not_ported("lambda_residuals_from_F(model='CC3')",
-                          "Queue 1, item 8 (CC3)")
-    hb = build_hbar(model, F, ERI, L, t1, t2, no)
-    return lambda_residuals(model, hb, F, ERI, L, t1, t2, l1, l2, no)
+        from .ccwfn import T3_FULL_MAX
+        nv = t2.shape[2]
+        fn = (cc3.cc3_lambda_extra_scan if no ** 3 * nv ** 3 > T3_FULL_MAX
+              else cc3.cc3_lambda_extra)
+        Y1, Y2 = fn(F, ERI, L, t1, t2, l1, l2, no, real_time=real_time,
+                    F_ref=F_ref)
+        r1 = r1 + Y1
+        r2 = r2 + Y2
+    return r1, r2
 
 
 def pseudoenergy(ERI, l2, no):
@@ -124,8 +147,6 @@ class cclambda:
         if getattr(ccwfn, "storage", "full") == "df":
             raise _not_ported("cclambda(storage='df')",
                               "Queue 1, item 9 (DF post-convergence stack)")
-        if ccwfn.model == "CC3":
-            raise _not_ported("cclambda(model='CC3')", "Queue 1, item 8 (CC3)")
         self.ccwfn = ccwfn
         self.hbar = hbar
         self.l1 = 2.0 * ccwfn.t1
@@ -164,6 +185,7 @@ class cclambda:
         if model == "CCSD(T)" and S1 is None:
             from .triples import t3_lambda_sources
             S1, S2 = t3_lambda_sources(cc)
+        extra = cc3_extra_fn(cc) if model == "CC3" else None
 
         eps = torch.diagonal(H.F).to(self.l1.dtype)
         D1 = eps[:no, None] - eps[None, no:]
@@ -186,6 +208,10 @@ class cclambda:
                 lecc_last = lecc
                 r1, r2 = lambda_residuals(model, hb, H.F, H.ERI, H.L, t1, t2,
                                           l1, l2, no, S1, S2)
+                if extra is not None:
+                    Y1, Y2 = extra(H.F, H.ERI, H.L, t1, t2, l1, l2, no)
+                    r1 = r1 + Y1
+                    r2 = r2 + Y2
                 inc1 = r1 / D1
                 inc2 = r2 / D2
                 l1n = l1 + inc1

@@ -1,7 +1,7 @@
 """CC T-amplitude solver driver.
 
 The counterpart of pycc_tpu/ccwfn.py for storage='full' and 'df' and the
-models CCD, CC2, CCSD and CCSD(T):
+models CCD, CC2, CCSD, CCSD(T) and CC3:
 ``ccwfn(scf_wfn, model=..., precision=..., device=..., storage=...)``
 (or ``ccwfn.from_df_factors(B, F, no, ...)``) then ``solve_cc(e_conv,
 r_conv, maxiter, max_diis, start_diis, stall_limit)``.  Each iteration
@@ -12,7 +12,11 @@ CCSD(T) the converged CCSD amplitudes then feed the (T) energy
 (`triples.t_vikings_scan`, through K2), or with make_t3_density=True the
 (T) density (`ccwfn.t3_density`, which also leaves the Lambda sources and
 density blocks for cclambda/ccdensity; t3_scan=True/False forces its slab
-scan or its full-tensor form).
+scan or its full-tensor form).  CC3 adds the T3 terms to the CCSD
+residual (models/cc3.py): over the full T3 tensor while o^3 v^3 is at most
+2e8 elements, else one (i, j) slab at a time; t3_scan=True/False forces
+the slab or the full-tensor form here too, and storage='df' always takes
+the slab form.
 
 storage='df' replaces the nact^4 ERI and L by three-index Cholesky
 factors (`self.dfb`) and evaluates the residuals from them
@@ -32,6 +36,7 @@ import torch
 
 from . import triples
 from .hamiltonian import Hamiltonian, build_hamiltonian
+from .models import cc3
 from .models import ccsd as eqs
 from .models import dfccsd as dfq
 from .ops.diis import DIIS
@@ -44,6 +49,7 @@ _RESIDUALS = {
     "CC2": eqs.residuals_cc2,
     "CCSD": eqs.residuals_ccsd,
     "CCSD(T)": eqs.residuals_ccsd,
+    "CC3": cc3.residuals_cc3,
 }
 
 _ENERGY = {
@@ -51,19 +57,19 @@ _ENERGY = {
     "CC2": eqs.cc_energy,
     "CCSD": eqs.cc_energy,
     "CCSD(T)": eqs.cc_energy,
+    "CC3": eqs.cc_energy,
 }
 
-# what pycc_tpu offers beyond this port, and the ROADMAP.md item that
-# brings it over
-_NOT_PORTED_MODELS = {
-    "CC3": "Queue 1, item 8 (CC3)",
-}
 _DF_RESIDUALS = {
     "CCD": dfq.residuals_ccd_df,
     "CC2": dfq.residuals_cc2_df,
     "CCSD": dfq.residuals_ccsd_df,
     "CCSD(T)": dfq.residuals_ccsd_df,
+    "CC3": cc3.residuals_cc3_scan_df,
 }
+
+# past this many o^3 v^3 elements the triples run one slab at a time
+T3_FULL_MAX = 2e8
 
 _NOT_PORTED_STORAGE = {
     "blocked": "Queue 1, item 10 (blocked storage and mixed precision)",
@@ -100,10 +106,18 @@ def _reject(kwargs, table, where):
         raise _not_ported("%s(%s=...)" % (where, name), table[name])
 
 
+def t3_slabs(cc):
+    """Whether cc's triples (CC3's T3/L3, the (T) density) run one slab at
+    a time: past o^3 v^3 = T3_FULL_MAX elements, unless cc.t3_scan
+    (True/False) forces the slab or the full-tensor form."""
+    scan = getattr(cc, "t3_scan", None)
+    if scan is None:
+        return cc.no ** 3 * cc.nv ** 3 > T3_FULL_MAX
+    return bool(scan)
+
+
 def _check_model(model):
     model = model.upper()
-    if model in _NOT_PORTED_MODELS:
-        raise _not_ported("model=%r" % model, _NOT_PORTED_MODELS[model])
     if model not in _RESIDUALS:
         raise ValueError("%s is not an allowed CC model." % model)
     return model
@@ -244,6 +258,9 @@ class ccwfn:
         self.t2 = eri_oovv / self.Dijab
         self._residual_fn = (_DF_RESIDUALS if self.storage == "df"
                              else _RESIDUALS)[self.model]
+        if (self.model == "CC3" and self.storage == "full"
+                and t3_slabs(self)):
+            self._residual_fn = cc3.residuals_cc3_scan
         self._energy_fn = _ENERGY[self.model]
 
     @classmethod

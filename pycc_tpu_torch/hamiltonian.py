@@ -90,9 +90,11 @@ def build_hamiltonian(wfn, device="cuda", dtype=torch.float64, eri=True):
     empty tuple `()` for each of them (never None): the response code
     tests them for emptiness.
 
-    eri=False skips the four-index tensors entirely (ERI = L = None) and
-    never computes the AO ERI: ccwfn(storage='df') carries the
-    two-electron integrals as Cholesky factors instead."""
+    The AO ERI is the one run_rhf kept on the wavefunction (`ERI_ao`), or
+    is computed here when there is none.  eri=False skips the four-index
+    tensors entirely (ERI = L = None) and never computes the AO ERI:
+    ccwfn(storage='df') carries the two-electron integrals as Cholesky
+    factors instead."""
     from .scf import integrals as ints
 
     dev = init_device(device)
@@ -104,7 +106,11 @@ def build_hamiltonian(wfn, device="cuda", dtype=torch.float64, eri=True):
     basis = wfn.basisset()
     ERI = L = None
     if eri:
-        ERI = _mo_eri_dirac(torch.as_tensor(ints.eri(basis), device=dev), C)
+        ERI_ao = getattr(wfn, "ERI_ao", None)
+        if ERI_ao is None:
+            ERI_ao = ints.eri(basis)
+        ERI = _mo_eri_dirac(torch.as_tensor(ERI_ao, device=dev), C)
+        del ERI_ao
         L = (2.0 * ERI - ERI.swapaxes(2, 3)).to(dtype)
         ERI = ERI.to(dtype)
 

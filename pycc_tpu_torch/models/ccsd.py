@@ -141,7 +141,9 @@ def _r_T1(F, ERI, L, t1, t2, Fae, Fme, Fmi, no):
             - contract("mnae,nmei->ia", t2, L[o, o, v, o]))
 
 
-def residuals_ccsd(F, ERI, L, vvvv, t1, t2, no):
+def residuals_ccsd(F, ERI, L, vvvv, t1, t2, no, ladder=vvvv_nt):
+    """CCSD T1/T2 residuals; the particle-particle ladder goes through
+    `ladder` (K1 by default, `vvvv_nt_reference` for the plain product)."""
     o, v = slices(no)
     Fae = build_Fae(F, L, t1, t2, no)
     Fmi = build_Fmi(F, L, t1, t2, no)
@@ -160,7 +162,7 @@ def residuals_ccsd(F, ERI, L, vvvv, t1, t2, no):
     r2 -= contract("imab,mj->ijab", t2, Fmi)
     r2 -= 0.5 * contract("imab,jm->ijab", t2, contract("je,me->jm", t1, Fme))
     r2 += 0.5 * contract("mnij,mnab->ijab", Wmnij, tau)
-    r2 += 0.5 * vvvv_contract(tau, vvvv)
+    r2 += 0.5 * vvvv_contract(tau, vvvv, ladder)
     r2 -= contract("ma,mbij->ijab", t1, Zmbij)
     r2 += contract("imae,mbej->ijab", t2 - t2.swapaxes(2, 3), Wmbej)
     r2 += contract("imae,mbej->ijab", t2, Wmbej + Wmbje.swapaxes(2, 3))

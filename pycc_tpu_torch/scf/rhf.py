@@ -79,7 +79,9 @@ def run_rhf(geometry, basis_name, freeze_core=False, e_conv=1e-12,
     can reuse them without a second factorization.  At df_tol=1e-10
     the Cholesky is numerically exact for SCF (energy error << 1e-9 Eh).
     `wfn.timers` holds the host seconds of the AO Cholesky
-    ("rhf.ao_cholesky")."""
+    ("rhf.ao_cholesky").  Without df the AO ERI (ab|cd) it computed stays
+    on the wavefunction (`wfn.ERI_ao`, None with df), where
+    build_hamiltonian takes it instead of computing it again."""
     mol = geometry if isinstance(geometry, Molecule) else Molecule(geometry)
     basis = BasisSet(mol, basis_name)
 
@@ -180,5 +182,6 @@ def run_rhf(geometry, basis_name, freeze_core=False, e_conv=1e-12,
     wfn = RHFWavefunction(mol, basis, E, C, eps, F, S, ndocc, nfzc)
     wfn.B_ao = B_ao
     wfn.B_tol = df_tol if df else None
+    wfn.ERI_ao = None if df else ERI
     wfn.timers = timers
     return wfn

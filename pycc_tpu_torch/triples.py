@@ -300,10 +300,8 @@ def t3_density_energy(cc):
     """E(T) with the (T) density: the full-tensor form while o^3 v^3 is
     at most 2e8 elements, else the slab scan; the ccwfn's t3_scan
     (True/False) overrides the choice."""
-    scan = getattr(cc, "t3_scan", None)
-    if scan is None:
-        scan = cc.no ** 3 * cc.nv ** 3 > 2e8
-    return t3_density_scan(cc) if scan else t3_density(cc)
+    from .ccwfn import t3_slabs
+    return t3_density_scan(cc) if t3_slabs(cc) else t3_density(cc)
 
 
 def t3_lambda_sources(cc):
@@ -346,6 +344,33 @@ def _t3c_slab_ij(i, j, Wvvvo_o, Wovoo_t, t2, eps_o, eps_v):
              - eps_v[None, :, None, None]
              - eps_v[None, None, :, None]
              - eps_v[None, None, None, :])
+    return t3 / denom
+
+
+def _t3c_slab(i, Wvvvo_o, Wovoo_t, t2, eps_o, eps_v):
+    """t3[i] slab (j,k,a,b,c) for a fixed first occupied index: the whole
+    row of `_t3c_slab_ij`, o^2 v^3 elements.  Takes the occupied-major
+    layouts from `slab_layouts`."""
+    Wi = Wvvvo_o[i]
+    t2i = t2[i]
+    t2_i2 = t2[:, i]
+    t3 = contract("bae,kjce->jkabc", Wi, t2)
+    t3 += contract("cae,jkbe->jkabc", Wi, t2)
+    t3 += contract("kace,jbe->jkabc", Wvvvo_o, t2_i2)
+    t3 += contract("kbce,jae->jkabc", Wvvvo_o, t2i)
+    t3 += contract("jcbe,kae->jkabc", Wvvvo_o, t2i)
+    t3 += contract("jabe,kce->jkabc", Wvvvo_o, t2_i2)
+    t3 -= contract("jkmc,mab->jkabc", Wovoo_t, t2i)
+    t3 -= contract("kjmb,mac->jkabc", Wovoo_t, t2i)
+    t3 -= contract("jmb,kmca->jkabc", Wovoo_t[i], t2)
+    t3 -= contract("jma,kmcb->jkabc", Wovoo_t[:, i], t2)
+    t3 -= contract("kma,jmbc->jkabc", Wovoo_t[:, i], t2)
+    t3 -= contract("kmc,jmba->jkabc", Wovoo_t[i], t2)
+    denom = (eps_o[i] + eps_o[:, None, None, None, None]
+             + eps_o[None, :, None, None, None]
+             - eps_v[None, None, :, None, None]
+             - eps_v[None, None, None, :, None]
+             - eps_v[None, None, None, None, :])
     return t3 / denom
 
 
@@ -674,6 +699,11 @@ def t3_density_scan_core(Wvvvo_o, Wovoo_t, Evovv, Eooov, Eoovv, Loovv, Fov,
 # ---------------------------------------------------------------------------
 # The k-chunked (T) from factors: one resident (o, v, v, v) integral tensor
 # ---------------------------------------------------------------------------
+
+def _dslice(x, k0, kc):
+    """The leading-axis window [k0, k0+kc) of an operand of any rank."""
+    return x[k0:k0 + kc]
+
 
 def _t3c_chunk_ij(i, j, k0, kc, W, Wovoo_t, t2, eps_o, eps_v):
     """_t3c_slab_ij restricted to the k-window [k0, k0+kc): (K,a,b,c).

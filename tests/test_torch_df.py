@@ -226,6 +226,9 @@ def test_df_refuses_what_pycc_tpu_refuses():
     with pytest.raises(NotImplementedError, match="item 12"):
         pycc_tpu_torch.ccwfn(_wfn("sto-3g"), storage="df", local="PNO",
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="CCSDT"):
         pycc_tpu_torch.ccwfn.from_df_factors(np.zeros((1, 3, 3)), np.eye(3),
-                                             1, model="CC3", device="cpu")
+                                             1, model="CCSDT", device="cpu")
+    with pytest.raises(Exception, match="CCSDT"):
+        pycc_tpu.ccwfn.from_df_factors(np.zeros((1, 3, 3)), np.eye(3), 1,
+                                       model="CCSDT")

@@ -86,3 +86,29 @@ def test_from_df_factors_casts_mu_to_the_working_dtype():
         assert len(cc.H.mu) == 3
         assert all(m.dtype == dtype for m in cc.H.mu), precision
     assert ccwfn.from_df_factors(B, F, no, device="cpu").H.mu == ()
+
+
+def test_hamiltonian_takes_the_eri_the_scf_kept(monkeypatch):
+    """run_rhf keeps its AO ERI on the wavefunction and build_hamiltonian
+    takes it: one integrals.eri call for the SCF and the Hamiltonian, and
+    the same Hamiltonian, bit for bit, as one that computes it again."""
+    from pycc_tpu_torch.scf import integrals as tints
+    from pycc_tpu_torch.scf import run_rhf
+
+    from .common import H2O
+    calls = []
+    eri = tints.eri
+
+    def counted(basis):
+        calls.append(basis)
+        return eri(basis)
+    monkeypatch.setattr(tints, "eri", counted)
+    wfn = run_rhf(H2O, "cc-pvdz", freeze_core=True)
+    kept = tham.build_hamiltonian(wfn, device="cpu")
+    assert len(calls) == 1 and wfn.ERI_ao is not None
+    wfn.ERI_ao = None
+    fresh = tham.build_hamiltonian(wfn, device="cpu")
+    assert len(calls) == 2
+    for name in ("F", "ERI", "L"):
+        assert torch.equal(getattr(kept, name), getattr(fresh, name)), name
+    assert run_rhf(H2O, "sto-3g", df=True).ERI_ao is None

@@ -78,7 +78,8 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"make_t3_density": True, "storage": "df"}, {"model": "CC3"},
+    {"make_t3_density": True, "storage": "df"},
+    {"model": "CC3", "real_time": True},
     {"real_time": True},
     {"storage": "blocked"}, {"local": "PNO"}, {"mesh": object()},
 ])
@@ -88,8 +89,18 @@ def test_options_outside_the_slice_raise(kwargs):
 
 
 def test_t3_scan_names_the_cc3_item():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pycc_tpu_torch.ccwfn(_wfn(), model="CC3", t3_scan=True)
+    """t3_scan picks CC3's residual form: the slab form when True, the
+    full-tensor form when False and, at this size, when None; DF storage
+    always takes the slab form over factors."""
+    from pycc_tpu_torch.models import cc3
+    picked = {scan: pycc_tpu_torch.ccwfn(_wfn(), model="CC3", t3_scan=scan,
+                                         device="cpu")._residual_fn
+              for scan in (None, True, False)}
+    assert picked == {None: cc3.residuals_cc3, True: cc3.residuals_cc3_scan,
+                      False: cc3.residuals_cc3}
+    cc = pycc_tpu_torch.ccwfn(_wfn(), model="CC3", storage="df",
+                              device="cpu")
+    assert cc._residual_fn is cc3.residuals_cc3_scan_df
 
 
 @pytest.mark.parametrize("t3_scan", [None, True, False])
@@ -129,20 +140,15 @@ def _eom_resume():
 
 
 def _cc3_onepdm():
-    cc, hb = _full_hbar()
-    with contextlib.redirect_stdout(io.StringIO()):
-        dens = pycc_tpu_torch.ccdensity(cc, pycc_tpu_torch.cclambda(cc, hb),
-                                        onlyone=True)
-    cc.model = "CC3"
-    dens.compute_onepdm(cc.t1, cc.t2, cc.t1, cc.t2)
+    """The CC3 one-pdm of a DF ccwfn: ccdensity over factors is item 9."""
+    cc = _converged(model="CC3", storage="df")
+    pycc_tpu_torch.ccdensity(cc, types.SimpleNamespace(l1=cc.t1, l2=cc.t2),
+                             onlyone=True)
 
 
 def _cc3_lambda_residuals():
-    from pycc_tpu_torch.cclambda import lambda_residuals_from_F
-    cc = _converged()
-    H = cc.H
-    lambda_residuals_from_F("CC3", H.F, H.ERI, H.L, cc.t1, cc.t2, cc.t1,
-                            cc.t2, cc.no)
+    """Lambda over a DF CC3 ccwfn is item 9."""
+    pycc_tpu_torch.cclambda(_converged(model="CC3", storage="df"), None)
 
 
 @pytest.mark.parametrize("call,item", [
@@ -154,8 +160,8 @@ def _cc3_lambda_residuals():
      "item 13"),
     (_lambda_chk, "item 10"),
     (_eom_resume, "item 10"),
-    (_cc3_onepdm, "item 8"),
-    (_cc3_lambda_residuals, "item 8"),
+    (_cc3_onepdm, "item 9"),
+    (_cc3_lambda_residuals, "item 9"),
 ], ids=["hbar-df", "t3-density-df", "hbar-blocked", "hbar-mesh", "lambda-chk", "eom-resume",
         "onepdm-cc3", "lambda-cc3"])
 def test_post_convergence_options_outside_the_slice_name_their_item(call,
