@@ -13,8 +13,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      at four shape groups (the last one a-block of the DF ladder of
      phase 7), each in float64, float32 and bf16->float32, and at the
      EOM sigma batch of phase 6b, the stacked complex / in_Y1 ladder
-     of phase 6c and the CC3 ladder of phase 6d in float64, with the median of 5 timed runs and the
-     least time the card could take (bound_ms: the larger of bytes /
+     of phase 6c, the CC3 ladder of phase 6d and the DF EOM sigma
+     block of phase 7b in float64, with the median of 5 timed runs and
+     the least time the card could take (bound_ms: the larger of bytes /
      3.35 TB/s and flop / peak);
   4. K2 against its plain version (t_energy_row_reference) at (no, nv) =
      (4, 19), (7, 45) and (24, 114), each in float64, float32 and
@@ -29,6 +30,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      run_rhf(df=True), on cc-pVDZ, and DF-direct CCSD(T) against dense;
      the CC3 energy, Lambda pseudo-energy and CFOUR dipole of
      tests/test_009 and DF CC3 on STO-3G against dense (tests/test_026);
+     and the DF post-convergence oracles: the DF Lambda pseudo-energy and
+     DF EOM-CCSD roots of tests/test_019, the DF polarizability of
+     test_020, the CCSD(T) density over factors and the DF density
+     energies of test_024, and DF Lambda-CC3 and the CC3 one-pdm of
+     test_026, each against its frozen value or dense storage;
   6. a real size on full storage: (H2O)_6/cc-pVDZ CCSD(T) (144 basis
      functions, (no, nv) = (24, 114) with the frozen core) through
      run_rhf -> ccwfn -> solve_cc, then the same (T) through the two
@@ -57,8 +63,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
   7. [df] a real size over Cholesky factors, which full storage cannot
      hold on 80 GB: (H2O)_6/aug-cc-pVDZ DF-CCSD(T) (246 basis functions,
      (24, 216)) through run_rhf(df=True) -> ccwfn(storage="df") ->
-     solve_cc, with the host seconds, the ladder split into W assembly
-     and K1, and the (T) also through the plain pair-symmetric scan.
+     solve_cc, with the host seconds and the ladder split into W assembly
+     and K1;
+  7b. [dfpost] the DF post-convergence stack at that size, on phase 7's
+     factors, F and dipole integrals (ccwfn.from_df_factors, CCSD): HBAR,
+     Lambda, the densities and their energy (held to Ecorr(CCSD)),
+     EOM-CCSD for the 6 lowest roots (residuals recomputed, the sigma
+     through K1 held to the plain one), one right and one left MU_Z solve
+     and that polarizability element (residuals recomputed), each K1
+     caller (Lambda, EOM, densities, response) counted and held to its
+     plain ladder.
 The line before the last is the kernels' JSON summary (one entry for each
 kernel on each path); the last line is {"ok": true, "device": {...}}.
 """
@@ -70,6 +84,7 @@ import os
 import statistics
 import subprocess
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -79,17 +94,19 @@ import pycc_tpu_torch
 from pycc_tpu_torch.ops.kernels import build as kernel_build
 from pycc_tpu_torch.data import moldict
 from pycc_tpu_torch import triples
-from pycc_tpu_torch.cceom import sigma_block
 from pycc_tpu_torch.cclambda import cc3_extra_fn, lambda_residuals
 from pycc_tpu_torch.ccdensity import build_Moo, build_Mvv
-from pycc_tpu_torch.ccresponse import in_Y1, in_Y2, r_X, r_Y
+from pycc_tpu_torch.hamiltonian import build_hamiltonian
 from pycc_tpu_torch.models import cc3, dfccsd
 from pycc_tpu_torch.models.ccsd import residuals_ccsd
+from pycc_tpu_torch.models.dfdensity import density_energy_df
+from pycc_tpu_torch.models.dfhbar import hvvvv_x2_df
 from pycc_tpu_torch.ops.kernels import triples as k2
 from pycc_tpu_torch.ops.kernels import vvvv
 from pycc_tpu_torch.ops.kernels.triples import (t_energy_row,
                                                 t_energy_row_reference,
                                                 t_row_finalize)
+from pycc_tpu_torch.ops.cholesky import cholesky_factor_eri
 from pycc_tpu_torch.ops.kernels.vvvv import vvvv_nt, vvvv_nt_reference
 from pycc_tpu_torch.scf import integrals as ints
 from pycc_tpu_torch.scf import run_rhf
@@ -163,8 +180,17 @@ K1_EOM_SHAPE = (EOM_ROOTS * 576, 12996, 12996)
 # the response ladders of phase 6c: a complex X2 or Y2 as stacked real and
 # imaginary rows, and in_Y1's two l2 ladders stacked, are both (2 o^2, ...)
 K1_RESP_SHAPE = (2 * 576, 12996, 12996)
-# the CC3 ladders of phase 6d, the CCSD residual's and Lambda's: (o^2, v^2, v^2)
+# the CC3 ladders of phase 6d, the CCSD residual's and Lambda's:
+# (o^2, v^2, v^2)
 K1_CC3_SHAPE = (CC3_NO ** 2, CC3_NV ** 2, CC3_NV ** 2)
+# the roots of phase 7b's EOM: (H2O)_6/aug-cc-pVDZ's lowest excited states
+# are six near-degenerate n -> 3s states, one a water, within 16 mEh; a
+# 3-root Davidson converges on mixtures of them (residual norms stop near
+# 1e-3, probes/eom_df_roots.py), a 6-root one resolves the cluster
+DFPOST_EOM_ROOTS = 6
+# the DF EOM sigma of phase 7b: a block of DFPOST_EOM_ROOTS vectors' rows
+# stacked against one a-block, (k o^2, blk*v, v^2)
+K1_DF_EOM_SHAPE = (DFPOST_EOM_ROOTS * DF_NO ** 2,) + K1_DF_SHAPE[1:]
 # (shape, what, types: "all" or the labels of K1_TYPES timed there)
 K1_SHAPES = [
     ((16, 361, 361), "H2O/cc-pVDZ ladder", "all"),
@@ -174,6 +200,7 @@ K1_SHAPES = [
     (K1_EOM_SHAPE, "(H2O)_6 EOM sigma batch", ("f64",)),
     (K1_RESP_SHAPE, "(H2O)_6 complex/in_Y1 ladder", ("f64",)),
     (K1_CC3_SHAPE, "(H2O)_4 CC3 ladder", ("f64",)),
+    (K1_DF_EOM_SHAPE, "(H2O)_6/aug DF EOM sigma block", ("f64",)),
 ]
 # the H100 SXM data sheet's dense peaks (at its 700 W limit): HBM bytes/s,
 # and flop/s for the arithmetic each kernel does in each type (float64 on
@@ -496,6 +523,7 @@ def phase_oracles():
     phase_response_oracles()
     phase_df_oracles(wfns["sto-3g", True], e_t_sto3g)
     phase_cc3_oracles(wfns["sto-3g", True])
+    phase_dfpost_oracles(wfns["sto-3g", True])
 
 
 # the all-electron H2O/STO-3G of tests/test_011 (bohr)
@@ -732,6 +760,119 @@ def phase_cc3_oracles(wfn_sto3g):
                              % (vvvv_nt.launches, cc.niter))
 
 
+def _launched(fn):
+    """fn's result and the K1 launches it made, counted from 0."""
+    vvvv_nt.launches = 0
+    out = fn()
+    return out, vvvv_nt.launches
+
+
+def phase_dfpost_oracles(wfn_sto3g):
+    """The DF post-convergence stack on the card against tests/test_019
+    (the DF Lambda pseudo-energy; the DF EOM-CCSD roots equal to full
+    storage's), test_020 (the DF polarizability equal to full storage's),
+    test_024 (the CCSD(T) density over prepared factors; the density
+    energy over factors equal to dense storage's for CCD, CC2 and CCSD
+    on random amplitudes) and test_026 (DF Lambda-CC3 and the CC3 one-pdm
+    equal to dense storage's), each at its test's tolerance, with the K1
+    launches of the DF Lambda solves checked against iterations x
+    blocks."""
+    full = pycc_tpu_torch.ccwfn(wfn_sto3g, device=DEVICE)
+    _solve(full, 1e-12, 1e-12)
+    cc = pycc_tpu_torch.ccwfn(wfn_sto3g, storage="df", df_tol=1e-13,
+                              device=DEVICE)
+    _solve(cc, 1e-12, 1e-12)
+    nblocks = dfccsd._ladder_blocks(cc.nv, cc.naux)
+    hb, lam, lecc, launches = _lambda(cc, 1e-12, 1e-12)
+    hb_full, lam_full, _, _ = _lambda(full, 1e-12, 1e-12)
+    (E, _), eom_launches = _launched(lambda: pycc_tpu_torch.cceom(hb)
+                                     .solve_eom(N=3, e_conv=1e-8, r_conv=1e-7))
+    E_full, _ = pycc_tpu_torch.cceom(hb_full).solve_eom(N=3, e_conv=1e-8,
+                                                        r_conv=1e-7)
+    tensors = [pycc_tpu_torch.ccresponse(pycc_tpu_torch.ccdensity(
+        c, l, onlyone=True)).linresp("MU", "MU", RESP_OMEGA)
+        for c, l in ((cc, lam), (full, lam_full))]
+    gaps = (abs(lecc - -0.068826452648939), np.abs(E - E_full).max(),
+            np.abs(tensors[0] - tensors[1]).max())
+    print("[oracle] H2O/sto-3g storage=df post-convergence: Lambda pseudo-E "
+          "|dE| = %.2e (%d iterations, %d K1 launches, %d blocks)  EOM roots "
+          "|DF - full| = %.2e (%d K1 launches)  linresp MU-MU |DF - full| = "
+          "%.2e" % (gaps[0], lam.niter, launches, nblocks, gaps[1],
+                    eom_launches, gaps[2]))
+    if not (lam.converged and gaps[0] < 1e-9 and gaps[1] < 1e-7
+            and gaps[2] < 1e-8):
+        raise AssertionError("DF post-convergence oracles missed: %s"
+                             % (gaps,))
+    if launches != lam.niter * nblocks or eom_launches < 1:
+        raise AssertionError("DF Lambda: %d K1 launches in %d iterations of "
+                             "%d blocks; EOM %d" % (launches, lam.niter,
+                                                    nblocks, eom_launches))
+
+    # tests/test_024: the CCSD(T) density chain over prepared factors
+    H = build_hamiltonian(run_rhf(H2O_T011, "sto-3g", freeze_core=False),
+                          device=DEVICE)
+    B = cholesky_factor_eri(H.ERI, tol=1e-14, device=DEVICE)
+    cc_t = pycc_tpu_torch.ccwfn.from_df_factors(B, H.F, H.no,
+                                                model="CCSD(T)",
+                                                device=DEVICE)
+    cc_t.make_t3_density = True
+    cc_t.solve_cc(1e-12, 1e-12, 75, max_diis=0)
+    _, lam_t, lcc, _ = _lambda(cc_t, 1e-12, 1e-12, maxiter=75, max_diis=0)
+    dens = pycc_tpu_torch.ccdensity(cc_t, lam_t)
+    dens.compute_energy()
+    gaps = (abs(lcc - -0.069084521221746), abs(dens.eone - 0.104463374777302),
+            abs(dens.etwo - -0.175243393781829))
+    # ... and the density energy over factors against dense storage on
+    # test_024's random amplitudes
+    H = build_hamiltonian(wfn_sto3g, device=DEVICE)
+    B = cholesky_factor_eri(H.ERI, tol=1e-14, device=DEVICE)
+    ERI = torch.einsum("Ppr,Pqs->pqrs", B, B)
+    no, nact = H.no, H.F.shape[0]
+    rng = np.random.default_rng(24)
+    t1, t2, l1, l2 = (torch.as_tensor(0.05 * rng.standard_normal(shape),
+                                      device=DEVICE) for shape in
+                      ((no, nact - no), (no, no, nact - no, nact - no)) * 2)
+    lam_r = types.SimpleNamespace(l1=l1, l2=l2)
+    dgaps = []
+    for model in ("CCD", "CC2", "CCSD"):
+        common = dict(model=model, t1=t1, t2=t2, no=no, nact=nact,
+                      o=slice(0, no), v=slice(no, nact))
+        e_dense = pycc_tpu_torch.ccdensity(types.SimpleNamespace(
+            storage="full", H=types.SimpleNamespace(F=H.F, ERI=ERI),
+            **common), lam_r).compute_energy()
+        e_df = pycc_tpu_torch.ccdensity(types.SimpleNamespace(
+            storage="df", dfb=dfccsd.df_blocks(B, no),
+            H=types.SimpleNamespace(F=H.F, ERI=None), **common),
+            lam_r).compute_energy()
+        dgaps.append(abs(e_dense - e_df))
+    print("[oracle] H2O/sto-3g all-electron CCSD(T) density over factors: "
+          "|d lcc| = %.2e  |d eone| = %.2e  |d etwo| = %.2e | density "
+          "energy over factors - dense (CCD, CC2, CCSD) %s"
+          % (gaps + (", ".join("%.1e" % g for g in dgaps),)))
+    if not (max(gaps) < 1e-9 and max(dgaps) < 1e-11):
+        raise AssertionError("DF density oracles missed: %s %s"
+                             % (gaps, dgaps))
+
+    # tests/test_026: Lambda-CC3 and the CC3 one-pdm over factors
+    out = {}
+    for storage in ("df", "full"):
+        kw = dict(storage="df", df_tol=1e-13) if storage == "df" else {}
+        c3 = pycc_tpu_torch.ccwfn(wfn_sto3g, model="CC3", device=DEVICE, **kw)
+        _solve(c3, 1e-11, 1e-11)
+        _, l3, le, _ = _lambda(c3, 1e-11, 1e-11)
+        pdm = pycc_tpu_torch.ccdensity(c3, l3, onlyone=True).compute_onepdm(
+            c3.t1, c3.t2, l3.l1, l3.l2)
+        out[storage] = (le, pdm, l3.converged)
+    gaps = (abs(out["df"][0] - out["full"][0]),
+            max((a - b).abs().max().item()
+                for a, b in zip(out["df"][1], out["full"][1])))
+    print("[oracle] H2O/sto-3g CC3 storage=df: Lambda pseudo-E |DF - dense| "
+          "= %.2e  one-pdm (opdm, opdm_cc3) max|DF - dense| = %.2e" % gaps)
+    if not (out["df"][2] and out["full"][2] and max(gaps) < 1e-9):
+        raise AssertionError("DF Lambda-CC3 / one-pdm missed dense: %s"
+                             % (gaps,))
+
+
 def _synced(fn):
     """fn's result and its seconds on the host clock, the card drained at
     both ends."""
@@ -808,16 +949,16 @@ def phase_real_size(smi, name=REAL_SIZE):
     return launches, cc, eccsd, et
 
 
-def _eom_checks(eom, C, E):
-    """The per-root residual norms |sigma x - omega x| of the Ritz vectors
-    x of the returned subspace C, with sigma recomputed through K1;
+def _eom_checks(eom, C, E, nroots=EOM_ROOTS):
+    """The per-root residual norms |sigma x - omega x| of the nroots Ritz
+    vectors x of the returned subspace C, with sigma recomputed through K1;
     max|sigma_K1(x) - sigma_plain(x)| / max|sigma_plain(x)|; max|omega -
     E|; and the seconds of sigma(x) through K1 and through the plain
     ladder."""
-    S = torch.cat([eom.sigma(C[i:i + 2 * EOM_ROOTS])
-                   for i in range(0, C.shape[0], 2 * EOM_ROOTS)])
+    S = torch.cat([eom.sigma(C[i:i + 2 * nroots])
+                   for i in range(0, C.shape[0], 2 * nroots)])
     w, a = np.linalg.eig((C @ S.T).double().cpu().numpy())
-    idx = np.real(w).argsort()[:EOM_ROOTS]
+    idx = np.real(w).argsort()[:nroots]
     a = torch.as_tensor(np.real(a[:, idx]).T.copy(), dtype=C.dtype,
                         device=C.device)
     x = a @ C
@@ -927,27 +1068,29 @@ def _recording(resp):
     return solves
 
 
+def _resp_residual(resp, A, omega, X, Y=None):
+    """max|r / (D + omega)| of a right solve's X (r_X recomputed) or,
+    given Y, of the left solve's Y over that X (r_Y, with its
+    inhomogeneous terms from X), for the response object's storage."""
+    if Y is None:
+        r1, r2 = resp._r_X(resp._Adict(A), omega, *X)
+    else:
+        r1, r2 = resp._r_Y(*resp._in_Y(A, *X), omega, *Y)
+    return max((r1 / (resp.Dia + omega)).abs().max().item(),
+               (r2 / (resp.Dijab + omega)).abs().max().item())
+
+
 def _resp_residuals(resp, solves):
-    """max|r / (D + omega)| of each recorded solve's returned vectors, r_X
-    or r_Y recomputed (r_Y's inhomogeneous terms from the X of the right
-    solve before it)."""
-    cc, hb, aux = resp.ccwfn, resp._hb(), resp._aux
-    l1, l2 = resp.cclambda.l1, resp.cclambda.l2
+    """`_resp_residual` of each recorded solve's returned vectors, a left
+    solve's over the X of the right solve before it."""
     out = []
     X = None
     for side, A, omega, v1, v2, _, _ in solves:
-        Ad = resp._Adict(A)
         if side == "right":
-            r1, r2 = r_X(hb, cc.H.L, cc.t2, Ad, omega, v1, v2, cc.no, aux)
             X = (v1, v2)
+            out.append(_resp_residual(resp, A, omega, X))
         else:
-            imY1 = in_Y1(hb, cc.H.L, cc.t2, l1, l2, Ad, *X, cc.no, aux)
-            imY2 = in_Y2(hb, cc.H.L, cc.H.ERI, cc.t2, l1, l2, Ad, *X, cc.no,
-                         aux)
-            r1, r2 = r_Y(hb, cc.H.L, cc.t2, imY1, imY2, omega, v1, v2, cc.no,
-                         aux)
-        out.append(max((r1 / (resp.Dia + omega)).abs().max().item(),
-                       (r2 / (resp.Dijab + omega)).abs().max().item()))
+            out.append(_resp_residual(resp, A, omega, X, (v1, v2)))
     return out
 
 
@@ -955,36 +1098,41 @@ def _rel(a, b):
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
-def _ladder_checks(resp, A, X, Y, Xm):
-    """Each response ladder through K1 against the plain product on the
-    converged vectors, max|diff| / max|plain|: r_X on the MU_X X (X) and
-    on the complex M_X X (Xm), r_Y on the MU_X Y (Y), and in_Y1 of pertbar
-    A over X.  r_X and r_Y are taken without their inhomogeneous terms:
-    (HBAR - omega) X and its left form are far from 0, where the converged
-    residuals are not."""
-    cc, hb, aux = resp.ccwfn, resp._hb(), resp._aux
-    l1, l2 = resp.cclambda.l1, resp.cclambda.l2
-    no, L, t2 = cc.no, cc.H.L, cc.t2
+def _rel_plain(fn):
+    """max|fn(K1) - fn(plain)| / max|fn(plain)| over fn's outputs, for fn
+    of the ladder (vvvv_nt or vvvv_nt_reference)."""
+    return max(_rel(a, b) for a, b in zip(fn(vvvv_nt),
+                                          fn(vvvv_nt_reference)))
 
-    def rel(fn, *args):
-        k1, plain = fn(*args), fn(*args, ladder=vvvv_nt_reference)
-        if isinstance(k1, torch.Tensor):
-            k1, plain = (k1,), (plain,)
-        return max(_rel(a, b) for a, b in zip(k1, plain))
 
-    def zero(v1, v2):
-        return {"Avo": torch.zeros_like(v1.T), "Avvoo": torch.zeros_like(v2)}
-
+def _resp_ladder_checks(resp, A, X, Y):
+    """The response ladders through K1 against the plain product on
+    converged vectors, as `_rel_plain`: r_X on X and r_Y on Y, each
+    without its inhomogeneous terms ((HBAR - omega) X and its left form
+    are far from 0, where the converged residuals are not), and the
+    left inhomogeneous terms of pertbar A over X."""
     (X1, X2), (Y1, Y2) = X, Y
+    zero = {"Avo": torch.zeros_like(X1.T), "Avvoo": torch.zeros_like(X2)}
     return {
-        "r_X MU_X": rel(r_X, hb, L, t2, zero(X1, X2), RESP_OMEGA, X1, X2, no,
-                        aux),
-        "r_Y MU_X": rel(r_Y, hb, L, t2, torch.zeros_like(Y1),
-                        torch.zeros_like(Y2), RESP_OMEGA, Y1, Y2, no, aux),
-        "in_Y1 MU_X": rel(in_Y1, hb, L, t2, l1, l2, resp._Adict(A), X1, X2,
-                          no, aux),
-        "r_X M_X": rel(r_X, hb, L, t2, zero(*Xm), RESP_OMEGA, *Xm, no, aux),
+        "r_X": _rel_plain(lambda ld: resp._r_X(zero, RESP_OMEGA, X1, X2,
+                                               ladder=ld)),
+        "r_Y": _rel_plain(lambda ld: resp._r_Y(
+            torch.zeros_like(Y1), torch.zeros_like(Y2), RESP_OMEGA, Y1, Y2,
+            ladder=ld)),
+        "in_Y": _rel_plain(lambda ld: resp._in_Y(A, X1, X2, ladder=ld)),
     }
+
+
+def _ladder_checks(resp, A, X, Y, Xm):
+    """`_resp_ladder_checks` on the MU_X X and Y of pertbar A, and r_X on
+    the complex M_X X (Xm)."""
+    rels = {k + " MU_X": v
+            for k, v in _resp_ladder_checks(resp, A, X, Y).items()}
+    zero = {"Avo": torch.zeros_like(Xm[0].T),
+            "Avvoo": torch.zeros_like(Xm[1])}
+    rels["r_X M_X"] = _rel_plain(lambda ld: resp._r_X(zero, RESP_OMEGA, *Xm,
+                                                      ladder=ld))
+    return rels
 
 
 def phase_resp(cc, lam, smi, name=REAL_SIZE):
@@ -1281,17 +1429,6 @@ def phase_df(smi, name=DF_SIZE):
           "whole residual %.1f ms; solve %.1f ms an iteration  | %s"
           % (assembly, k1, nblocks, ladder, residual, 1e3 * s_iter, smi))
 
-    # the same (T) through the plain pair-symmetric scan
-    sl = triples.t_scan_df_slices(cc.H.F, *cc.dfb, cc.no)
-    e_scan, t_scan = _synced(
-        lambda: float(triples.t_vikings_scan_core(*sl, cc.t1, cc.t2, cc.no)))
-    del sl
-    print("[df] (T): K2 rows %.1f s E(T) %.12f | plain pair-symmetric scan "
-          "%.1f s E(T) %.12f  |diff| %.2e  | %s"
-          % (t_t, et, t_scan, e_scan, abs(e_scan - et), smi))
-    print("[df] peak device memory with the plain scan %.2f GB"
-          % (torch.cuda.max_memory_allocated() / 1e9))
-
     ok_shapes = (cc.t2.shape == (cc.no, cc.no, cc.nv, cc.nv)
                  and bool(torch.isfinite(cc.t2).all()) and math.isfinite(et))
     if not (ok_shapes and cc.converged):
@@ -1302,18 +1439,181 @@ def phase_df(smi, name=DF_SIZE):
                             ("E(T)", et, et_ref)):
         if not abs(got - want) < 1e-9:
             raise AssertionError("DF %s missed the frozen value" % what)
-    if not abs(e_scan - et) < 1e-10:
-        raise AssertionError("the plain DF (T) disagrees with the kernel's")
     if (launches["vvvv_nt"] != cc.niter * nblocks
             or launches["t_row"] != cc.no):
         raise AssertionError("DF: %d K1 launches in %d iterations of %d "
                              "blocks, %d K2 launches for no = %d"
                              % (launches["vvvv_nt"], cc.niter, nblocks,
                                 launches["t_row"], cc.no))
-    return launches
+    return launches, _factors_of(cc)
 
 
-def _kernel_entries(k1_cells, k2_cells, full, post, resp, cc3_, df):
+def _factors_of(cc):
+    """What [dfpost] takes from a DF ccwfn: its MO factors B (naux, nact,
+    nact) reassembled from the blocks, F, the dipole integrals, no and
+    E(SCF)."""
+    no, dfb = cc.no, cc.dfb
+    naux, nact = cc.naux, cc.nact
+    B = torch.empty((naux, nact, nact), dtype=dfb.Bov.dtype,
+                    device=dfb.Bov.device)
+    B[:, :no, :no] = dfb.Boo
+    B[:, :no, no:] = dfb.Bov
+    B[:, no:, :no] = dfb.Bov.transpose(1, 2)
+    B[:, no:, no:] = dfb.Bvv
+    return B, cc.H.F, cc.H.mu, no, cc.eref
+
+
+# the guess of [dfpost]'s EOM: HBAR_SS is a host eig of an (o v)^2 matrix,
+# 5184^2 at (24, 216)
+DFPOST_EOM_GUESS = "HBAR_SS"
+
+
+def _dfpost_ladder_checks(cc, hb, lam, resp, A, X, Y):
+    """Each [dfpost] K1 caller against the plain ladder (`_rel_plain`):
+    Lambda's Hvvvv ladder on the converged l2 (the residual itself is ~0
+    there), the density energy's two-electron part, and the response's
+    (`_resp_ladder_checks`; its in_Y is inY2_df's ladder)."""
+    no, t1, t2 = cc.no, cc.t1, cc.t2
+    rels = {
+        "lambda": _rel_plain(lambda ld: (hvvvv_x2_df(hb, t2, lam.l2,
+                                                     ladder=ld),)),
+        "density": _rel_plain(lambda ld: density_energy_df(
+            cc.H.F, cc.dfb, t1, t2, lam.l1, lam.l2, no, ladder=ld)[1:]),
+    }
+    rels.update(_resp_ladder_checks(resp, A, X, Y))
+    return rels
+
+
+def phase_dfpost(factors, smi, name=DF_SIZE):
+    """The DF post-convergence stack at [df]'s size on its factors, F and
+    dipole integrals: a CCSD ccwfn from ccwfn.from_df_factors, its solve,
+    HBAR, Lambda, the densities and their energy, EOM-CCSD for the
+    DFPOST_EOM_ROOTS lowest roots,
+    and one right and one left MU_Z solve with that polarizability
+    element, each timed, K1's launches counted from 0 for each caller and
+    checked against its iterations x ladder blocks."""
+    B, F, mu, no, escf = factors
+    eccsd_ref = FROZEN_DF[name][1]
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    cc, t_init = _synced(lambda: pycc_tpu_torch.ccwfn.from_df_factors(
+        B, F, no, escf=escf, model="CCSD", mu=mu, device=DEVICE))
+    del B
+    nblocks = dfccsd._ladder_blocks(cc.nv, cc.naux)
+    (ecc, t_solve), cc_launches = _launched(lambda: _solve(cc, 1e-10, 1e-10))
+    hb, t_hbar = _synced(lambda: pycc_tpu_torch.cchbar(cc))
+    lam = pycc_tpu_torch.cclambda(cc, hb)
+    (lecc, t_lam), lam_launches = _launched(lambda: _synced(
+        lambda: lam.solve_lambda(1e-10, 1e-10)))
+    peak_lam = torch.cuda.max_memory_allocated()
+
+    def densities():
+        dens = pycc_tpu_torch.ccdensity(cc, lam)
+        dens.compute_energy()
+        return dens.eone, dens.etwo
+    ((eone, etwo), t_den), den_launches = _launched(lambda: _synced(
+        densities))
+
+    eom = pycc_tpu_torch.cceom(hb)
+    ((E, C), t_eom), eom_launches = _launched(lambda: _synced(
+        lambda: eom.solve_eom(N=DFPOST_EOM_ROOTS, e_conv=1e-8, r_conv=1e-6,
+                              guess=DFPOST_EOM_GUESS)))
+    n_sigma = cc.timers.count["eom.sigma"]
+    peak_eom = torch.cuda.max_memory_allocated()
+    eom_iters, subspace, eom_ok = eom.niter, C.shape[0], eom.converged
+    rn, rel_eom, dw, t_k1, t_plain = _eom_checks(eom, C, E, DFPOST_EOM_ROOTS)
+    del eom, C
+
+    resp, t_resp = _synced(lambda: pycc_tpu_torch.ccresponse(
+        pycc_tpu_torch.ccdensity(cc, lam, onlyone=True)))
+    A = resp.pertbar["MU_Z"]
+    (sigma, t_probe), probe_launches = _launched(lambda: _synced(
+        lambda: resp.estimate_conditioning(RESP_OMEGA)))
+    ((X1, X2, _), t_right), right_launches = _launched(lambda: _synced(
+        lambda: resp.solve_right(A, RESP_OMEGA, RESP_CONV, RESP_CONV)))
+    right = (resp.converged, resp.niter)
+    ((Y1, Y2, _), t_left), left_launches = _launched(lambda: _synced(
+        lambda: resp.solve_left(A, RESP_OMEGA, RESP_CONV, RESP_CONV)))
+    left = (resp.converged, resp.niter)
+    alpha = complex(resp.linresp_asym("MU_Z", X1, X2, Y1, Y2)).real
+    peak = torch.cuda.max_memory_allocated()
+
+    res_x = _resp_residual(resp, A, RESP_OMEGA, (X1, X2))
+    res_y = _resp_residual(resp, A, RESP_OMEGA, (X1, X2), (Y1, Y2))
+    rels = _dfpost_ladder_checks(cc, hb.hbar, lam, resp, A, (X1, X2),
+                                 (Y1, Y2))
+    rels["eom sigma"] = rel_eom
+    resp_launches = probe_launches + right_launches + left_launches
+    want = {"ccsd": cc.niter, "lambda": lam.niter, "density": 2,
+            "eom": n_sigma, "response": 24 + right[1] + left[1] + 1}
+    got = {"ccsd": cc_launches, "lambda": lam_launches,
+           "density": den_launches, "eom": eom_launches,
+           "response": resp_launches}
+
+    print("[dfpost] %s/aug-cc-pVDZ DF-CCSD post-convergence on [df]'s "
+          "factors: (no, nv) = (%d, %d) naux %d, %d ladder blocks  | %s"
+          % (name, cc.no, cc.nv, cc.naux, nblocks, smi))
+    print("[dfpost] from_df_factors %.1f s  CCSD solve %.1f s %d iterations "
+          "Ecorr = %.12f |dE| from frozen = %.2e"
+          % (t_init, t_solve, cc.niter, ecc, abs(ecc - eccsd_ref)))
+    print("[dfpost] HBAR %.2f s  Lambda %.1f s %d iterations %.3f s/iter "
+          "pseudo-E = %.12f  peak device memory through Lambda %.2f GB"
+          % (t_hbar, t_lam, lam.niter, t_lam / lam.niter, lecc,
+             peak_lam / 1e9))
+    print("[dfpost] densities + compute_energy %.2f s: eone + etwo = %.12f "
+          "Ecorr(CCSD) = %.12f |diff| = %.2e"
+          % (t_den, eone + etwo, ecc, abs(eone + etwo - ecc)))
+    print("[dfpost] EOM-CCSD %d roots %.1f s (the %s guess on the host %.1f "
+          "s): %s Eh  %d iterations  subspace %d  sigma blocks %d  residual "
+          "norms %s  |Ritz - E| %.2e  peak device memory %.2f GB"
+          % (DFPOST_EOM_ROOTS, t_eom, DFPOST_EOM_GUESS,
+             cc.timers.total["eom.guess"], np.array2string(E, precision=10),
+             eom_iters, subspace, n_sigma, ", ".join("%.2e" % r for r in rn),
+             dw, peak_eom / 1e9))
+    print("[dfpost] sigma of the %d Ritz vectors: through K1 %.3f s, through "
+          "the plain ladder %.3f s" % (DFPOST_EOM_ROOTS, t_k1, t_plain))
+    print("[dfpost] ccresponse %.2f s  conditioning probe %.1f s (sigma_min "
+          "<= %.6f)  solve_right MU_Z %.1f s %d iterations %.3f s/iter  "
+          "solve_left MU_Z %.1f s %d iterations %.3f s/iter  alpha_zz(%.4f) "
+          "= %.10f  max|r/(D + omega)| right %.1e left %.1e  peak device "
+          "memory %.2f GB"
+          % (t_resp, t_probe, sigma, t_right, right[1], t_right / right[1],
+             t_left, left[1], t_left / left[1], RESP_OMEGA, alpha, res_x,
+             res_y, peak / 1e9))
+    print("[dfpost] K1 launches by caller (want iterations x %d blocks): %s"
+          % (nblocks, ", ".join("%s %d (%d)" % (k, got[k], nblocks * want[k])
+                                for k in got)))
+    print("[dfpost] K1 vs the plain ladder, max|diff|/max|plain|: %s  | %s"
+          % ("  ".join("%s %.1e" % kv for kv in rels.items()), smi))
+    print("[dfpost] the phase, its checks included: %.1f s"
+          % (time.perf_counter() - t_phase))
+
+    if not (cc.converged and abs(ecc - eccsd_ref) < 1e-9):
+        raise AssertionError("[dfpost] Ecorr(CCSD) missed the frozen value")
+    if not (lam.converged and math.isfinite(lecc)):
+        raise AssertionError("[dfpost] Lambda did not converge")
+    if not abs(eone + etwo - ecc) < 1e-9:
+        raise AssertionError("[dfpost] the density energy missed Ecorr")
+    if not (eom_ok and np.all(np.isfinite(E)) and np.all(E > 0)
+            and max(rn) <= 1e-6):
+        raise AssertionError("[dfpost] EOM-CCSD: converged %s, roots %s, "
+                             "residual norms %s" % (eom_ok, E, rn))
+    if not (right[0] and left[0] and max(res_x, res_y) <= 10 * RESP_CONV
+            and math.isfinite(alpha) and alpha > 0):
+        raise AssertionError("[dfpost] response: right %s left %s, residuals "
+                             "%.2e %.2e, alpha %r" % (right, left, res_x,
+                                                      res_y, alpha))
+    if not max(rels.values()) <= 1e-12:
+        raise AssertionError("[dfpost] K1 and the plain ladder differ: %s"
+                             % rels)
+    bad = {k: (got[k], nblocks * want[k]) for k in got
+           if got[k] != nblocks * want[k]}
+    if bad:
+        raise AssertionError("[dfpost] K1 launches (got, want): %s" % bad)
+    return {k: got[k] for k in ("lambda", "eom", "density", "response")}
+
+
+def _kernel_entries(k1_cells, k2_cells, full, post, resp, cc3_, df, dfpost):
     """The kernels line: each kernel on each path, with that path's
     launches and the timed cell at the shape the path launches it at."""
     k1 = dict(route="cuda", source="pycc_tpu_torch/csrc/vvvv_nt.cu",
@@ -1342,6 +1642,14 @@ def _kernel_entries(k1_cells, k2_cells, full, post, resp, cc3_, df):
              **k1_cells[K1_DF_SHAPE, "f64"]),
         dict(name="t_row/df_slices", **k2, launches=df["t_row"],
              **k2_cells[(DF_NO, DF_NV), "f64"]),
+        dict(name="vvvv_nt/df_lambda", **k1, launches=dfpost["lambda"],
+             **k1_cells[K1_DF_SHAPE, "f64"]),
+        dict(name="vvvv_nt/df_eom", **k1, launches=dfpost["eom"],
+             **k1_cells[K1_DF_EOM_SHAPE, "f64"]),
+        dict(name="vvvv_nt/df_density", **k1, launches=dfpost["density"],
+             **k1_cells[K1_DF_SHAPE, "f64"]),
+        dict(name="vvvv_nt/df_response", **k1, launches=dfpost["response"],
+             **k1_cells[K1_DF_SHAPE, "f64"]),
     ]
 
 
@@ -1359,10 +1667,12 @@ def main():
     torch.cuda.empty_cache()
     cc3_launches = phase_cc3(smi)
     torch.cuda.empty_cache()
-    df = phase_df(smi)
+    df, factors = phase_df(smi)
+    torch.cuda.empty_cache()
+    dfpost = phase_dfpost(factors, smi)
     print(smi)
     print(json.dumps({"kernels": _kernel_entries(
-        k1_cells, k2_cells, full, post, resp, cc3_launches, df)}))
+        k1_cells, k2_cells, full, post, resp, cc3_launches, df, dfpost)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

@@ -1,12 +1,13 @@
 """pycc_tpu_torch: the PyTorch/CUDA port of pycc_tpu.
 
 RHF (host numpy and the native C++ ERI engine) -> MO Hamiltonian (torch)
--> CCD / CC2 / CCSD / CCSD(T) on one torch device, then HBAR, Lambda,
-densities, EOM-CCSD and linear response on full storage, with the
-particle-particle ladders and the (T) rows through hand-written CUDA
-kernels on NVIDIA Hopper.  Every entry point takes a `device` (default "cuda", which
-raises without a card; the CPU is used only when asked for) and dtype or
-precision; nothing picks a device by itself.  pycc_tpu, beside it, is the
+-> CCD / CC2 / CCSD / CCSD(T) / CC3 on one torch device, then HBAR,
+Lambda, densities, EOM-CCSD and linear response, on full storage or over
+Cholesky/DF factors, with the particle-particle ladders and the (T) rows
+through hand-written CUDA kernels on NVIDIA Hopper.  Every entry point
+takes a `device` (default "cuda", which raises without a card; the CPU is
+used only when asked for) and dtype or precision; nothing picks a device
+by itself.  pycc_tpu, beside it, is the
 reference the port is tested against; this package never imports JAX.
 """
 

@@ -1,10 +1,12 @@
 """CC one- and two-electron densities and density-based energies.
 
-The counterpart of pycc_tpu/ccdensity.py for storage='full': every block
-is a plain function of the amplitudes, `onepdm` assembles the
+The counterpart of pycc_tpu/ccdensity.py for storage='full' and 'df':
+every block is a plain function of the amplitudes, `onepdm` assembles the
 (nact, nact) one-electron density, and `ccdensity.compute_energy` gives
 the density-vs-amplitude consistency check (for CCSD(T), with the (T)
-blocks of `ccwfn.t3_density()`).
+blocks of `ccwfn.t3_density()`).  Under storage='df' the v^4 Dvvvv and
+v^3 o Dvvvo blocks are never formed: compute_energy evaluates their
+energy terms over the factors (models/dfdensity.py, two K1 ladders).
 """
 
 import time
@@ -14,6 +16,7 @@ import torch
 from .cclambda import build_Goo, build_Gvv
 from .models.ccsd import build_tau, slices
 from .ops.contract import contract
+from .ops.kernels.vvvv import vvvv_nt
 from .utils.log import logger as log
 
 
@@ -240,15 +243,13 @@ def build_Mvv(no, nv, ints, t1):
 
 class ccdensity:
     """ccdensity(ccwfn, cclambda[, onlyone]): the density blocks of a
-    storage='full' ccwfn on its device; for CCSD(T) the (T) blocks that
+    storage='full' or 'df' ccwfn on its device (over factors without
+    Dvvvv and Dvvvo); for CCSD(T) the (T) blocks that
     `ccwfn.t3_density()` left on the ccwfn join them."""
 
     def __init__(self, ccwfn, cclambda, onlyone=False):
         from .ccwfn import _not_ported
         storage = getattr(ccwfn, "storage", "full")
-        if storage == "df":
-            raise _not_ported("ccdensity(storage='df')",
-                              "Queue 1, item 9 (DF post-convergence stack)")
         if storage == "blocked":
             raise _not_ported("ccdensity(storage='blocked')",
                               "Queue 1, item 10 (blocked storage and mixed "
@@ -257,6 +258,7 @@ class ccdensity:
         self.ccwfn = ccwfn
         self.cclambda = cclambda
         self.onlyone = onlyone
+        self._df = storage == "df"
         model = ccwfn.model
         t1, t2 = ccwfn.t1, ccwfn.t2
         l1, l2 = cclambda.l1, cclambda.l2
@@ -273,27 +275,47 @@ class ccdensity:
             self.Dooov = build_Dooov(model, t1, t2, l1, l2, t3("Gooov"))
             self.Dovov = build_Dovov(model, t1, t2, l1, l2)
             self.Doovv = build_Doovv(model, t1, t2, l1, l2, t3("Goovv"))
-            self.Dvvvv = build_Dvvvv(model, t1, t2, l2)
-            self.Dvvvo = build_Dvvvo(model, t1, t2, l1, l2, t3("Gvvvo"))
+            if not self._df:
+                self.Dvvvv = build_Dvvvv(model, t1, t2, l2)
+                self.Dvvvo = build_Dvvvo(model, t1, t2, l1, l2,
+                                         t3("Gvvvo"))
         log.info("\nCCDENSITY constructed in %.3f seconds.\n"
                  % (time.time() - t0))
 
-    def compute_energy(self):
-        """The correlation energy from the densities (one host read)."""
+    def compute_energy(self, ladder=vvvv_nt):
+        """The correlation energy from the densities (one host read).
+        Under storage='df' the two-electron energy comes from the factors
+        (`dfdensity.density_energy_df`), its vvvv and vvvo ladders one
+        `ladder` call (K1 by default) an a-block."""
         cc = self.ccwfn
         o, v = cc.o, cc.v
-        F, ERI = cc.H.F, cc.H.ERI
+        F = cc.H.F
         eone = (contract("ij,ij->", F[o, o], self.Doo)
                 + contract("ab,ab->", F[v, v], self.Dvv))
         if self.onlyone:
             self.ecc = float(eone)
             return self.ecc
-        etwo = 0.5 * contract("ijkl,ijkl->", ERI[o, o, o, o], self.Doooo)
-        etwo += 0.5 * contract("abcd,abcd->", ERI[v, v, v, v], self.Dvvvv)
-        etwo += contract("ijka,ijka->", ERI[o, o, o, v], self.Dooov)
-        etwo += contract("abci,abci->", ERI[v, v, v, o], self.Dvvvo)
-        etwo += contract("iajb,iajb->", ERI[o, v, o, v], self.Dovov)
-        etwo += 0.5 * contract("ijab,ijab->", ERI[o, o, v, v], self.Doovv)
+        if self._df:
+            from .models.dfdensity import density_energy_df
+            lam = self.cclambda
+            eone, etwo = density_energy_df(
+                F, cc.dfb, cc.t1, cc.t2, lam.l1, lam.l2, cc.no,
+                model=cc.model, Doo=self.Doo, Dvv=self.Dvv,
+                Doooo=self.Doooo, Dooov=self.Dooov, Dovov=self.Dovov,
+                Doovv=self.Doovv,
+                Gvvvo=(getattr(cc, "Gvvvo", None)
+                       if cc.model == "CCSD(T)" else None),
+                nblocks=getattr(cc, "df_nblocks", None), ladder=ladder)
+        else:
+            ERI = cc.H.ERI
+            etwo = 0.5 * contract("ijkl,ijkl->", ERI[o, o, o, o], self.Doooo)
+            etwo += 0.5 * contract("abcd,abcd->", ERI[v, v, v, v],
+                                   self.Dvvvv)
+            etwo += contract("ijka,ijka->", ERI[o, o, o, v], self.Dooov)
+            etwo += contract("abci,abci->", ERI[v, v, v, o], self.Dvvvo)
+            etwo += contract("iajb,iajb->", ERI[o, v, o, v], self.Dovov)
+            etwo += 0.5 * contract("ijab,ijab->", ERI[o, o, v, v],
+                                   self.Doovv)
         self.eone, self.etwo = torch.stack([eone, etwo]).tolist()
         self.ecc = self.eone + self.etwo
         log.info("One-electron CC energy = %20.15f" % self.eone)
@@ -306,7 +328,7 @@ class ccdensity:
         (opdm, opdm_cc3), opdm_cc3 holding the triples Doo/Dvv blocks that
         go with the T1-transformed property integrals (`build_Moo`,
         `build_Mvv`), over the full T3/L3 or one slab at a time
-        (`ccwfn.t3_slabs`)."""
+        (`ccwfn.t3_slabs`; over factors always the slab form)."""
         cc = self.ccwfn
         if cc.model == "CC3":
             from .ccwfn import t3_slabs

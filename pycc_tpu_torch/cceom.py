@@ -1,13 +1,17 @@
 """EOM-CCSD: the right-hand Davidson eigensolver over HBAR.
 
-The counterpart of pycc_tpu/cceom.py for storage='full'.  The sigma
-builds take a block of k vectors at once: every term is one batched
+The counterpart of pycc_tpu/cceom.py for storage='full' and 'df'.  The
+sigma builds take a block of k vectors at once: every term is one batched
 contraction over the block, and the Hvvvv ladder is one K1 launch for the
 block, its k stacked C2 as a (k o^2, v^2) matrix, before the pair
-symmetrisation.  The Davidson subspace C and its sigma block S stay on the
-device; the host sees only the (M, M) Gram matrix, the residual norms and
-the eigenvectors of the subspace problem.  `dense_matrix` builds the whole
-EOM-CCSD matrix from sigmas, the tests' oracle on small systems.
+symmetrisation.  Over DF factors the sigma is models/dfhbar's
+sigma1_df/sigma2_df over the block (`sigma_block_df`): W is assembled once
+an a-block for the whole block, and the ladder is one K1 launch an
+a-block, (k o^2, blk v, v^2).  The Davidson subspace C and its sigma block
+S stay on the device; the host sees only the (M, M) Gram matrix, the
+residual norms and the eigenvectors of the subspace
+problem.  `dense_matrix` builds the whole EOM-CCSD matrix from sigmas, the
+tests' oracle on small systems.
 """
 
 import time
@@ -17,6 +21,7 @@ import numpy as np
 import torch
 
 from .models.ccsd import slices, vvvv_contract
+from .models.dfhbar import DFHBar, loovv_df, sigma1_df, sigma2_df
 from .ops.contract import contract
 from .ops.kernels.vvvv import vvvv_nt
 from .utils.log import logger as log
@@ -104,20 +109,39 @@ def sigma_block(hb, C, L, t2, no, ladder=vvvv_nt):
     return torch.cat([s1.reshape(k, n1), s2.reshape(k, n1 * n1)], dim=1)
 
 
+def sigma_block_df(dfh, C, Loovv, t1, t2, no, nblocks=None,
+                   ladder=vvvv_nt):
+    """sigma = HBAR C for a (k, dim) block of vectors over the DF-HBAR
+    (models/dfhbar.DFHBar): sigma1_df and sigma2_df over the block, whose
+    ladder is one call of `ladder(A, B)` = A @ B.T an a-block for all k
+    vectors (K1 by default; `vvvv_nt_reference` for the plain sigma)."""
+    k, nv = C.shape[0], t2.shape[2]
+    n1 = no * nv
+    C1 = C[:, :n1].reshape(k, no, nv)
+    C2 = C[:, n1:].reshape(k, no, no, nv, nv)
+    s1 = sigma1_df(dfh, C1, C2, Loovv, no)
+    s2 = sigma2_df(dfh, C1, C2, Loovv, t1, t2, no, nblocks=nblocks,
+                   ladder=ladder)
+    return torch.cat([s1.reshape(k, n1), s2.reshape(k, n1 * n1)], dim=1)
+
+
 class cceom:
-    """EOM-CCSD Davidson solver over a cchbar of a storage='full' ccwfn,
-    on the ccwfn's device."""
+    """EOM-CCSD Davidson solver over a cchbar of a storage='full' or 'df'
+    ccwfn, on the ccwfn's device."""
 
     def __init__(self, cchbar):
         cc = cchbar.ccwfn
-        if getattr(cc, "storage", "full") != "full":
+        if getattr(cc, "storage", "full") not in ("full", "df"):
             from .ccwfn import _not_ported
             raise _not_ported("cceom(storage=%r)" % cc.storage,
-                              "Queue 1, item 9 (DF post-convergence stack)")
+                              "Queue 1, item 10 (blocked storage and mixed "
+                              "precision)")
         self.hbar = cchbar
         self.ccwfn = cc
         self.no, self.nv = cc.no, cc.nv
         hb = cchbar.hbar
+        # the DF sigma reads L[o,o,v,v] assembled from the factors once
+        self._Loovv = loovv_df(hb.df) if isinstance(hb, DFHBar) else None
         occ = torch.diagonal(hb.Hoo)
         vir = torch.diagonal(hb.Hvv)
         Dia = occ[:, None] - vir[None, :]
@@ -127,9 +151,15 @@ class cceom:
 
     def sigma(self, C, ladder=vvvv_nt):
         """sigma of a (k, dim) block of vectors on the device (one K1
-        launch); see `sigma_block`."""
+        launch, or one an a-block over DF factors); see `sigma_block` and
+        `sigma_block_df`."""
         cc = self.ccwfn
         with cc.timers.time("eom.sigma"):
+            if self._Loovv is not None:
+                return sigma_block_df(self.hbar.hbar, C, self._Loovv, cc.t1,
+                                      cc.t2, self.no,
+                                      nblocks=getattr(cc, "df_nblocks", None),
+                                      ladder=ladder)
             return sigma_block(self.hbar.hbar, C, cc.H.L, cc.t2, self.no,
                                ladder=ladder)
 
@@ -162,7 +192,14 @@ class cceom:
             cc = self.ccwfn
             F = cc.H.F.cpu().numpy()
             o, v = slices(no)
-            L_voov = cc.H.L[v, o, o, v].cpu().numpy()
+            if self._Loovv is not None:
+                # L[a,i,j,b] = 2 (aj|ib) - (ab|ij) from the factors
+                df = cc.dfb
+                L_voov = (2.0 * torch.einsum("Pja,Pib->aijb", df.Bov, df.Bov)
+                          - torch.einsum("Pab,Pij->aijb", df.Bvv, df.Boo))
+            else:
+                L_voov = cc.H.L[v, o, o, v]
+            L_voov = L_voov.cpu().numpy()
             H = L_voov.swapaxes(0, 1).swapaxes(0, 2).copy()
             H += np.einsum("ab,ij->iajb", F[no:, no:][:nv, :nv], np.eye(no))
             H -= np.einsum("ij,ab->iajb", F[:no, :no], np.eye(nv))
@@ -237,6 +274,7 @@ class cceom:
         best_E = None
         best_dE = np.inf
         stalled = 0
+        collapsed = False
         E_old = E
         for niter in range(1, maxiter + 1):
             E_old = E
@@ -264,14 +302,19 @@ class cceom:
                 converged = True
                 break
 
-            if rnorms.max() < 0.98 * best_r:
+            # the Ritz pairs of a collapsed subspace are those it was
+            # collapsed to: the iteration after a collapse brings no new
+            # information, so its dE = 0 and unchanged residuals are no
+            # stall and stop nothing
+            fresh, collapsed = not collapsed, False
+            if fresh and rnorms.max() < 0.98 * best_r:
                 best_r = rnorms.max()
                 best_E = E.copy()
                 best_dE = float(np.linalg.norm(dE))
                 stalled = 0
-            else:
+            elif fresh:
                 stalled += 1
-            if (stalled >= 3 and niter >= 6
+            if (fresh and stalled >= 3 and niter >= 6
                     and np.abs(np.linalg.norm(dE)) <= e_conv):
                 converged = True
                 self.residual_floor = float(rnorms.max())
@@ -280,7 +323,7 @@ class cceom:
                     "for 3 iterations with energies converged; stopping "
                     "at the precision noise floor." % (rnorms.max(), r_conv))
                 break
-            if stalled >= 6 and niter >= 8:
+            if fresh and stalled >= 6 and niter >= 8:
                 # past the floor, noise-level corrections leak intruder
                 # directions into the subspace: return the best iterate,
                 # converged only when its plateau is what the working
@@ -301,6 +344,7 @@ class cceom:
                 C = torch.linalg.qr((aT @ C).T)[0].T.contiguous()
                 S = self.sigma(C)
                 G = (C @ S.T).double().cpu().numpy()
+                collapsed = True
                 continue
 
             added = []

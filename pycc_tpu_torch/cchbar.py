@@ -1,10 +1,12 @@
 """Similarity-transformed Hamiltonian HBAR = e^{-T} H e^{T} (one/two-body).
 
-The counterpart of pycc_tpu/cchbar.py for storage='full': the 11 blocks
+The counterpart of pycc_tpu/cchbar.py.  For storage='full' the 11 blocks
 come from one plain function of (F, ERI, L, t1, t2), term for term, so a
 field-dressed F rebuilds HBAR with no object mutation.  `cchbar(ccwfn)`
 exposes the blocks as attributes, and keeps the pre-laid ladder operand
 the left ('ijef,efab') form of the K1 ladder needs (`HBar.Hvvvv_efab`).
+For storage='df' the HBAR is models/dfhbar.build_hbar_df's, over the
+Cholesky factors.
 """
 
 import dataclasses
@@ -18,6 +20,10 @@ from .utils.log import logger as log
 
 BLOCKS = ("Hov", "Hvv", "Hoo", "Hoooo", "Hvvvv", "Hvovv", "Hooov", "Hovvo",
           "Hovov", "Hvvvo", "Hovoo")
+# the explicit blocks of the DF-HBAR: Hvvvv, Hvovv and Hvvvo stay implicit
+# in the dressed factors
+DF_BLOCKS = ("Hov", "Hvv", "Hoo", "Hoooo", "Hooov", "Hovvo", "Hovov",
+             "Hovoo")
 
 
 @dataclasses.dataclass(eq=False)
@@ -174,17 +180,17 @@ def build_hbar(model, F, ERI, L, t1, t2, no):
 
 
 class cchbar:
-    """cchbar(ccwfn): the 11 HBAR blocks of a converged storage='full'
-    ccwfn as attributes, built on its device (`ccwfn.timers` keeps
-    'hbar.build'), and `Hvvvv_efab`, the left ladder's operand, made once
-    on first use."""
+    """cchbar(ccwfn): the HBAR of a converged ccwfn, built on its device
+    (`ccwfn.timers` keeps 'hbar.build').  storage='full': the 11 blocks as
+    attributes, and `Hvvvv_efab`, the left ladder's operand, made once on
+    first use.  storage='df': `self.hbar` is a models/dfhbar.DFHBar (the
+    blocks of at most o^3 v, the factors and their t1 dressings) and its 8
+    explicit blocks are attributes; CCD, CCSD, CCSD(T) and CC3 take the
+    CCSD forms, CC2 its own."""
 
     def __init__(self, ccwfn):
         from .ccwfn import _not_ported
         storage = getattr(ccwfn, "storage", "full")
-        if storage == "df":
-            raise _not_ported("cchbar(storage='df')",
-                              "Queue 1, item 9 (DF post-convergence stack)")
         if storage == "blocked":
             raise _not_ported("cchbar(storage='blocked')",
                               "Queue 1, item 10 (blocked storage and mixed "
@@ -195,10 +201,18 @@ class cchbar:
         t0 = time.time()
         self.ccwfn = ccwfn
         with ccwfn.timers.time("hbar.build"):
-            H = ccwfn.H
-            self.hbar = build_hbar(ccwfn.model, H.F, H.ERI, H.L, ccwfn.t1,
-                                   ccwfn.t2, ccwfn.no)
-        for name in BLOCKS:
+            if storage == "df":
+                from .models.dfhbar import build_hbar_df
+                self.hbar = build_hbar_df(
+                    ccwfn.H.F, ccwfn.dfb, ccwfn.t1, ccwfn.t2, ccwfn.no,
+                    model="CC2" if ccwfn.model == "CC2" else "CCSD")
+                names = DF_BLOCKS
+            else:
+                H = ccwfn.H
+                self.hbar = build_hbar(ccwfn.model, H.F, H.ERI, H.L,
+                                       ccwfn.t1, ccwfn.t2, ccwfn.no)
+                names = BLOCKS
+        for name in names:
             setattr(self, name, getattr(self.hbar, name))
         log.info("\nHBAR constructed in %.3f seconds.\n" % (time.time() - t0))
 

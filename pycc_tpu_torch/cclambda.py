@@ -1,15 +1,18 @@
 """Lambda-amplitude solver: the left-hand eigenvector of HBAR.
 
-The counterpart of pycc_tpu/cclambda.py for storage='full' and the models
-CCD, CC2, CCSD, CCSD(T) and CC3.  The residual is a plain function of
-(hbar, t, l); its Hvvvv ladder ('ijef,efab') runs through K1 on the HBAR's
-pre-laid operand.  `solve_lambda` is the T-amplitude solver's loop: a
-Jacobi step from diag(F), the pseudo-energy of the pre-extrapolation
-update, the on-device DIIS ring from `start_diis`, and one host read per
-iteration.  For CCSD(T) the (T) sources S1/S2 come from
-`triples.t3_lambda_sources`; CC3 adds the T3/L3 terms of models/cc3.py to
-the CCSD form, over the full tensors or one slab at a time
-(`ccwfn.t3_slabs`).
+The counterpart of pycc_tpu/cclambda.py for storage='full' and 'df' and
+the models CCD, CC2, CCSD, CCSD(T) and CC3.  The residual is a plain
+function of (hbar, t, l); its Hvvvv ladder ('ijef,efab') runs through K1,
+on the HBAR's pre-laid operand under full storage, and a block of a at a
+time over the dressed factors under storage='df'
+(models/dfhbar.lambda_residuals_df, pycc_tpu's fused DF
+step).  `solve_lambda` is the T-amplitude solver's loop: a Jacobi step from
+diag(F), the pseudo-energy of the pre-extrapolation update, the on-device
+DIIS ring from `start_diis`, and one host read per iteration.  For CCSD(T)
+the (T) sources S1/S2 come from `triples.t3_lambda_sources`; CC3 adds the
+T3/L3 terms of models/cc3.py to the CCSD form, over the full tensors or
+one slab at a time (`ccwfn.t3_slabs`), over factors always the slab form
+(`cc3.cc3_lambda_extra_scan_df`).
 """
 
 import time
@@ -143,10 +146,6 @@ class cclambda:
     l1 = 2 t1 and l2 = 2 (2 t2 - t2^T) as the start."""
 
     def __init__(self, ccwfn, hbar):
-        from .ccwfn import _not_ported
-        if getattr(ccwfn, "storage", "full") == "df":
-            raise _not_ported("cclambda(storage='df')",
-                              "Queue 1, item 9 (DF post-convergence stack)")
         self.ccwfn = ccwfn
         self.hbar = hbar
         self.l1 = 2.0 * ccwfn.t1
@@ -155,6 +154,11 @@ class cclambda:
     def residuals(self, F, t1, t2, l1, l2):
         """Standalone residuals rebuilding HBAR from F (for RT-CC)."""
         cc = self.ccwfn
+        if getattr(cc, "storage", "full") == "df":
+            from .ccwfn import _not_ported
+            raise _not_ported("cclambda.residuals over factors "
+                              "(lambda_residuals_from_F_df)",
+                              "Queue 1, item 11 (real-time CC)")
         return lambda_residuals_from_F(cc.model, F, cc.H.ERI, cc.H.L,
                                        t1, t2, l1, l2, cc.no)
 
@@ -163,6 +167,42 @@ class cclambda:
         raise _not_ported("cclambda.solve_lambda_mixed",
                           "Queue 1, item 10 (blocked storage and mixed "
                           "precision)")
+
+    def _residual_fn(self, hb, S1, S2):
+        """(residuals(l1, l2) -> (r1, r2), the <oo|vv> integrals of the
+        pseudo-energy) for this ccwfn's storage and model: the DF-HBAR
+        residual over factors (CC3 adding its factor-assembled slab
+        extras) or the dense one (CC3 adding the full or slab extras)."""
+        cc = self.ccwfn
+        H, no, model = cc.H, cc.no, cc.model
+        t1, t2 = cc.t1, cc.t2
+        if getattr(cc, "storage", "full") == "df":
+            from .models.dfccsd import _eri_oovv
+            from .models.dfhbar import lambda_residuals_df
+
+            def residuals(l1, l2):
+                r1, r2 = lambda_residuals_df(hb, t1, t2, l1, l2, no, S1, S2,
+                                             nblocks=getattr(
+                                                 cc, "df_nblocks", None),
+                                             model=model, F=H.F)
+                if model == "CC3":
+                    Y1, Y2 = cc3.cc3_lambda_extra_scan_df(H.F, cc.dfb, t1,
+                                                          t2, l1, l2, no)
+                    r1, r2 = r1 + Y1, r2 + Y2
+                return r1, r2
+            return residuals, _eri_oovv(cc.dfb)
+
+        extra = cc3_extra_fn(cc) if model == "CC3" else None
+
+        def residuals(l1, l2):
+            r1, r2 = lambda_residuals(model, hb, H.F, H.ERI, H.L, t1, t2, l1,
+                                      l2, no, S1, S2)
+            if extra is not None:
+                Y1, Y2 = extra(H.F, H.ERI, H.L, t1, t2, l1, l2, no)
+                r1, r2 = r1 + Y1, r2 + Y2
+            return r1, r2
+        o, v = slices(no)
+        return residuals, H.ERI[o, o, v, v]
 
     def solve_lambda(self, e_conv=1e-7, r_conv=1e-7, maxiter=100, max_diis=8,
                      start_diis=1, stall_limit=10, **kwargs):
@@ -177,15 +217,13 @@ class cclambda:
         no = cc.no
         H = cc.H
         hb = getattr(self.hbar, "hbar", self.hbar)
-        model = cc.model
-        t1, t2 = cc.t1, cc.t2
 
         S1 = getattr(cc, "S1", None)
         S2 = getattr(cc, "S2", None)
-        if model == "CCSD(T)" and S1 is None:
+        if cc.model == "CCSD(T)" and S1 is None:
             from .triples import t3_lambda_sources
             S1, S2 = t3_lambda_sources(cc)
-        extra = cc3_extra_fn(cc) if model == "CC3" else None
+        residuals, eri_oovv = self._residual_fn(hb, S1, S2)
 
         eps = torch.diagonal(H.F).to(self.l1.dtype)
         D1 = eps[:no, None] - eps[None, no:]
@@ -196,7 +234,7 @@ class cclambda:
         state = diis.init() if use_diis else None
 
         l1, l2 = self.l1, self.l2
-        lecc = float(pseudoenergy(H.ERI, l2, no))
+        lecc = float(0.5 * contract("ijab,ijab->", eri_oovv, l2))
         log.info("\nLCC Iter %3d: LCC PseudoE = %.15f  dE = % .5E"
                  % (0, lecc, -lecc))
         rms = float("inf")
@@ -206,19 +244,14 @@ class cclambda:
         for niter in range(1, maxiter + 1):
             with cc.timers.time("lambda.iteration"):
                 lecc_last = lecc
-                r1, r2 = lambda_residuals(model, hb, H.F, H.ERI, H.L, t1, t2,
-                                          l1, l2, no, S1, S2)
-                if extra is not None:
-                    Y1, Y2 = extra(H.F, H.ERI, H.L, t1, t2, l1, l2, no)
-                    r1 = r1 + Y1
-                    r2 = r2 + Y2
+                r1, r2 = residuals(l1, l2)
                 inc1 = r1 / D1
                 inc2 = r2 / D2
                 l1n = l1 + inc1
                 l2n = l2 + inc2
                 rms_t = torch.sqrt(torch.sum(inc1 * inc1)
                                    + torch.sum(inc2 * inc2))
-                lecc_t = pseudoenergy(H.ERI, l2n, no)
+                lecc_t = 0.5 * contract("ijab,ijab->", eri_oovv, l2n)
                 if use_diis:
                     diis.push(state, (l1n, l2n), (l1, l2))
                     if niter >= start_diis:

@@ -1,12 +1,15 @@
 """CC linear response: dynamic polarizabilities and pseudoresponses.
 
-The counterpart of pycc_tpu/ccresponse.py for storage='full': the
-similarity-transformed perturbations (`pertbar`), the perturbed-amplitude
-residuals `r_X` (right, X) and `r_Y` (left, Y) with the left
-inhomogeneous terms `in_Y1`/`in_Y2`, term for term as plain functions on
-tensors, and the `ccresponse` driver with its Jacobi + DIIS solvers
-(`solve_right`, `solve_left`; one host read an iteration), the
-conditioning probe and the asymmetric linear-response function.
+The counterpart of pycc_tpu/ccresponse.py for storage='full' and 'df':
+the similarity-transformed perturbations (`pertbar`), the
+perturbed-amplitude residuals `r_X` (right, X) and `r_Y` (left, Y) with
+the left inhomogeneous terms `in_Y1`/`in_Y2`, term for term as plain
+functions on tensors, and the `ccresponse` class with its Jacobi + DIIS
+solvers (`solve_right`, `solve_left`; one host read an iteration), the
+conditioning probe and the asymmetric linear-response function.  Over DF
+factors the residuals are models/dfresponse.py's (`rX_df`, `inY1_df`,
+`inY2_df`, `rY_df`) on the DF-HBAR, the pertbars hold no o v^3 Avvvo, and
+no o^2 v^2 denominator stays resident.
 
 The magnetic-dipole and momentum perturbations (M, M*, P, P*) are
 complex128, so their X and Y are complex while HBAR is real: `contract`
@@ -35,7 +38,9 @@ CART = ["X", "Y", "Z"]
 class pertbar:
     """Similarity-transformed one-electron perturbation blocks of `pert`
     (nact, nact) over the amplitudes of `ccwfn`.  `pert` is not changed:
-    Avo starts from a copy of its (v, o) block."""
+    Avo starts from a copy of its (v, o) block.  Under storage='df' the
+    o v^3 Avvvo block is not formed: its two consumers (in_Y1 and
+    linresp_asym) reduce it to o^2 intermediates against Aov."""
 
     def __init__(self, pert, ccwfn):
         o, v = ccwfn.o, ccwfn.v
@@ -50,7 +55,8 @@ class pertbar:
         Avo -= contract("ie,ma,me->ai", t1, t1, pert[o, v])
         self.Avo = Avo
         self.Aovoo = contract("ijeb,me->mbij", t2, pert[o, v])
-        self.Avvvo = -1.0 * contract("miab,me->abei", t2, pert[o, v])
+        if getattr(ccwfn, "storage", "full") != "df":
+            self.Avvvo = -1.0 * contract("miab,me->abei", t2, pert[o, v])
         Avvoo = contract("ijeb,ae->ijab", t2, self.Avv)
         Avvoo -= contract("mjab,mi->ijab", t2, self.Aoo)
         self.Avvoo = 0.5 * (Avvoo + Avvoo.permute(1, 0, 3, 2))
@@ -277,19 +283,16 @@ def r_Y(hb, L, t2, imY1, imY2, omega, Y1, Y2, no, aux, ladder=vvvv_nt):
 
 
 class ccresponse:
-    """RHF-CC response properties of a storage='full' ccdensity (any object
-    with `.ccwfn` and `.cclambda`), on the ccwfn's device.  `pertbar`
-    holds the similarity-transformed perturbations by key: MU_X..Z, M_*,
-    M*_*, P_*, P*_* and Q_XX..ZZ, for each operator the Hamiltonian
-    carries."""
+    """RHF-CC response properties of a storage='full' or 'df' ccdensity
+    (any object with `.ccwfn` and `.cclambda`), on the ccwfn's device.
+    `pertbar` holds the similarity-transformed perturbations by key:
+    MU_X..Z, M_*, M*_*, P_*, P*_* and Q_XX..ZZ, for each operator the
+    Hamiltonian carries."""
 
     def __init__(self, ccdensity):
         self.ccwfn = ccdensity.ccwfn
         self.cclambda = ccdensity.cclambda
-        if getattr(self.ccwfn, "storage", "full") == "df":
-            from .ccwfn import _not_ported
-            raise _not_ported("ccresponse(storage='df')",
-                              "Queue 1, item 9 (DF post-convergence stack)")
+        self._df = getattr(self.ccwfn, "storage", "full") == "df"
         self.cart = CART
         self._rebuild_stage()
 
@@ -317,22 +320,84 @@ class ccresponse:
                 self.pertbar["Q_" + CART[a2] + CART[a1]] = pertbar(op, cc)
 
         hb = self._hb()
-        self._aux = build_response_aux(hb)
-        eps_occ = torch.diagonal(hb.Hoo)
-        eps_vir = torch.diagonal(hb.Hvv)
+        if self._df:
+            # no dense Hvovv/Hvvvo/Hvvvv exist, so no pre-laid combinations;
+            # L and <oo|vv> are assembled from the factors once
+            from .models.dfccsd import _eri_oovv
+            from .models.dfhbar import loovv_df
+            self._aux = None
+            self._Loovv = loovv_df(hb.df)
+            self._Eoovv = _eri_oovv(hb.df)
+        else:
+            self._aux = build_response_aux(hb)
+        self._eps_occ = torch.diagonal(hb.Hoo)
+        self._eps_vir = torch.diagonal(hb.Hvv)
         self._cond_cache = {}
-        self.Dia = eps_occ[:, None] - eps_vir[None, :]
-        self.Dijab = (eps_occ[:, None, None, None]
-                      + eps_occ[None, :, None, None]
-                      - eps_vir[None, None, :, None]
-                      - eps_vir[None, None, None, :])
+        self.Dia = self._eps_occ[:, None] - self._eps_vir[None, :]
+
+    @property
+    def Dijab(self):
+        """The HBAR-diagonal doubles denominators, made when asked for:
+        no o^2 v^2 tensor stays resident between solves."""
+        eo, ev = self._eps_occ, self._eps_vir
+        return (eo[:, None, None, None] + eo[None, :, None, None]
+                - ev[None, None, :, None] - ev[None, None, None, :])
 
     def _hb(self):
         return getattr(self.hbar, "hbar", self.hbar)
 
     def _Adict(self, A):
-        return {"Aov": A.Aov, "Aoo": A.Aoo, "Avv": A.Avv, "Avo": A.Avo,
-                "Aovoo": A.Aovoo, "Avvoo": A.Avvoo, "Avvvo": A.Avvvo}
+        d = {"Aov": A.Aov, "Aoo": A.Aoo, "Avv": A.Avv, "Avo": A.Avo,
+             "Aovoo": A.Aovoo, "Avvoo": A.Avvoo}
+        if hasattr(A, "Avvvo"):
+            d["Avvvo"] = A.Avvvo
+        return d
+
+    # ------------------------------------------------------------------
+    # the residuals of this response object's storage
+    def _r_X(self, Ad, omega, X1, X2, ladder=vvvv_nt):
+        """r_X (full storage) or rX_df (DF) at the ccwfn's amplitudes."""
+        cc = self.ccwfn
+        if self._df:
+            from .models.dfresponse import rX_df
+            return rX_df(self._hb(), self._Loovv, cc.t1, cc.t2, Ad, omega,
+                         X1, X2, cc.no,
+                         nblocks=getattr(cc, "df_nblocks", None),
+                         ladder=ladder)
+        return r_X(self._hb(), cc.H.L, cc.t2, Ad, omega, X1, X2, cc.no,
+                   self._aux, ladder=ladder)
+
+    def _in_Y(self, A, X1, X2, ladder=vvvv_nt):
+        """The left inhomogeneous terms (imY1, imY2) of pertbar A over the
+        right amplitudes X; `ladder` runs in_Y1's Hvvvv pair (full
+        storage) or inY2_df's X1-dressed ladder (DF)."""
+        cc = self.ccwfn
+        hb, no = self._hb(), cc.no
+        l1, l2 = self.cclambda.l1, self.cclambda.l2
+        Ad = self._Adict(A)
+        if self._df:
+            from .models.dfresponse import inY1_df, inY2_df
+            args = (hb, self._Loovv, self._Eoovv, cc.t1, cc.t2, l1, l2, Ad)
+            return (inY1_df(*args, A.Aov, X1, X2, no),
+                    inY2_df(*args, X1, X2, no,
+                            nblocks=getattr(cc, "df_nblocks", None),
+                            ladder=ladder))
+        return (in_Y1(hb, cc.H.L, cc.t2, l1, l2, Ad, X1, X2, no, self._aux,
+                      ladder=ladder),
+                in_Y2(hb, cc.H.L, cc.H.ERI, cc.t2, l1, l2, Ad, X1, X2, no,
+                      self._aux))
+
+    def _r_Y(self, imY1, imY2, omega, Y1, Y2, ladder=vvvv_nt):
+        """r_Y (full storage) or rY_df (DF) at the ccwfn's amplitudes."""
+        cc = self.ccwfn
+        if self._df:
+            from .models.dfresponse import rY_df
+            return rY_df(self._hb(), self._Loovv, cc.t1, cc.t2, imY1, imY2,
+                         omega, Y1, Y2, cc.no,
+                         nblocks=getattr(cc, "df_nblocks", None),
+                         ladder=ladder)
+        return r_Y(self._hb(), cc.H.L, cc.t2, imY1, imY2, omega, Y1, Y2,
+                   cc.no, self._aux, ladder=ladder)
 
     def pseudoresponse(self, A, X1, X2):
         polar1 = 2.0 * contract("ai,ia->", torch.conj(A.Avo), X1)
@@ -359,7 +424,6 @@ class ccresponse:
         hit = self._cond_cache.get(key)
         if hit is not None:
             return hit
-        hb = self._hb()
         rng = np.random.default_rng(seed)
         g1 = rng.standard_normal((no, nv))
         g2 = rng.standard_normal((no, no, nv, nv))
@@ -377,7 +441,7 @@ class ccresponse:
         z1, z2 = torch.zeros_like(g1), torch.zeros_like(g2)
         maxn = torch.zeros((), dtype=dt, device=dev)
         for _ in range(niter):
-            m1, m2 = r_X(hb, cc.H.L, t2, zeroA, omega, z1, z2, no, self._aux)
+            m1, m2 = self._r_X(zeroA, omega, z1, z2)
             z1n = z1 + (g1 + m1) / d1
             z2n = z2 + (g2 + m2) / d2
             diis.push(state, (z1n, z2n), (z1, z2))
@@ -501,8 +565,6 @@ class ccresponse:
         """The right-hand perturbed amplitudes X of pertbar A at omega:
         (HBAR - omega) X = -A.  Returns (X1, X2, pseudoresponse); X1, X2
         also stay on the object for solve_left."""
-        cc = self.ccwfn
-        hb = self._hb()
         Ad = self._Adict(A)
         if X1_init is not None:
             start = self._warm(X1_init, X2_init)
@@ -511,8 +573,7 @@ class ccresponse:
                      A.Avvoo / (self.Dijab + omega))
 
         def residual(X1, X2):
-            return r_X(hb, cc.H.L, cc.t2, Ad, omega, X1, X2, cc.no,
-                       self._aux)
+            return self._r_X(Ad, omega, X1, X2)
 
         X1, X2, pseudo = self._iterate(
             "right", A, omega, start, residual, e_conv, r_conv, maxiter,
@@ -526,26 +587,16 @@ class ccresponse:
         """The left-hand perturbed amplitudes Y of pertbar A at omega, over
         the X of the last solve_right.  Returns (Y1, Y2,
         pseudoresponse)."""
-        cc = self.ccwfn
-        hb = self._hb()
-        no = cc.no
-        l1, l2 = self.cclambda.l1, self.cclambda.l2
-        Ad = self._Adict(A)
         if Y1_init is not None:
             start = self._warm(Y1_init, Y2_init)
         else:
             X1g = A.Avo.T / (self.Dia + omega)
             X2g = A.Avvoo / (self.Dijab + omega)
             start = (2.0 * X1g, 4.0 * X2g - 2.0 * X2g.swapaxes(2, 3))
-        L, ERI = cc.H.L, cc.H.ERI
-        imY1 = in_Y1(hb, L, cc.t2, l1, l2, Ad, self.X1, self.X2, no,
-                     self._aux)
-        imY2 = in_Y2(hb, L, ERI, cc.t2, l1, l2, Ad, self.X1, self.X2, no,
-                     self._aux)
+        imY1, imY2 = self._in_Y(A, self.X1, self.X2)
 
         def residual(Y1, Y2):
-            return r_Y(hb, L, cc.t2, imY1, imY2, omega, Y1, Y2, no,
-                       self._aux)
+            return self._r_Y(imY1, imY2, omega, Y1, Y2)
 
         Y1, Y2, pseudo = self._iterate(
             "left", A, omega, start, residual, e_conv, r_conv, maxiter,
@@ -583,7 +634,13 @@ class ccresponse:
         tmp = contract("ia,jb->ijab", l1, A.Aov)
         polar2 += 2.0 * contract("ijab,ijab->", tmp, X2_B)
         polar2 -= contract("ijab,ijba->", tmp, X2_B)
-        tmp = contract("ijbc,bcaj->ia", l2, A.Avvvo)
+        if self._df:
+            # 'ijbc,bcaj->ia' over Avvvo[bcaj] = -t2[mjbc] pert[ma],
+            # through an o^2 intermediate (the o v^3 block is not formed)
+            G = contract("ijbc,mjbc->im", l2, self.ccwfn.t2)
+            tmp = -1.0 * contract("im,ma->ia", G, A.Aov)
+        else:
+            tmp = contract("ijbc,bcaj->ia", l2, A.Avvvo)
         polar2 += contract("ia,ia->", tmp, X1_B)
         tmp = contract("ijab,kbij->ak", l2, A.Aovoo)
         polar2 -= 0.5 * contract("ak,ka->", tmp, X1_B)

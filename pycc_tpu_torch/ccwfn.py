@@ -12,11 +12,11 @@ CCSD(T) the converged CCSD amplitudes then feed the (T) energy
 (`triples.t_vikings_scan`, through K2), or with make_t3_density=True the
 (T) density (`ccwfn.t3_density`, which also leaves the Lambda sources and
 density blocks for cclambda/ccdensity; t3_scan=True/False forces its slab
-scan or its full-tensor form).  CC3 adds the T3 terms to the CCSD
-residual (models/cc3.py): over the full T3 tensor while o^3 v^3 is at most
-2e8 elements, else one (i, j) slab at a time; t3_scan=True/False forces
-the slab or the full-tensor form here too, and storage='df' always takes
-the slab form.
+scan or its full-tensor form; over DF factors always the scan).  CC3
+adds the T3 terms to the CCSD residual (models/cc3.py): over the full T3
+tensor while o^3 v^3 is at most 2e8 elements, else one (i, j) slab at a
+time; t3_scan=True/False forces the slab or the full-tensor form here
+too, and storage='df' always takes the slab form.
 
 storage='df' replaces the nact^4 ERI and L by three-index Cholesky
 factors (`self.dfb`) and evaluates the residuals from them
@@ -108,8 +108,11 @@ def _reject(kwargs, table, where):
 
 def t3_slabs(cc):
     """Whether cc's triples (CC3's T3/L3, the (T) density) run one slab at
-    a time: past o^3 v^3 = T3_FULL_MAX elements, unless cc.t3_scan
+    a time: always over DF factors (the full-tensor forms read the dense
+    ERI), else past o^3 v^3 = T3_FULL_MAX elements, unless cc.t3_scan
     (True/False) forces the slab or the full-tensor form."""
+    if getattr(cc, "storage", "full") == "df":
+        return True
     scan = getattr(cc, "t3_scan", None)
     if scan is None:
         return cc.no ** 3 * cc.nv ** 3 > T3_FULL_MAX
@@ -153,9 +156,6 @@ class ccwfn:
             raise ValueError("%s is not an allowed storage mode." % storage)
         precision = _check_precision(precision)
         _reject(kwargs, _NOT_PORTED_INIT_KWARGS, "ccwfn")
-        if storage == "df" and make_t3_density:
-            raise _not_ported("ccwfn(storage='df', make_t3_density=True)",
-                              "Queue 1, item 9 (DF post-convergence stack)")
 
         self.model = model
         self.make_t3_density = bool(make_t3_density)
@@ -417,8 +417,8 @@ class ccwfn:
     def t3_density(self):
         """E(T) with the (T) density blocks and Lambda sources, which stay
         on this object for cclambda and ccdensity (`triples.t3_density`,
-        or the slab scan `t3_density_scan` past o^3 v^3 = 2e8 or when
-        t3_scan=True)."""
+        or the slab scan `t3_density_scan` past o^3 v^3 = 2e8, when
+        t3_scan=True, and over DF factors)."""
         return triples.t3_density_energy(self)
 
     def _report(self, ecc):

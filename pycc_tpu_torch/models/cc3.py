@@ -1,8 +1,8 @@
 """CC3: the iterative approximate-triples model.
 
-The counterpart of pycc_tpu/models/cc3.py for storage='full' (energy,
-Lambda and the one-electron density) and for the energy over Cholesky/DF
-factors.  Each function keeps the name of its counterpart and its terms.
+The counterpart of pycc_tpu/models/cc3.py for storage='full' and over
+Cholesky/DF factors (energy, Lambda and the one-electron density).  Each
+function keeps the name of its counterpart and its terms.
 
 Two forms of every triples contribution:
 
@@ -10,7 +10,9 @@ Two forms of every triples contribution:
   `cc3_onepdm`) hold the whole o^3 v^3 T3 and L3, for small systems and
   tests;
 - the slab forms (`residuals_cc3_scan`, `cc3_lambda_extra_scan`,
-  `cc3_onepdm_scan`, `residuals_cc3_scan_df`) are a Python loop over the
+  `cc3_onepdm_scan`, `residuals_cc3_scan_df`, `cc3_lambda_extra_scan_df`;
+  over factors the W's come from `cc3_intermediates_df` and
+  `cc3_lambda_intermediates_df`) are a Python loop over the
   occupied rows, each row a loop over (i, j) pair slabs (k, a, b, c) of
   o v^3 elements.  They are pycc_tpu's row bodies (`_cc3_row_xs`,
   `_cc3_lambda_row_t3`, `_cc3_lambda_row_l3`, `_cc3_onepdm_row`); past
@@ -155,6 +157,35 @@ def cc3_lambda_intermediates(ERI, t1, no):
     del tmp
     Wabef = Wabef + contract("mnef,ma,nb->abef", ERI[o, o, v, v], t1, t1)
     return Wmbje, Wmbej, Wabef
+
+
+def cc3_lambda_intermediates_df(dfb, t1, no):
+    """`cc3_lambda_intermediates` from factors.  Wmbje/Wmbej are pure
+    t1-dressed integrals (rank-1 factor assemblies); Wabef is exactly the
+    dressed bilinear sum_P Bd_ae[P,a,e] Bd_ae[P,b,f] (the t1.t1 bilinear
+    of the dense form is the product of the two dressings), so the v^4
+    tensor stays implicit: the third output is Bd_ae, and its one consumer
+    contracts against it (`_wvvvv_y1`)."""
+    Boo, Bov, Bvv = dfb.Boo, dfb.Bov, dfb.Bvv
+    Bvo = Bov.transpose(1, 2)
+    Dmi = contract("Pmf,if->Pmi", Bov, t1)
+    Cbi = contract("Pbf,if->Pbi", Bvv, t1)
+    Sae = contract("ma,Pme->Pae", t1, Bov)
+    Bd_ae = Bvv - Sae
+
+    # Wmbje[mbje] = <mb|je> + t1[jf]<mb|fe> - t1[nb]<mn|je> - bilinear
+    #   <mb|je> = (mj|be); t1[jf]<mb|fe> = t1[jf](mf|be) -> Dmi.Bvv;
+    #   t1[nb]<mn|je> = t1[nb](mj|ne) and the bilinear both dress the
+    #   (b,e) factor with -t1[nb]Bov[P,n,e], which is Bd_ae
+    Wmbje = contract("Pmj,Pbe->mbje", Boo + Dmi, Bd_ae)
+
+    # Wmbej[mbej] = <mb|ej> + t1[jf]<mb|ef> - t1[nb]<mn|ej> - bilinear
+    #   <mb|ej> = (me|bj); t1[jf]<mb|ef> = t1[jf](me|bf) -> Bov.Cbi;
+    #   t1[nb]<mn|ej> = t1[nb](me|nj) -> Bov.(Boo-dressed);
+    #   bilinear: t1[jf]t1[nb](me|nf) -> Bov.(Dmi-dressed)
+    Fbj = contract("nb,Pnj->Pbj", t1, Boo + Dmi)
+    Wmbej = contract("Pme,Pbj->mbej", Bov, Bvo + Cbi - Fbj)
+    return Wmbje, Wmbej, Bd_ae
 
 
 # ---------------------------------------------------------------------------
@@ -694,6 +725,37 @@ def cc3_lambda_prep(F, ERI, L, t1, t2, no, real_time=False, F_ref=None):
             _Vov(F, F_ref, no, real_time))
 
 
+def cc3_lambda_prep_df(F, dfb, t1, t2, no, real_time=False, F_ref=None):
+    """`cc3_lambda_prep` from factors: the W's of `cc3_intermediates_df`
+    (slab layout) and `cc3_lambda_intermediates_df`, with Bd_ae in the
+    Wvvvv slot (the implicit dressed-bilinear form) instead of the v^4
+    tensor, and L and <oo|vv> assembled from the factors."""
+    from .dfccsd import _eri_oovv
+
+    o, v = slices(no)
+    F_ref = F if F_ref is None else F_ref
+    e = _eri_oovv(dfb)
+    Lo = 2.0 * e - e.swapaxes(2, 3)
+    Fov = F[o, v] + contract("nf,mnef->me", t1, Lo)
+    Wmnij, Wmbij_t, Wmnie, Wamef, Wabei_o = cc3_intermediates_df(
+        dfb, t1, no, scan_layout=True)
+    Wovov, Wovvo, Bd_ae = cc3_lambda_intermediates_df(dfb, t1, no)
+    return (Fov, Wmnij, Wmnie.contiguous(), Wamef.contiguous(), Wabei_o,
+            Wmbij_t, Wovov, Wovvo, Bd_ae, F.diagonal(), Lo.contiguous(),
+            e.contiguous(), _Vov(F, F_ref, no, real_time))
+
+
+def _wvvvv_y1(Zbide, Wvvvv):
+    """'bide,deab->ia' of the Lambda-CC3 Y1: against the v^4 Wvvvv of
+    `cc3_lambda_prep`, or, when the slot holds the dressed factor Bd_ae
+    (naux, v, v) of `cc3_lambda_prep_df`, against the implicit
+    Wvvvv[deab] = sum_P Bd[P,d,a] Bd[P,e,b]."""
+    if Wvvvv.dim() == 3:
+        K = contract("bide,Peb->Pid", Zbide, Wvvvv)
+        return contract("Pid,Pda->ia", K, Wvvvv)
+    return contract("bide,deab->ia", Zbide, Wvvvv)
+
+
 def _cc3_lambda_row_t3(l, carry, Wabei_o, Wmbij_t, t2, l2, eps, Lo, Eo,
                        Vov, no, real_time):
     """The t3-side Z accumulations for leading index l (a loop over m),
@@ -830,7 +892,8 @@ def _cc3_lambda_t3_rows(prep, t2, l2, no, real_time):
 def _cc3_lambda_l3_rows(prep, t2, l1, l2, no):
     """The l3 side of the slab-form extras: every leading row through
     `_cc3_lambda_row_l3` (k-chunked past no v^3 = 2^27), then its Y1
-    and the Y2 before its pair symmetrisation."""
+    and the Y2 before its pair symmetrisation; prep is
+    `cc3_lambda_prep`'s or `cc3_lambda_prep_df`'s."""
     (Fov, Wmnij, Wmnie, Wamef, Wabei_o, Wmbij_t, Wovov, Wovvo, Wvvvv,
      eps, Lo, Eo, Vov) = prep
     nv = t2.shape[2]
@@ -851,7 +914,7 @@ def _cc3_lambda_l3_rows(prep, t2, l1, l2, no):
         for k in range(no):
             _cc3_lambda_row_l3(k, carry, *args)
     Zbide, Zblad1, Zblad2, Zjlma, Zjlid1, Zjlid2, Y2 = carry
-    Y1 = contract("bide,deab->ia", Zbide, Wvvvv)
+    Y1 = _wvvvv_y1(Zbide, Wvvvv)
     Y1 += contract("jlma,ijlm->ia", Zjlma, Wmnij)
     Y1 -= contract("jlid,jdla->ia", Zjlid1, Wovov)
     Y1 -= contract("jlid,jdal->ia", Zjlid2, Wovvo)
@@ -866,6 +929,19 @@ def cc3_lambda_extra_scan(F, ERI, L, t1, t2, l1, l2, no, real_time=False,
     sides one (i, j) slab at a time."""
     prep = cc3_lambda_prep(F, ERI, L, t1, t2, no, real_time=real_time,
                            F_ref=F_ref)
+    Y1 = _cc3_lambda_t3_rows(prep, t2, l2, no, real_time)
+    Y1l, Y2 = _cc3_lambda_l3_rows(prep, t2, l1, l2, no)
+    return Y1 + Y1l, Y2 + Y2.permute(1, 0, 3, 2)
+
+
+def cc3_lambda_extra_scan_df(F, dfb, t1, t2, l1, l2, no, real_time=False,
+                             F_ref=None):
+    """`cc3_lambda_extra_scan` over Cholesky/DF factors: the prep from the
+    factors (`cc3_lambda_prep_df`), the same t3 and l3 slab rows, and the
+    one v^4 consumer (the Y1 Wvvvv term) against the dressed bilinear
+    factors; equal to the dense extras given exact factors."""
+    prep = cc3_lambda_prep_df(F, dfb, t1, t2, no, real_time=real_time,
+                              F_ref=F_ref)
     Y1 = _cc3_lambda_t3_rows(prep, t2, l2, no, real_time)
     Y1l, Y2 = _cc3_lambda_l3_rows(prep, t2, l1, l2, no)
     return Y1 + Y1l, Y2 + Y2.permute(1, 0, 3, 2)
@@ -917,20 +993,27 @@ def _cc3_onepdm_row(i, carry, Wabei_o, Wmbij_t, t2, l1, l2, Fov, Wamef,
 
 def cc3_onepdm_scan(cc, t1, t2, l1, l2, real_time=False):
     """`cc3_onepdm` with O(o v^3) triples memory: one (i, j) t3 and l3
-    slab pair at a time (`_cc3_onepdm_row`)."""
+    slab pair at a time (`_cc3_onepdm_row`); under storage='df' the W's
+    come from the factors (`cc3_lambda_prep_df`)."""
     no, nv = cc.no, cc.nv
     o, v = slices(no)
-    F, ERI, L = cc.H.F, cc.H.ERI, cc.H.L
+    F = cc.H.F
     if t1.is_complex():
         F = F.to(t1.dtype)
-    Fov = build_Fme(F, L, t1, no)
-    _, Wmbij, Wmnie, Wamef, Wabei = cc3_intermediates(ERI, t1, no)
-    Wabei_o, Wmbij_t = slab_layouts(Wabei, Wmbij)
-    Wamef, Wmnie = Wamef.contiguous(), Wmnie.contiguous()
-    del Wabei, Wmbij
-    eps = F.diagonal()
-    Lo = L[o, o, v, v].contiguous()
-    Vov = _Vov(F, cc.H.F, no, real_time)
+    if getattr(cc, "storage", "full") == "df":
+        (Fov, _, Wmnie, Wamef, Wabei_o, Wmbij_t, _, _, _, eps, Lo, _,
+         Vov) = cc3_lambda_prep_df(F, cc.dfb, t1, t2, no,
+                                   real_time=real_time, F_ref=cc.H.F)
+    else:
+        ERI, L = cc.H.ERI, cc.H.L
+        Fov = build_Fme(F, L, t1, no)
+        _, Wmbij, Wmnie, Wamef, Wabei = cc3_intermediates(ERI, t1, no)
+        Wabei_o, Wmbij_t = slab_layouts(Wabei, Wmbij)
+        Wamef, Wmnie = Wamef.contiguous(), Wmnie.contiguous()
+        del Wabei, Wmbij
+        eps = F.diagonal()
+        Lo = L[o, o, v, v].contiguous()
+        Vov = _Vov(F, cc.H.F, no, real_time)
     kc = _t_df_kc(no, nv, _PDM_CHUNK_ELEMS)
     z = dict(dtype=t1.dtype, device=t1.device)
     carry = (torch.zeros((no, nv), **z), torch.zeros((no, no, nv, no), **z),

@@ -23,7 +23,8 @@ split into occ/vir blocks Boo/Bov/Bvv (ops/cholesky.py builds B).
 
   evaluated in a-blocks: per block a (blk*v, naux) x (naux, v^2) assembly
   product (torch.matmul) makes W, and the (o^2, v^2) x (blk*v, v^2)^T
-  application product runs through the K1 kernel (`vvvv_nt`).
+  application product runs through the K1 kernel (`vvvv_nt`), both in
+  `dfhbar.ladder_apply`.
 
 pycc_tpu's other residual forms (the seven-program split, the f64 scan
 residual, the grid ladder) fit the TPU's 15.75 GB of HBM and its emulated
@@ -35,7 +36,6 @@ from typing import NamedTuple
 import torch
 
 from ..ops.contract import contract
-from ..ops.kernels.vvvv import vvvv_nt
 
 
 class DFERI(NamedTuple):
@@ -181,40 +181,29 @@ def _ladder_blocks(nv, naux, max_elems=LADDER_MAX_ELEMS):
     return nblk
 
 
-def ladder_W(BL_blk, Bvv):
-    """One a-block of the dressed ladder integrals as K1's B operand:
-    W[a,b,e,f] = sum_P BL[P,a,e] Bvv[P,b,f] for the block's a, as a
-    contiguous (blk*v, v^2) matrix with k = (e, f) along its rows.  The
-    assembly is one (blk*v, naux) @ (naux, v^2) product, (a e, b f); the
-    (a, b, e, f) copy puts (e, f) last."""
-    naux, blk, nv = BL_blk.shape
-    W = BL_blk.reshape(naux, blk * nv).T @ Bvv.reshape(naux, nv * nv)
-    return W.view(blk, nv, nv, nv).transpose(1, 2).reshape(blk * nv, nv * nv)
+def ladder_W(BL_blk, BR):
+    """One a-block of the ladder integrals as K1's B operand:
+    W[a,b,e,f] = sum_P BL[P,a,e] BR[P,b,f] for the block's a, as a
+    contiguous (blk*nb, ne*nf) matrix with k = (e, f) along its rows.  The
+    assembly is one (blk*ne, naux) @ (naux, nb*nf) product, (a e, b f);
+    the (a, b, e, f) copy puts (e, f) last."""
+    naux, blk, ne = BL_blk.shape
+    nb, nf = BR.shape[1], BR.shape[2]
+    W = BL_blk.reshape(naux, blk * ne).T @ BR.reshape(naux, nb * nf)
+    return W.view(blk, ne, nb, nf).transpose(1, 2).reshape(blk * nb,
+                                                           ne * nf)
 
 
 def ladder_df(df, t1, t2, nblocks=None):
     """sum_ef tau[ijef] * W[abef] with
     W[abef] = sum_P (0.5 B[Pae] - sum_m t1[ma] B[Pme]) B[Pbf]:
     the vvvv ladder and the dense equations' `- t1*Zmbij` term in one
-    dressed contraction, assembled in a-blocks (peak blk*v^3, never v^4;
-    nblocks=None takes `_ladder_blocks`).  Each block's application
-    product is one K1 launch (`vvvv_nt`: the CUDA kernel on CUDA tensors,
-    its plain version on CPU tensors); a ragged last block needs no
-    padding."""
-    naux, nv = df.Bvv.shape[0], df.Bvv.shape[2]
-    no = t1.shape[0]
-    tau2 = _tau(t1, t2).reshape(no * no, nv * nv)
+    dressed contraction, assembled in a-blocks by `dfhbar.ladder_apply`
+    (peak blk*v^3, never v^4; nblocks=None takes `_ladder_blocks`), one
+    K1 launch a block."""
+    from .dfhbar import ladder_apply
     BL = 0.5 * df.Bvv - contract("ma,Pme->Pae", t1, df.Bov)
-    if nblocks is None:
-        nblocks = _ladder_blocks(nv, naux)
-    blk = -(-nv // nblocks)
-    z = torch.empty((no, no, nv, nv), dtype=tau2.dtype, device=tau2.device)
-    for a0 in range(0, nv, blk):
-        a1 = min(a0 + blk, nv)
-        W = ladder_W(BL[:, a0:a1], df.Bvv)
-        z[:, :, a0:a1] = vvvv_nt(tau2, W).view(no, no, a1 - a0, nv)
-        del W
-    return z
+    return ladder_apply(BL, df.Bvv, _tau(t1, t2), nblocks=nblocks)
 
 
 # ---------------------------------------------------------------------------

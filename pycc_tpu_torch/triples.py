@@ -16,9 +16,10 @@ The counterpart of pycc_tpu/triples.py for storage='full' and 'df':
   k-chunked over one resident (o, v, v, v) tensor; called explicitly;
 - `t_vikings_inverted` and `t_tjl`: the virtual-driven and the Lee/Rendell
   restricted-triples (T), two oracles with other reduction orders;
-- the (T) density of CCSD(T) (storage='full'): `t3_density` over the full
-  T3 tensor and `t3_density_scan`, one pass per (i, j) slab pair; both
-  leave the Lambda sources S1/S2 and the density blocks on the ccwfn
+- the (T) density of CCSD(T): `t3_density` over the full T3 tensor
+  (storage='full') and `t3_density_scan`, one pass per (i, j) slab pair,
+  on slices cut from the ERI or assembled from DF factors; both leave the
+  Lambda sources S1/S2 and the density blocks on the ccwfn
   (`t3_density_energy` picks one, `t3_lambda_sources` reads them).
 
 Eager torch materialises each slab once, so the optimization barriers of
@@ -237,13 +238,17 @@ def _X3_o(M):
 
 
 def _require_full(cc, what):
-    """The (T) density reads the full ERI: other storage names its item."""
+    """The full-tensor (T) density reads the full ERI: DF factors take the
+    slab scan, blocked storage names its item."""
     storage = getattr(cc, "storage", "full")
+    if storage == "df":
+        raise ValueError("%s reads the full ERI; over DF factors the (T) "
+                         "density is t3_density_scan" % what)
     if storage != "full":
         from .ccwfn import _not_ported
-        item = {"df": "Queue 1, item 9 (DF post-convergence stack)"}.get(
-            storage, "Queue 1, item 10 (blocked storage and mixed precision)")
-        raise _not_ported("%s(storage=%r)" % (what, storage), item)
+        raise _not_ported("%s(storage=%r)" % (what, storage),
+                          "Queue 1, item 10 (blocked storage and mixed "
+                          "precision)")
 
 
 def _keep_t3_density(cc, Doo, Dvv, Dov, Goovv, Gooov, Gvvvo, S1, S2):
@@ -605,21 +610,29 @@ def _t3d_slab_ij(i, j, t1, t2, Eoovv, Fov, eps_o, eps_v):
 
 
 def density_slices(cc):
-    """The integral slices the (T)-density scan consumes, cut once from
-    the full ERI/L as contiguous tensors on cc's device: (Wvvvo_o,
-    Wovoo_t, Evovv, Eooov, Eoovv, Loovv, Fov, eps)."""
+    """The integral slices the (T)-density scan consumes, as contiguous
+    tensors on cc's device: (Wvvvo_o, Wovoo_t, Evovv, Eooov, Eoovv, Loovv,
+    Fov, eps), cut once from the full ERI/L or, under storage='df',
+    assembled from the factors (`t_scan_df_slices` and <oo|vv>)."""
     o, v = _slices(cc.no)
-    Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps = scan_slices(cc)
-    return (Wvvvo_o, Wovoo_t, Evovv, Eooov,
-            cc.H.ERI[o, o, v, v].contiguous(), Loovv, Fov, eps)
+    if getattr(cc, "storage", "full") == "df":
+        Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps = t_scan_df_slices(
+            cc.H.F, *cc.dfb, cc.no)
+        Bov = cc.dfb.Bov
+        Eoovv = contract("Pia,Pjb->ijab", Bov, Bov)
+    else:
+        _require_full(cc, "t3_density_scan")
+        Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps = scan_slices(cc)
+        Eoovv = cc.H.ERI[o, o, v, v].contiguous()
+    return (Wvvvo_o, Wovoo_t, Evovv, Eooov, Eoovv, Loovv, Fov, eps)
 
 
 def t3_density_scan(cc):
     """The nine outputs of `t3_density` (kept on the ccwfn the same way)
     with O(o v^3) working memory: one connected and one disconnected slab
     per ordered (i, j) pair feed every accumulation
-    (`t3_density_scan_core`).  Returns E(T) as a 0-d tensor."""
-    _require_full(cc, "t3_density_scan")
+    (`t3_density_scan_core`), on slices cut from the full ERI or
+    assembled from DF factors.  Returns E(T) as a 0-d tensor."""
     ET, Doo, Dvv, Dov, Goovv, Gooov, Gvvvo, S1, S2 = t3_density_scan_core(
         *density_slices(cc), cc.t1, cc.t2, cc.no)
     _keep_t3_density(cc, Doo, Dvv, Dov, Goovv, Gooov, Gvvvo, S1, S2)

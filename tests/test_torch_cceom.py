@@ -165,3 +165,43 @@ def test_eom_ccsd_c2h4_fc_oracle(guess):
     assert eom.converged, guess
     ref = np.array([0.324575036764, 0.328021971344, 0.334479736844])
     assert np.allclose(E, ref, atol=1e-6), (guess, E)
+
+
+def _davidson_on(A, D, no, nv):
+    """A cceom whose sigma is the product with the (dim, dim) matrix A and
+    whose preconditioner is D: the Davidson alone, on a nonsymmetric
+    matrix."""
+    import types
+    from pycc_tpu_torch.utils.timing import Timers
+    eom = object.__new__(teom.cceom)
+    eom.no, eom.nv = no, nv
+    eom.D = torch.tensor(D)
+    eom.ccwfn = types.SimpleNamespace(timers=Timers())
+    At = torch.tensor(A)
+    eom.sigma = lambda C, ladder=None: C @ At.T
+    return eom
+
+
+@pytest.mark.parametrize("seed,coupling,spread,maxM", [
+    (7, 0.05, 0.1, 3), (2, 0.05, 0.3, 4)])
+def test_davidson_collapse_is_no_stall(seed, coupling, spread, maxM):
+    """After a collapse the Ritz pairs are those of the collapsed
+    subspace, so that iteration's dE = 0 and its unchanged residuals are
+    no noise-floor stall: with a subspace small enough to collapse every
+    other iteration, a slowly converging root must reach r_conv, not stop
+    'converged' at a residual norm far above it (c8aca2a stopped these
+    at 3.6e-2 and 2.0e-5)."""
+    no, nv = 2, 3
+    n = no * nv + (no * nv) ** 2
+    rng = np.random.default_rng(seed)
+    A = (np.diag(np.linspace(1.0, 3.0, n))
+         + coupling * rng.standard_normal((n, n)))
+    D = np.diag(A) + spread * rng.standard_normal(n)
+    eom = _davidson_on(A, D, no, nv)
+    with contextlib.redirect_stdout(io.StringIO()):
+        E, _ = eom.solve_eom(N=1, e_conv=1e-8, r_conv=1e-8, maxM=maxM,
+                             guess=np.eye(n)[:2], maxiter=300)
+    x = eom.ritz
+    r = torch.linalg.norm(eom.sigma(x) - torch.tensor(E)[:, None] * x).item()
+    assert eom.converged and r < 1e-7
+    assert abs(E[0] - np.sort(np.linalg.eigvals(A).real)[0]) < 1e-8

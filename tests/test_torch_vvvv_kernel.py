@@ -148,6 +148,34 @@ def test_ladder_df_on_card_matches_cpu(cuda_device, nblocks):
     assert (out.cpu() - ref).abs().max().item() < 1e-12
 
 
+# the general DF ladder of the post-convergence stack: a transposed left
+# factor, BL != BR, a leading batch of vectors and ragged a-blocks (v = 45
+# in blocks of 12), real and complex amplitudes
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["real", "complex-x2", "complex-BL"])
+def test_ladder_apply_on_card_matches_cpu(cuda_device, kind):
+    from pycc_tpu_torch.models.dfhbar import ladder_apply
+    rng = np.random.default_rng(5)
+    naux, nv, nb = 60, 45, 31
+    BL = torch.from_numpy(rng.standard_normal((naux, nv, nv))).transpose(1, 2)
+    BR = torch.from_numpy(rng.standard_normal((naux, nb, nv)))
+    x2 = torch.from_numpy(rng.standard_normal((3, 4, 4, nv, nv)))
+    if kind == "complex-x2":
+        x2 = torch.complex(x2, torch.from_numpy(
+            rng.standard_normal((3, 4, 4, nv, nv))))
+    if kind == "complex-BL":
+        BL = torch.complex(BL, torch.from_numpy(
+            rng.standard_normal((naux, nv, nv))))
+    ref = ladder_apply(BL, BR, x2, nblocks=4)
+    launches = vvvv_nt.launches
+    out = ladder_apply(BL.to(cuda_device), BR.to(cuda_device),
+                       x2.to(cuda_device), nblocks=4)
+    torch.cuda.synchronize()
+    assert vvvv_nt.launches == launches + 4 * (2 if kind == "complex-BL"
+                                               else 1)
+    assert ((out.cpu() - ref).abs().max() / ref.abs().max()).item() < 1e-13
+
+
 # Lambda's left ladder 'ijef,efab' on the operand pre-laid once per HBAR
 # (cchbar.HBar.Hvvvv_efab), v = 37 off every tile
 @pytest.mark.cuda
