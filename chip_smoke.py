@@ -35,10 +35,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      test_020, the CCSD(T) density over factors and the DF density
      energies of test_024, and DF Lambda-CC3 and the CC3 one-pdm of
      test_026, each against its frozen value or dense storage;
+     Then tests/test_016's blocked and bf16-gated oracles and test_027's
+     mixed-precision and checkpoint cases (K1 in bf16 and f32 there);
   6. a real size on full storage: (H2O)_6/cc-pVDZ CCSD(T) (144 basis
      functions, (no, nv) = (24, 114) with the frozen core) through
-     run_rhf -> ccwfn -> solve_cc, then the same (T) through the two
-     plain paths;
+     run_rhf -> ccwfn -> solve_cc, and one residual timed at the
+     converged amplitudes;
   6b. [post] post-convergence on phase 6's ccwfn: the (T) density scan
      (its E(T) held to K2's), HBAR, Lambda-CCSD(T) (K1 on the pre-laid
      'ijef,efab' operand, one launch an iteration), the densities and
@@ -60,13 +62,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
      Lambda step timed by part and held to their plain-ladder selves, the
      residual recomputed at the returned amplitudes, E(CC3) held to the
      frozen pycc_tpu value;
+  6e. [mixed] blocked storage, mixed precision and checkpoint/resume on
+     phase 6's wavefunction: ccwfn(storage="blocked") (its init against
+     [real]'s), solve_cc_mixed with a bf16 stage and checkpoints (K1 in
+     bf16, f32 and f64, launches counted by mode), the stage-aware
+     resume, the (T) through K2 on slices cut from the block views,
+     solve_lambda_mixed against a float64 Lambda, the density energy,
+     solve_eom_mixed against [post]'s roots, solve_right_mixed and
+     solve_left_mixed for MU_Z (residuals recomputed), a blocked residual
+     timed against phase 6's full one, and the blocked ladder in each
+     type held to its plain version;
   7. [df] a real size over Cholesky factors, which full storage cannot
      hold on 80 GB: (H2O)_6/aug-cc-pVDZ DF-CCSD(T) (246 basis functions,
      (24, 216)) through run_rhf(df=True) -> ccwfn(storage="df") ->
      solve_cc, with the host seconds and the ladder split into W assembly
      and K1;
   7b. [dfpost] the DF post-convergence stack at that size, on phase 7's
-     factors, F and dipole integrals (ccwfn.from_df_factors, CCSD): HBAR,
+     factors, F and dipole integrals (ccwfn.from_df_factors, CCSD,
+     solved by solve_cc_mixed with a bf16 stage: K1 in bf16, f32 and f64
+     at the DF a-block): HBAR,
      Lambda, the densities and their energy (held to Ecorr(CCSD)),
      EOM-CCSD for the 6 lowest roots (residuals recomputed, the sigma
      through K1 held to the plain one), one right and one left MU_Z solve
@@ -83,8 +97,10 @@ import math
 import os
 import statistics
 import subprocess
+import tempfile
 import time
 import types
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -98,14 +114,14 @@ from pycc_tpu_torch.cclambda import cc3_extra_fn, lambda_residuals
 from pycc_tpu_torch.ccdensity import build_Moo, build_Mvv
 from pycc_tpu_torch.hamiltonian import build_hamiltonian
 from pycc_tpu_torch.models import cc3, dfccsd
-from pycc_tpu_torch.models.ccsd import residuals_ccsd
+from pycc_tpu_torch.models.ccsd import (build_tau, residuals_ccsd,
+                                        vvvv_contract)
 from pycc_tpu_torch.models.dfdensity import density_energy_df
 from pycc_tpu_torch.models.dfhbar import hvvvv_x2_df
 from pycc_tpu_torch.ops.kernels import triples as k2
 from pycc_tpu_torch.ops.kernels import vvvv
 from pycc_tpu_torch.ops.kernels.triples import (t_energy_row,
-                                                t_energy_row_reference,
-                                                t_row_finalize)
+                                                t_energy_row_reference)
 from pycc_tpu_torch.ops.cholesky import cholesky_factor_eri
 from pycc_tpu_torch.ops.kernels.vvvv import vvvv_nt, vvvv_nt_reference
 from pycc_tpu_torch.scf import integrals as ints
@@ -524,6 +540,111 @@ def phase_oracles():
     phase_df_oracles(wfns["sto-3g", True], e_t_sto3g)
     phase_cc3_oracles(wfns["sto-3g", True])
     phase_dfpost_oracles(wfns["sto-3g", True])
+    phase_mixed_oracles(wfns)
+
+
+def _by_mode(fn):
+    """fn's result and K1's launches by mode ("f64", "f32", "bf16") in
+    it, counted from 0."""
+    vvvv.reset_launches()
+    out = fn()
+    return out, dict(vvvv_nt.launches_by_mode)
+
+
+def phase_mixed_oracles(wfns):
+    """tests/test_016's blocked CCSD oracle and bf16-gated solves and
+    test_027's mixed-precision and checkpoint cases on the card, each at
+    its test's tolerance, with K1's bf16 and f32 launches checked."""
+    sto, dz = wfns["sto-3g", True], wfns["cc-pvdz", True]
+    e_sto, e_dz = ORACLES[0][3], ORACLES[1][3]
+    gaps = []       # (what, |gap|, tolerance)
+    modes = {}
+
+    def cc(wfn=sto, **kw):
+        if kw.get("storage") == "df":
+            kw.setdefault("df_tol", 1e-12)
+        return pycc_tpu_torch.ccwfn(wfn, device=DEVICE, **kw)
+
+    gaps.append(("blocked CCSD cc-pVDZ",
+                 abs(cc(dz, storage="blocked").solve_cc(1e-12, 1e-12)
+                     - e_dz), 1e-11))
+    for storage, tol in (("blocked", 1e-11), ("df", 1e-10)):
+        c = cc(storage=storage)
+        e, modes["bf16_until " + storage] = _by_mode(
+            lambda: c.solve_cc(1e-12, 1e-12, bf16_until=1e-3))
+        gaps.append(("bf16_until " + storage, abs(e - e_sto), tol))
+    for storage in ("full", "blocked"):
+        e, modes["mixed " + storage] = _by_mode(
+            lambda: cc(storage=storage).solve_cc_mixed(1e-12, 1e-12))
+        gaps.append(("mixed " + storage, abs(e - e_sto), 1e-11))
+    e64 = cc(storage="df").solve_cc(1e-12, 1e-12)
+    emx = cc(storage="df").solve_cc_mixed(1e-12, 1e-12)
+    gaps += [("mixed df - f64", abs(emx - e64), 1e-11),
+             ("mixed df", abs(emx - e_sto), 1e-9)]
+
+    c = cc(storage="df")
+    c.solve_cc(1e-12, 1e-12)
+    le64 = pycc_tpu_torch.cclambda(c, pycc_tpu_torch.cchbar(c)).solve_lambda(
+        1e-12, 1e-12)
+    c = cc(storage="df")
+    c.solve_cc_mixed(1e-12, 1e-12)
+    lam = pycc_tpu_torch.cclambda(c, pycc_tpu_torch.cchbar(c))
+    lemx, modes["lambda mixed df"] = _by_mode(
+        lambda: lam.solve_lambda_mixed(1e-12, 1e-12))
+    gaps.append(("Lambda mixed df - f64", abs(lemx - le64), 1e-11))
+
+    c = cc()
+    c.solve_cc(1e-12, 1e-12)
+    _, lam, _, _ = _lambda(c, 1e-12, 1e-12)
+    resp = pycc_tpu_torch.ccresponse(pycc_tpu_torch.ccdensity(c, lam))
+    A = resp.pertbar["MU_X"]
+    px = resp.solve_right(A, RESP_OMEGA, 1e-12, 1e-12)[2]
+    py = resp.solve_left(A, RESP_OMEGA, 1e-12, 1e-12)[2]
+    (_, _, pxm), modes["response mixed"] = _by_mode(
+        lambda: resp.solve_right_mixed("MU_X", RESP_OMEGA, 1e-12, 1e-12,
+                                       sp_conv=1e-5))
+    pym = resp.solve_left_mixed("MU_X", RESP_OMEGA, 1e-12, 1e-12,
+                                sp_conv=1e-5)[2]
+    gaps += [("right mixed - f64", abs(pxm - px), 1e-10),
+             ("left mixed - f64", abs(pym - py), 1e-10)]
+
+    c = cc(run_rhf(moldict["H2O"], "sto-3g", freeze_core=False))
+    c.solve_cc(1e-12, 1e-12)
+    E64, _ = pycc_tpu_torch.cceom(pycc_tpu_torch.cchbar(c)).solve_eom(
+        N=3, e_conv=1e-9, r_conv=1e-7)
+    eom = pycc_tpu_torch.cceom(pycc_tpu_torch.cchbar(c))
+    (Emx, _), modes["eom mixed"] = _by_mode(
+        lambda: eom.solve_eom_mixed(N=3, e_conv=1e-9, r_conv=1e-7))
+    gaps.append(("EOM mixed - f64", np.abs(Emx - E64).max(), 1e-8))
+
+    with tempfile.TemporaryDirectory() as d:
+        pa, pb = os.path.join(d, "a.npz"), os.path.join(d, "b.npz")
+        kw = dict(chk_every=1, chk_ring=True)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")    # maxiter stops on purpose
+            cc().solve_cc(1e-12, 1e-12, maxiter=8, chk=pa, **kw)
+            cc().solve_cc(1e-12, 1e-12, maxiter=4, chk=pb, **kw)
+            cc().solve_cc(1e-12, 1e-12, maxiter=8, chk=pb, resume=True,
+                          **kw)
+        da, db = np.load(pa), np.load(pb)
+        gaps += [("resume t2 at iteration 8",
+                  np.abs(da["t2"] - db["t2"]).max(), 1e-12),
+                 ("resume ecc at iteration 8",
+                  abs(float(da["ecc"]) - float(db["ecc"])), 1e-12)]
+        if not int(da["niter"]) == int(db["niter"]) == 8:
+            raise AssertionError("resume: niter %s, %s" % (da["niter"],
+                                                           db["niter"]))
+    for what, gap, tol in gaps:
+        print("[oracle] %-28s |d| = %.2e  (tol %.0e)" % (what, gap, tol))
+    print("[oracle] K1 launches by mode: %s"
+          % "; ".join("%s %s" % kv for kv in modes.items()))
+    bad = [(what, gap) for what, gap, tol in gaps if not gap < tol]
+    if bad:
+        raise AssertionError("mixed/blocked oracles missed: %s" % bad)
+    if not all(modes[k]["bf16"] > 0 for k in modes if k.startswith("bf16")):
+        raise AssertionError("a bf16-gated solve launched K1 in bf16 no time")
+    if not all(modes[k]["f32"] > 0 for k in modes if "mixed" in k):
+        raise AssertionError("a mixed solve launched K1 in f32 no time")
 
 
 # the all-electron H2O/STO-3G of tests/test_011 (bohr)
@@ -889,10 +1010,15 @@ def phase_real_size(smi, name=REAL_SIZE):
     t0 = time.perf_counter()
     wfn = run_rhf(moldict[name], "cc-pvdz", freeze_core=True)
     t_scf = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     cc = pycc_tpu_torch.ccwfn(wfn, model="CCSD(T)", device=DEVICE)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
+    init = dict(seconds=t_init, peak=torch.cuda.max_memory_allocated(),
+                held=torch.cuda.memory_allocated() - base)
     vvvv_nt.launches = 0
     t_energy_row.launches = 0
     e, t_solve = _solve(cc, 1e-10, 1e-10)
@@ -914,20 +1040,15 @@ def phase_real_size(smi, name=REAL_SIZE):
                                                       abs(eccsd - eccsd_ref)))
     print("[real] E(T) = %.12f  |dE| = %.2e" % (et, abs(et - et_ref)))
 
-    # the same (T) through the two plain paths, on the same slices
-    sl = triples.scan_slices(cc)
-    t1, t2, no = cc.t1, cc.t2, cc.no
-    t2w = 4.0 * t2 - 2.0 * t2.swapaxes(2, 3)
-    e_rows, t_rows = _synced(lambda: float(sum(
-        t_row_finalize(i, t_energy_row_reference(i, *sl, t2, no), t1, t2w)
-        for i in range(no))))
-    e_scan, t_scan = _synced(
-        lambda: float(triples.t_vikings_scan_core(*sl, t1, t2, no)))
-    print("[real] (T): kernel rows %.1f s E(T) %.12f | plain rows %.1f s "
-          "E(T) %.12f | plain pair-symmetric scan %.1f s E(T) %.12f  | %s"
-          % (t_t, et, t_rows, e_rows, t_scan, e_scan, smi))
-    print("[real] peak device memory with the plain paths %.2f GB"
-          % (torch.cuda.max_memory_allocated() / 1e9))
+    # one full-storage residual at the converged amplitudes, which
+    # [mixed] times its blocked residual against
+    t1, t2 = cc.t1.clone(), cc.t2.clone()
+    r = cc.residuals(cc.H.F, t1, t2)
+    res_ms = _median_ms(lambda: cc.residuals(cc.H.F, t1, t2), reps=3)
+    print("[real] init peak device memory %.2f GB, held after init %.2f GB;"
+          " one residual at the converged amplitudes %.2f ms  | %s"
+          % (init["peak"] / 1e9, init["held"] / 1e9, res_ms, smi))
+    real = dict(wfn=wfn, init=init, t1=t1, t2=t2, r=r, res_ms=res_ms)
 
     ok_shapes = (cc.t2.shape == (cc.no, cc.no, cc.nv, cc.nv)
                  and bool(torch.isfinite(cc.t2).all()) and math.isfinite(et))
@@ -940,13 +1061,11 @@ def phase_real_size(smi, name=REAL_SIZE):
         raise AssertionError("Ecorr(CCSD) missed the frozen value")
     if not abs(et - et_ref) < 1e-9:
         raise AssertionError("E(T) missed the frozen value")
-    if not (abs(e_rows - et) < 1e-10 and abs(e_scan - et) < 1e-10):
-        raise AssertionError("the plain (T) paths disagree with the kernel's")
     if launches["vvvv_nt"] < cc.niter or launches["t_row"] != cc.no:
         raise AssertionError("%d K1 launches in %d iterations, %d K2 launches "
                              "for no = %d" % (launches["vvvv_nt"], cc.niter,
                                               launches["t_row"], cc.no))
-    return launches, cc, eccsd, et
+    return launches, cc, eccsd, et, real
 
 
 def _eom_checks(eom, C, E, nroots=EOM_ROOTS):
@@ -1045,7 +1164,7 @@ def phase_post(cc, eccsd, et_k2, smi, name=REAL_SIZE):
                              % (rn, rel))
     if eom_launches < 1:
         raise AssertionError("EOM-CCSD launched K1 no time")
-    return {"lambda": lam_launches, "eom": eom_launches}, lam
+    return {"lambda": lam_launches, "eom": eom_launches}, lam, E
 
 
 RESP_OMEGA = 0.0656
@@ -1172,6 +1291,12 @@ def phase_resp(cc, lam, smi, name=REAL_SIZE):
     converged = [(side, ok, niter) for side, _, _, _, _, ok, niter in solves]
     (_, A, _, X1, X2, _, _), (_, _, _, Y1, Y2, _, _) = solves[:2]
     rels = _ladder_checks(resp, A, (X1, X2), (Y1, Y2), (X1m, X2m))
+    # the MU_Z right pseudo-response (linresp's fifth solve), which
+    # [mixed]'s solve_right_mixed is held to
+    side, A_z, _, X1z, X2z, _, _ = solves[4]
+    if not (side == "right" and A_z is resp.pertbar["MU_Z"]):
+        raise AssertionError("linresp's fifth solve is not the MU_Z right")
+    muz = complex(resp.pseudoresponse(A_z, X1z, X2z)).real
     alpha = np.diag(tensor)
     # the recording wrappers refer to resp: drop them, so that resp and its
     # 9.4 GB of pertbars go when this phase returns, not at the next
@@ -1214,7 +1339,221 @@ def phase_resp(cc, lam, smi, name=REAL_SIZE):
                                                     m_launches, m_iters))
     if not (np.all(np.isfinite(alpha)) and np.all(alpha > 0)):
         raise AssertionError("alpha diagonal %s" % alpha)
-    return {"response": lr_launches, "response_complex": m_launches}
+    return {"response": lr_launches, "response_complex": m_launches}, muz
+
+
+MIXED_CONV = 1e-10
+# the bf16 stage of the mixed CCSD solves: residuals from bf16 operands
+# until the update rms drops below this
+BF16_UNTIL = 1e-3
+
+
+def _gb(nbytes):
+    return nbytes / 1e9
+
+
+def phase_mixed(real, post_E, muz, smi, name=REAL_SIZE):
+    """[mixed]: blocked storage, mixed precision and checkpoint/resume at
+    [real]'s size on its wavefunction (no second SCF): a CCSD ccwfn on the
+    six blocks, solve_cc_mixed with a bf16 stage and checkpoints, the
+    stage-aware resume, the (T) through K2 on slices cut from the block
+    views, solve_lambda_mixed (against a float64 Lambda on the same HBAR),
+    the density energy, solve_eom_mixed (against [post]'s roots),
+    solve_right_mixed and solve_left_mixed for MU_Z (each against a
+    float64 solve on this object; the right also against [resp]'s, whose
+    left carries the (T) Lambda sources), each returned
+    vector's residual recomputed; then a blocked residual timed against
+    [real]'s full one at the same amplitudes, and the blocked ladder in
+    each type held to its plain version.  K1's launches are counted by
+    mode from 0 over the CCSD solve and over the three mixed
+    post-convergence solves."""
+    eccsd_ref, et_ref = FROZEN[name][1], FROZEN[name][2]
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cc, t_init = _synced(lambda: pycc_tpu_torch.ccwfn(
+        real["wfn"], model="CCSD", storage="blocked", device=DEVICE))
+    init_peak = torch.cuda.max_memory_allocated()
+    held = torch.cuda.memory_allocated() - base
+    block_mb = {k: b.numel() * b.element_size() / 1e6
+                for k, b in zip(cc.blocks._fields, cc.blocks)}
+
+    tmp = tempfile.TemporaryDirectory()
+    chk = os.path.join(tmp.name, "mx")
+    (ecc, t_mx), modes = _by_mode(lambda: _synced(lambda: cc.solve_cc_mixed(
+        MIXED_CONV, MIXED_CONV, sp_kwargs={"bf16_until": BF16_UNTIL},
+        chk=chk, chk_every=10)))
+    stages = list(cc.stages)
+    saves = (cc.timers.count["ccwfn.checkpoint"],
+             cc.timers.total["ccwfn.checkpoint"])
+    sizes = {sfx: os.path.getsize(chk + sfx)
+             for sfx in (".sp.npz", ".floor.npz", ".rf.npz")
+             if os.path.exists(chk + sfx)}
+    ok_mixed = cc.converged
+    e_floor = cc.e_sp_floor
+    e_res, t_res = _synced(lambda: cc.solve_cc_mixed(
+        MIXED_CONV, MIXED_CONV, sp_kwargs={"bf16_until": BF16_UNTIL},
+        chk=chk, chk_every=10, resume=True))
+    res_stages = [st[0] for st in cc.stages]
+    tmp.cleanup()
+
+    t_energy_row.launches = 0
+    et, t_t = _synced(lambda: float(triples.t_vikings_scan(cc)))
+    k2_launches = t_energy_row.launches
+
+    # Lambda: float64 on the blocked HBAR, then the mixed solve
+    hb = pycc_tpu_torch.cchbar(cc)
+    lam64 = pycc_tpu_torch.cclambda(cc, hb)
+    le64, t_l64 = _synced(lambda: lam64.solve_lambda(MIXED_CONV, MIXED_CONV))
+    del lam64
+    lam = pycc_tpu_torch.cclambda(cc, hb)
+    del hb
+    vvvv.reset_launches()
+    lemx, t_lmx = _synced(lambda: lam.solve_lambda_mixed(MIXED_CONV,
+                                                         MIXED_CONV))
+    (eone, etwo), t_den = _synced(lambda: _density(cc, lam))
+
+    eom = pycc_tpu_torch.cceom(lam.hbar)
+    (E, C), t_eom = _synced(lambda: eom.solve_eom_mixed(
+        N=EOM_ROOTS, e_conv=1e-8, r_conv=1e-6))
+    e_floor_eom = eom.e_sp_floor
+
+    resp = pycc_tpu_torch.ccresponse(pycc_tpu_torch.ccdensity(
+        cc, lam, onlyone=True))
+    post_modes = dict(vvvv_nt.launches_by_mode)
+    post_launches = vvvv_nt.launches
+    px64 = resp.solve_right(resp.pertbar["MU_Z"], RESP_OMEGA, RESP_CONV,
+                            RESP_CONV)[2]
+    vvvv.reset_launches()
+    (X1, X2, px), t_right = _synced(lambda: resp.solve_right_mixed(
+        "MU_Z", RESP_OMEGA, RESP_CONV, RESP_CONV))
+    right_ok = resp.converged
+    for k in post_modes:
+        post_modes[k] += vvvv_nt.launches_by_mode[k]
+    post_launches += vvvv_nt.launches
+    py64 = resp.solve_left(resp.pertbar["MU_Z"], RESP_OMEGA, RESP_CONV,
+                           RESP_CONV)[2]
+    vvvv.reset_launches()
+    (Y1, Y2, py), t_left = _synced(lambda: resp.solve_left_mixed(
+        "MU_Z", RESP_OMEGA, RESP_CONV, RESP_CONV))
+    left_ok = resp.converged
+    for k in post_modes:
+        post_modes[k] += vvvv_nt.launches_by_mode[k]
+    post_launches += vvvv_nt.launches
+    peak = torch.cuda.max_memory_allocated()
+    px, px64, py, py64 = (complex(x).real for x in (px, px64, py, py64))
+
+    # the checks, after the counts were read
+    rn, rel_eom, dw, _, _ = _eom_checks(eom, C, E)
+    del eom, C
+    A = resp.pertbar["MU_Z"]
+    res_x = _resp_residual(resp, A, RESP_OMEGA, (X1, X2))
+    res_y = _resp_residual(resp, A, RESP_OMEGA, (X1, X2), (Y1, Y2))
+    del resp, X1, X2, Y1, Y2
+    t1r, t2r = real["t1"], real["t2"]
+    rb = cc.residuals(cc.H.F, t1r, t2r)
+    res_gap = max((a - b).abs().max().item() for a, b in zip(rb, real["r"]))
+    del rb
+    ms_b = _median_ms(lambda: cc.residuals(cc.H.F, t1r, t2r), reps=3)
+    ms_16 = _median_ms(lambda: cc.residuals_bf16(cc.H.F, t1r, t2r), reps=3)
+    tau = build_tau(cc.t1, cc.t2)
+    ladder_rel = {}
+    for label, dtype, _, tol in K1_TYPES:
+        W = cc.blocks.vvvv.to(dtype)
+        ladder_rel[label] = (_rel(*(vvvv_contract(tau.to(dtype), W, ld)
+                                    .double() for ld in
+                                    (vvvv_nt, vvvv_nt_reference))), tol)
+        del W
+
+    print("[mixed] %s/cc-pVDZ CCSD on blocked storage, mixed precision, "
+          "checkpoints  | %s" % (name, smi))
+    print("[mixed] blocked init %.1f s (full storage's %.1f s): peak %.2f GB "
+          "(%.2f GB), held after init %.2f GB (%.2f GB); blocks MB %s"
+          % (t_init, real["init"]["seconds"], _gb(init_peak),
+             _gb(real["init"]["peak"]), _gb(held), _gb(real["init"]["held"]),
+             ", ".join("%s %.1f" % kv for kv in block_mb.items())))
+    print("[mixed] solve_cc_mixed (bf16_until %.0e, chk every 10) %.2f s: %s;"
+          " K1 launches by mode %s; %d checkpoint saves %.2f s (%.2f s "
+          "each), files %s bytes; Ecorr = %.12f |dE| from frozen = %.2e"
+          % (BF16_UNTIL, t_mx, "; ".join(
+              "%s %s %d iterations (%d bf16) %.2f s %.4f s/iter"
+              % (st, dt, n, n16, sec, sec / n)
+              for st, dt, n, sec, n16 in stages), modes, saves[0], saves[1],
+             saves[1] / max(saves[0], 1), sizes, ecc,
+             abs(ecc - eccsd_ref)))
+    print("[mixed] resume %.2f s: stages %s, e_sp_floor equal %s, |E - "
+          "E(first)| = %.2e" % (t_res, res_stages, cc.e_sp_floor == e_floor,
+                                abs(e_res - ecc)))
+    print("[mixed] (T) on block-sourced slices %.1f s: E(T) = %.12f |dE| "
+          "from frozen = %.2e  K2 launches %d"
+          % (t_t, et, abs(et - et_ref), k2_launches))
+    print("[mixed] Lambda f64 %.2f s, mixed %.2f s (floor %.12f): pseudo-E "
+          "%.12f |mixed - f64| = %.2e; densities %.2f s: eone + etwo - Ecorr"
+          " = %.2e" % (t_l64, t_lmx, lam.e_sp_floor, lemx, abs(lemx - le64),
+                       t_den, eone + etwo - ecc))
+    print("[mixed] EOM mixed %d roots %.1f s: %s Eh (floor %s) |E - [post]| ="
+          " %.2e  residual norms %s  |Ritz - E| %.2e"
+          % (EOM_ROOTS, t_eom, np.array2string(E, precision=10),
+             np.array2string(e_floor_eom, precision=8),
+             np.abs(E - post_E).max(), ", ".join("%.2e" % r for r in rn), dw))
+    print("[mixed] MU_Z right mixed %.2f s: %.12f |d f64 right| = %.2e |d "
+          "[resp]| = %.2e; left mixed %.2f s: %.12f |d f64 left| = %.2e; "
+          "max|r/(D + omega)| right %.1e left %.1e"
+          % (t_right, px, abs(px - px64), abs(px - muz), t_left, py,
+             abs(py - py64), res_x, res_y))
+    print("[mixed] K1 launches of the mixed Lambda, EOM and response by "
+          "mode %s (%d); peak device memory %.2f GB"
+          % (post_modes, post_launches, _gb(peak)))
+    print("[mixed] one residual at [real]'s converged amplitudes: blocked "
+          "%.2f ms, full %.2f ms, bf16 %.2f ms; max|blocked - full| = %.2e;"
+          " the blocked ladder vs its plain version %s  | %s"
+          % (ms_b, real["res_ms"], ms_16, res_gap,
+             ", ".join("%s %.1e" % (k, v[0]) for k, v in ladder_rel.items()),
+             smi))
+    print("[mixed] the phase, its checks included: %.1f s"
+          % (time.perf_counter() - t_phase))
+
+    checks = [
+        ("Ecorr", ok_mixed and abs(ecc - eccsd_ref) < 1e-9),
+        ("resume", res_stages == ["refine"] and cc.e_sp_floor == e_floor
+         and abs(e_res - ecc) < 1e-10),
+        ("E(T)", abs(et - et_ref) < 1e-9 and k2_launches == cc.no),
+        ("Lambda", lam.converged and abs(lemx - le64) < 1e-9),
+        ("density", abs(eone + etwo - ecc) < 1e-9),
+        ("EOM", eom_ok(E, post_E, rn, rel_eom)),
+        # [resp]'s MU_Z solve is over [real]'s amplitudes, which differ
+        # from these at their own 1e-10 convergence: the pseudo-response
+        # moves ~50x that (4.7e-9 on H2O/cc-pVDZ on the CPU), so the 1e-9
+        # hold is against float64 solves on this object
+        ("response", right_ok and left_ok and abs(px - px64) < 1e-9
+         and abs(py - py64) < 1e-9 and abs(px - muz) < 1e-7
+         and max(res_x, res_y) <= 10 * RESP_CONV),
+        ("residual", res_gap < 1e-11),
+        ("ladders", all(r < tol for r, tol in ladder_rel.values())),
+        ("K1 modes", all(modes[m] > 0 for m in modes)
+         and post_modes["f32"] > 0 and post_modes["f64"] > 0),
+        ("K1 stages", modes["bf16"] == stages[0][4]
+         and modes["f32"] == stages[0][2] - stages[0][4]
+         and modes["f64"] == stages[1][2]),
+    ]
+    bad = [what for what, ok in checks if not ok]
+    if bad:
+        raise AssertionError("[mixed] checks failed: %s" % bad)
+    return dict(modes, post=post_launches, t_row=k2_launches)
+
+
+def eom_ok(E, ref, rn, rel):
+    """A mixed EOM run's roots against a float64 run's, its recomputed
+    residual norms and its sigma through K1 against the plain one."""
+    return (np.abs(E - ref).max() < 1e-7 and max(rn) <= 1e-6
+            and rel <= 1e-12)
+
+
+def _density(cc, lam):
+    dens = pycc_tpu_torch.ccdensity(cc, lam)
+    dens.compute_energy()
+    return dens.eone, dens.etwo
 
 
 def _cc3_residual_split(cc):
@@ -1500,7 +1839,13 @@ def phase_dfpost(factors, smi, name=DF_SIZE):
         B, F, no, escf=escf, model="CCSD", mu=mu, device=DEVICE))
     del B
     nblocks = dfccsd._ladder_blocks(cc.nv, cc.naux)
-    (ecc, t_solve), cc_launches = _launched(lambda: _solve(cc, 1e-10, 1e-10))
+    vvvv.reset_launches()
+    ecc, t_solve = _synced(lambda: cc.solve_cc_mixed(
+        1e-10, 1e-10, sp_kwargs={"bf16_until": BF16_UNTIL}))
+    cc_launches, cc_modes = vvvv_nt.launches, dict(vvvv_nt.launches_by_mode)
+    (_, _, n_floor, t_floor, n_bf16), (_, _, n_refine, t_refine, _) = \
+        cc.stages
+    cc_iters = {"bf16": n_bf16, "f32": n_floor - n_bf16, "f64": n_refine}
     hb, t_hbar = _synced(lambda: pycc_tpu_torch.cchbar(cc))
     lam = pycc_tpu_torch.cclambda(cc, hb)
     (lecc, t_lam), lam_launches = _launched(lambda: _synced(
@@ -1544,7 +1889,8 @@ def phase_dfpost(factors, smi, name=DF_SIZE):
                                  (Y1, Y2))
     rels["eom sigma"] = rel_eom
     resp_launches = probe_launches + right_launches + left_launches
-    want = {"ccsd": cc.niter, "lambda": lam.niter, "density": 2,
+    want = {"ccsd": sum(cc_iters.values()), "lambda": lam.niter,
+            "density": 2,
             "eom": n_sigma, "response": 24 + right[1] + left[1] + 1}
     got = {"ccsd": cc_launches, "lambda": lam_launches,
            "density": den_launches, "eom": eom_launches,
@@ -1553,9 +1899,12 @@ def phase_dfpost(factors, smi, name=DF_SIZE):
     print("[dfpost] %s/aug-cc-pVDZ DF-CCSD post-convergence on [df]'s "
           "factors: (no, nv) = (%d, %d) naux %d, %d ladder blocks  | %s"
           % (name, cc.no, cc.nv, cc.naux, nblocks, smi))
-    print("[dfpost] from_df_factors %.1f s  CCSD solve %.1f s %d iterations "
-          "Ecorr = %.12f |dE| from frozen = %.2e"
-          % (t_init, t_solve, cc.niter, ecc, abs(ecc - eccsd_ref)))
+    print("[dfpost] from_df_factors %.1f s  CCSD solve_cc_mixed (bf16_until "
+          "%.0e) %.1f s: floor %d iterations (%d bf16) %.1f s, refinement %d "
+          "iterations %.1f s; K1 launches by mode %s; Ecorr = %.12f |dE| "
+          "from frozen = %.2e"
+          % (t_init, BF16_UNTIL, t_solve, n_floor, n_bf16, t_floor, n_refine,
+             t_refine, cc_modes, ecc, abs(ecc - eccsd_ref)))
     print("[dfpost] HBAR %.2f s  Lambda %.1f s %d iterations %.3f s/iter "
           "pseudo-E = %.12f  peak device memory through Lambda %.2f GB"
           % (t_hbar, t_lam, lam.niter, t_lam / lam.niter, lecc,
@@ -1608,12 +1957,18 @@ def phase_dfpost(factors, smi, name=DF_SIZE):
                              % rels)
     bad = {k: (got[k], nblocks * want[k]) for k in got
            if got[k] != nblocks * want[k]}
+    bad.update({"ccsd " + m: (cc_modes[m], nblocks * n)
+                for m, n in cc_iters.items()
+                if not cc_modes[m] == nblocks * n > 0})
     if bad:
         raise AssertionError("[dfpost] K1 launches (got, want): %s" % bad)
-    return {k: got[k] for k in ("lambda", "eom", "density", "response")}
+    out = {k: got[k] for k in ("lambda", "eom", "density", "response")}
+    out.update(ccsd_bf16=cc_modes["bf16"], ccsd_f32=cc_modes["f32"])
+    return out
 
 
-def _kernel_entries(k1_cells, k2_cells, full, post, resp, cc3_, df, dfpost):
+def _kernel_entries(k1_cells, k2_cells, full, post, resp, cc3_, df, dfpost,
+                    mixed):
     """The kernels line: each kernel on each path, with that path's
     launches and the timed cell at the shape the path launches it at."""
     k1 = dict(route="cuda", source="pycc_tpu_torch/csrc/vvvv_nt.cu",
@@ -1650,6 +2005,20 @@ def _kernel_entries(k1_cells, k2_cells, full, post, resp, cc3_, df, dfpost):
              **k1_cells[K1_DF_SHAPE, "f64"]),
         dict(name="vvvv_nt/df_response", **k1, launches=dfpost["response"],
              **k1_cells[K1_DF_SHAPE, "f64"]),
+        dict(name="vvvv_nt/blocked_bf16", **k1, launches=mixed["bf16"],
+             **k1_cells[K1_FULL_SHAPE, "bf16->f32"]),
+        dict(name="vvvv_nt/blocked_f32", **k1, launches=mixed["f32"],
+             **k1_cells[K1_FULL_SHAPE, "f32"]),
+        dict(name="vvvv_nt/blocked_f64", **k1, launches=mixed["f64"],
+             **k1_cells[K1_FULL_SHAPE, "f64"]),
+        dict(name="vvvv_nt/df_bf16", **k1, launches=dfpost["ccsd_bf16"],
+             **k1_cells[K1_DF_SHAPE, "bf16->f32"]),
+        dict(name="vvvv_nt/df_f32", **k1, launches=dfpost["ccsd_f32"],
+             **k1_cells[K1_DF_SHAPE, "f32"]),
+        dict(name="vvvv_nt/mixed_post", **k1, launches=mixed["post"],
+             **k1_cells[K1_FULL_SHAPE, "f32"]),
+        dict(name="t_row/blocked", **k2, launches=mixed["t_row"],
+             **k2_cells[(24, 114), "f64"]),
     ]
 
 
@@ -1660,10 +2029,13 @@ def main():
     k1_cells = phase_kernel(smi)
     k2_cells = phase_k2(smi)
     phase_oracles()
-    full, cc, eccsd, et = phase_real_size(smi)
-    post, lam = phase_post(cc, eccsd, et, smi)
-    resp = phase_resp(cc, lam, smi)
+    full, cc, eccsd, et, real = phase_real_size(smi)
+    post, lam, eom_roots = phase_post(cc, eccsd, et, smi)
+    resp, muz = phase_resp(cc, lam, smi)
     del cc, lam
+    torch.cuda.empty_cache()
+    mixed = phase_mixed(real, eom_roots, muz, smi)
+    del real
     torch.cuda.empty_cache()
     cc3_launches = phase_cc3(smi)
     torch.cuda.empty_cache()
@@ -1672,7 +2044,8 @@ def main():
     dfpost = phase_dfpost(factors, smi)
     print(smi)
     print(json.dumps({"kernels": _kernel_entries(
-        k1_cells, k2_cells, full, post, resp, cc3_launches, df, dfpost)}))
+        k1_cells, k2_cells, full, post, resp, cc3_launches, df, dfpost,
+        mixed)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

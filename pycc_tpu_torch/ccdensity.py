@@ -1,6 +1,7 @@
 """CC one- and two-electron densities and density-based energies.
 
-The counterpart of pycc_tpu/ccdensity.py for storage='full' and 'df':
+The counterpart of pycc_tpu/ccdensity.py for storage='full', 'blocked'
+and 'df':
 every block is a plain function of the amplitudes, `onepdm` assembles the
 (nact, nact) one-electron density, and `ccdensity.compute_energy` gives
 the density-vs-amplitude consistency check (for CCSD(T), with the (T)
@@ -14,6 +15,7 @@ import time
 import torch
 
 from .cclambda import build_Goo, build_Gvv
+from .models.blocked import eri_views
 from .models.ccsd import build_tau, slices
 from .ops.contract import contract
 from .ops.kernels.vvvv import vvvv_nt
@@ -243,17 +245,13 @@ def build_Mvv(no, nv, ints, t1):
 
 class ccdensity:
     """ccdensity(ccwfn, cclambda[, onlyone]): the density blocks of a
-    storage='full' or 'df' ccwfn on its device (over factors without
+    storage='full', 'blocked' or 'df' ccwfn on its device (over the
+    blocks' views the energy reads the six blocks; over factors without
     Dvvvv and Dvvvo); for CCSD(T) the (T) blocks that
     `ccwfn.t3_density()` left on the ccwfn join them."""
 
     def __init__(self, ccwfn, cclambda, onlyone=False):
-        from .ccwfn import _not_ported
         storage = getattr(ccwfn, "storage", "full")
-        if storage == "blocked":
-            raise _not_ported("ccdensity(storage='blocked')",
-                              "Queue 1, item 10 (blocked storage and mixed "
-                              "precision)")
         t0 = time.time()
         self.ccwfn = ccwfn
         self.cclambda = cclambda
@@ -307,7 +305,7 @@ class ccdensity:
                        if cc.model == "CCSD(T)" else None),
                 nblocks=getattr(cc, "df_nblocks", None), ladder=ladder)
         else:
-            ERI = cc.H.ERI
+            ERI = eri_views(cc)[0]
             etwo = 0.5 * contract("ijkl,ijkl->", ERI[o, o, o, o], self.Doooo)
             etwo += 0.5 * contract("abcd,abcd->", ERI[v, v, v, v],
                                    self.Dvvvv)

@@ -1,6 +1,7 @@
 """EOM-CCSD: the right-hand Davidson eigensolver over HBAR.
 
-The counterpart of pycc_tpu/cceom.py for storage='full' and 'df'.  The
+The counterpart of pycc_tpu/cceom.py for storage='full', 'blocked' and
+'df'.  The
 sigma builds take a block of k vectors at once: every term is one batched
 contraction over the block, and the Hvvvv ladder is one K1 launch for the
 block, its k stacked C2 as a (k o^2, v^2) matrix, before the pair
@@ -11,29 +12,26 @@ a-block, (k o^2, blk v, v^2).  The Davidson subspace C and its sigma block
 S stay on the device; the host sees only the (M, M) Gram matrix, the
 residual norms and the eigenvectors of the subspace
 problem.  `dense_matrix` builds the whole EOM-CCSD matrix from sigmas, the
-tests' oracle on small systems.
+tests' oracle on small systems.  `solve_eom(chk=..., resume=...)`
+checkpoints the subspace on the host; `solve_eom_mixed` runs a float32
+Davidson and refines its Ritz vectors in float64.
 """
 
+import os
 import time
 import warnings
 
 import numpy as np
 import torch
 
-from .models.ccsd import slices, vvvv_contract
+from .models.blocked import LoovvOnly, eri_views
+from .models.ccsd import pair_symmetric, slices, vvvv_contract
 from .models.dfhbar import DFHBar, loovv_df, sigma1_df, sigma2_df
 from .ops.contract import contract
 from .ops.kernels.vvvv import vvvv_nt
 from .utils.log import logger as log
 
 HARTREE2EV = 27.211386245988
-
-_NOT_PORTED_SOLVE_KWARGS = {
-    "chk": "Queue 1, item 10 (checkpoint/resume)",
-    "chk_every": "Queue 1, item 10 (checkpoint/resume)",
-    "resume": "Queue 1, item 10 (checkpoint/resume)",
-}
-
 
 def _sigma1(hb, C1, C2, Loovv):
     """Singles sigma of a block: C1 (k, o, v), C2 (k, o, o, v, v)."""
@@ -126,22 +124,23 @@ def sigma_block_df(dfh, C, Loovv, t1, t2, no, nblocks=None,
 
 
 class cceom:
-    """EOM-CCSD Davidson solver over a cchbar of a storage='full' or 'df'
-    ccwfn, on the ccwfn's device."""
+    """EOM-CCSD Davidson solver over a cchbar of a storage='full',
+    'blocked' or 'df' ccwfn, on the ccwfn's device."""
 
     def __init__(self, cchbar):
         cc = cchbar.ccwfn
-        if getattr(cc, "storage", "full") not in ("full", "df"):
-            from .ccwfn import _not_ported
-            raise _not_ported("cceom(storage=%r)" % cc.storage,
-                              "Queue 1, item 10 (blocked storage and mixed "
-                              "precision)")
         self.hbar = cchbar
         self.ccwfn = cc
         self.no, self.nv = cc.no, cc.nv
         hb = cchbar.hbar
-        # the DF sigma reads L[o,o,v,v] assembled from the factors once
-        self._Loovv = loovv_df(hb.df) if isinstance(hb, DFHBar) else None
+        # the DF sigma reads L[o,o,v,v] assembled from the factors once,
+        # the dense sigma L[o,o,v,v] of the full or the blocked L
+        self._df = isinstance(hb, DFHBar)
+        if self._df:
+            self._Loovv = loovv_df(hb.df)
+        else:
+            o, v = slices(self.no)
+            self._Loovv = eri_views(cc)[1][o, o, v, v]
         occ = torch.diagonal(hb.Hoo)
         vir = torch.diagonal(hb.Hvv)
         Dia = occ[:, None] - vir[None, :]
@@ -149,19 +148,37 @@ class cceom:
                  - vir[None, None, :, None] - vir[None, None, None, :])
         self.D = torch.cat([Dia.reshape(-1), Dijab.reshape(-1)])
 
+    # the closed-shell sigma maps doubles symmetric under (ij)(ab) to
+    # symmetric ones, and every singlet root lies in that subspace, while
+    # it nearly annihilates the antisymmetric part: roundoff there (float32
+    # seeds, the preconditioner's) grew into spurious roots near 0 in a
+    # mixed (H2O)_6/cc-pVDZ refinement.  The Davidson keeps its vectors in
+    # the subspace.
+    pair_symmetric = True
+
+    def _in_subspace(self, V):
+        """V, a (k, dim) block of vectors, with its doubles made
+        pair-symmetric in place (when `pair_symmetric`)."""
+        if self.pair_symmetric:
+            n1 = self.no * self.nv
+            V2 = V[:, n1:].view(-1, self.no, self.no, self.nv, self.nv)
+            V2.copy_(pair_symmetric(V2))
+        return V
+
     def sigma(self, C, ladder=vvvv_nt):
         """sigma of a (k, dim) block of vectors on the device (one K1
         launch, or one an a-block over DF factors); see `sigma_block` and
         `sigma_block_df`."""
         cc = self.ccwfn
         with cc.timers.time("eom.sigma"):
-            if self._Loovv is not None:
+            if self._df:
                 return sigma_block_df(self.hbar.hbar, C, self._Loovv, cc.t1,
                                       cc.t2, self.no,
                                       nblocks=getattr(cc, "df_nblocks", None),
                                       ladder=ladder)
-            return sigma_block(self.hbar.hbar, C, cc.H.L, cc.t2, self.no,
-                               ladder=ladder)
+            return sigma_block(self.hbar.hbar, C,
+                               LoovvOnly(self._Loovv, self.no), cc.t2,
+                               self.no, ladder=ladder)
 
     def dense_matrix(self):
         """The full EOM-CCSD matrix as a host array (test oracle; small
@@ -192,13 +209,13 @@ class cceom:
             cc = self.ccwfn
             F = cc.H.F.cpu().numpy()
             o, v = slices(no)
-            if self._Loovv is not None:
+            if self._df:
                 # L[a,i,j,b] = 2 (aj|ib) - (ab|ij) from the factors
                 df = cc.dfb
                 L_voov = (2.0 * torch.einsum("Pja,Pib->aijb", df.Bov, df.Bov)
                           - torch.einsum("Pab,Pij->aijb", df.Bvv, df.Boo))
             else:
-                L_voov = cc.H.L[v, o, o, v]
+                L_voov = eri_views(cc)[1][v, o, o, v]
             L_voov = L_voov.cpu().numpy()
             H = L_voov.swapaxes(0, 1).swapaxes(0, 2).copy()
             H += np.einsum("ab,ij->iajb", F[no:, no:][:nv, :nv], np.eye(no))
@@ -222,23 +239,35 @@ class cceom:
         return eps[:M], guesses
 
     def solve_eom(self, N=1, e_conv=1e-5, r_conv=1e-5, maxiter=100,
-                  guess="HBAR_SS", maxM=None, **kwargs):
+                  guess="HBAR_SS", maxM=None, chk=None, chk_every=1,
+                  resume=False, device_subspace=None):
         """The N lowest EOM-CCSD roots by Davidson; returns (E, C): the
         roots (host array) and the final subspace (M, dim) on the device.
 
         guess: 'HBAR_SS', 'CIS', 'UNIT' or an (M0, dim) array of start
-        vectors; the start block is orthonormalised by QR.  The Gram
-        matrix C S^T grows by its new rows and columns only; converged
-        roots are locked; each correction is Gram-Schmidt'ed twice (DGKS)
-        against the subspace and the block, and dropped below 1e-4 of its
-        norm; at maxM (default 10 N) the subspace collapses to the N Ritz
-        vectors.  When the residuals stop improving at converged energies
+        vectors; the start block is orthonormalised by QR.  An array
+        guess's doubles and every correction's are made pair-symmetric
+        (`pair_symmetric`).  The Gram matrix C S^T grows by its new rows
+        and columns only; converged roots are locked; each correction is
+        Gram-Schmidt'ed twice (DGKS) against the subspace and the block,
+        and dropped below 1e-4 of its norm; at maxM (default 10 N) the
+        subspace collapses to the N Ritz vectors.  When the residuals stop improving at converged energies
         the solve stops at the working precision's floor
         (`self.residual_floor`).  `self.converged`, `self.niter` and
         `self.ritz` (the N Ritz vectors of the final subspace, on the
-        device) are set; the ccwfn's timers keep 'eom.guess' (host)."""
-        from .ccwfn import _reject
-        _reject(kwargs, _NOT_PORTED_SOLVE_KWARGS, "solve_eom")
+        device) are set; the ccwfn's timers keep 'eom.guess' (host).
+
+        chk=<path.npz> saves the subspace C (on the host; keys C, E,
+        niter, pycc_tpu's format) at the start of every `chk_every`-th
+        iteration; resume=True reloads it and rebuilds the sigma block
+        with one sigma evaluation.  device_subspace is accepted as None or
+        True only: the subspace always lives on the device here (pycc_tpu's
+        host subspace, device_subspace=False, is not ported and raises
+        ValueError)."""
+        if device_subspace is False:
+            raise ValueError("device_subspace=False: the host-resident "
+                             "Davidson subspace is not ported; the "
+                             "subspace always lives on the device")
         t_init = time.time()
         no, nv = self.no, self.nv
         D = self.D
@@ -249,21 +278,31 @@ class cceom:
         M = N * 2
         if maxM is None:
             maxM = N * 10
-        if not isinstance(guess, str):
+        niter0 = 0
+        if resume and chk is not None and os.path.exists(chk):
+            from .utils.checkpoint import load_amps
+            d = load_amps(chk)
+            C = torch.as_tensor(d["C"], device=dev).to(dt)
+            niter0 = int(d["niter"])
+            log.info("CCEOM resumed from %s at iteration %d (M=%d); "
+                     "rebuilding sigma block" % (chk, niter0, C.shape[0]))
+        elif not isinstance(guess, str):
             C = torch.as_tensor(np.asarray(guess), dtype=torch.float64,
                                 device=dev)
             if C.dim() != 2 or C.shape[1] != dim:
                 raise ValueError("array guess must be (M0, %d); got %r"
                                  % (dim, tuple(C.shape)))
             M = C.shape[0]
+            self._in_subspace(C)
         else:
             with self.ccwfn.timers.time("eom.guess"):
                 _, C1 = self.guess(M, guess)
             C = torch.zeros((M, dim), dtype=torch.float64, device=dev)
             C[:, :s1_len] = torch.from_numpy(C1.reshape(M, s1_len)).to(dev)
-        # orthonormalise the start block; the subspace algebra then runs in
-        # the sigma's own precision
-        C = torch.linalg.qr(C.T)[0].T.contiguous().to(dt)
+        if not niter0:
+            # orthonormalise the start block; the subspace algebra then runs
+            # in the sigma's own precision
+            C = torch.linalg.qr(C.T)[0].T.contiguous().to(dt)
         S = self.sigma(C)
         G = (C @ S.T).double().cpu().numpy()
         E = np.zeros(N)
@@ -276,10 +315,13 @@ class cceom:
         stalled = 0
         collapsed = False
         E_old = E
-        for niter in range(1, maxiter + 1):
+        for niter in range(niter0 + 1, maxiter + 1):
             E_old = E
             M = C.shape[0]
             self.niter = niter
+            if chk is not None and (niter - 1) % chk_every == 0:
+                from .utils.checkpoint import save_amps
+                save_amps(chk, C=C, E=E, niter=niter - 1)
             w, a = np.linalg.eig(G)
             idx = np.real(w).argsort()[:N]
             E = np.real(w[idx])
@@ -351,7 +393,7 @@ class cceom:
             for k in range(N):
                 if rnorms[k] <= r_conv:
                     continue
-                d = delta[k]
+                d = self._in_subspace(delta[k:k + 1])[0]
                 d0 = torch.linalg.norm(d)
                 for _ in range(2):
                     d = d - (C @ d) @ C
@@ -398,8 +440,35 @@ class cceom:
                           "(|dE|=%.2e)" % (maxiter, np.linalg.norm(E - E_old)))
         return E, C
 
-    def solve_eom_mixed(self, *args, **kwargs):
-        from .ccwfn import _not_ported
-        raise _not_ported("cceom.solve_eom_mixed",
-                          "Queue 1, item 10 (blocked storage and mixed "
-                          "precision)")
+    def solve_eom_mixed(self, N=1, e_conv=1e-7, r_conv=1e-7, maxiter=100,
+                        sp_conv=1e-5, sp_dtype=torch.float32,
+                        refine_maxiter=None, guess="HBAR_SS", maxM=None,
+                        **kw):
+        """Mixed-precision EOM-CCSD, the scheme of ccwfn.solve_cc_mixed: the
+        HBAR rebuilt in `sp_dtype` (float32) and a Davidson run to sp_conv
+        or its noise floor, then the HBAR rebuilt in float64 and a Davidson
+        seeded with the floor's N Ritz vectors (`self.ritz`).  t1/t2 are a
+        parameter of the EOM equations: the exact float64 amplitudes are
+        restored for the refinement.  `self.e_sp_floor` holds the floor's
+        roots; self.hbar is left at the float64 build.  **kw (chk,
+        device_subspace, ...) goes to both Davidsons.  Needs a
+        precision='DP' ccwfn."""
+        from .cchbar import cchbar
+        cc = self.ccwfn
+        if cc.precision != "DP":
+            raise ValueError("solve_eom_mixed needs a precision='DP' ccwfn "
+                             "construction (the f64 masters are the "
+                             "refinement-stage Hamiltonian).")
+        cc._ensure_mixed_masters()
+        t1_64, t2_64 = cc.t1, cc.t2
+        cc._cast_stage(sp_dtype)
+        self.__init__(cchbar(cc))
+        E_sp, _ = self.solve_eom(N, sp_conv, sp_conv, maxiter, guess=guess,
+                                 maxM=maxM, **kw)
+        self.e_sp_floor = np.array(E_sp)
+        seeds = self.ritz.double().cpu().numpy()
+        cc._cast_stage(torch.float64)
+        cc.t1, cc.t2 = t1_64, t2_64
+        self.__init__(cchbar(cc))
+        return self.solve_eom(N, e_conv, r_conv, refine_maxiter or maxiter,
+                              guess=seeds, maxM=maxM, **kw)

@@ -1,6 +1,7 @@
 """Similarity-transformed Hamiltonian HBAR = e^{-T} H e^{T} (one/two-body).
 
-The counterpart of pycc_tpu/cchbar.py.  For storage='full' the 11 blocks
+The counterpart of pycc_tpu/cchbar.py.  For storage='full' and 'blocked'
+(the block views, `models/blocked.eri_views`) the 11 blocks
 come from one plain function of (F, ERI, L, t1, t2), term for term, so a
 field-dressed F rebuilds HBAR with no object mutation.  `cchbar(ccwfn)`
 exposes the blocks as attributes, and keeps the pre-laid ladder operand
@@ -14,6 +15,7 @@ import time
 
 import torch
 
+from .models.blocked import eri_views
 from .models.ccsd import build_tau, slices
 from .ops.contract import contract
 from .utils.log import logger as log
@@ -181,7 +183,8 @@ def build_hbar(model, F, ERI, L, t1, t2, no):
 
 class cchbar:
     """cchbar(ccwfn): the HBAR of a converged ccwfn, built on its device
-    (`ccwfn.timers` keeps 'hbar.build').  storage='full': the 11 blocks as
+    (`ccwfn.timers` keeps 'hbar.build').  storage='full' or 'blocked': the
+    11 blocks as
     attributes, and `Hvvvv_efab`, the left ladder's operand, made once on
     first use.  storage='df': `self.hbar` is a models/dfhbar.DFHBar (the
     blocks of at most o^3 v, the factors and their t1 dressings) and its 8
@@ -191,10 +194,6 @@ class cchbar:
     def __init__(self, ccwfn):
         from .ccwfn import _not_ported
         storage = getattr(ccwfn, "storage", "full")
-        if storage == "blocked":
-            raise _not_ported("cchbar(storage='blocked')",
-                              "Queue 1, item 10 (blocked storage and mixed "
-                              "precision)")
         if getattr(ccwfn, "mesh", None) is not None:
             raise _not_ported("cchbar(mesh=...)",
                               "Queue 1, item 13 (multi-device)")
@@ -208,8 +207,8 @@ class cchbar:
                     model="CC2" if ccwfn.model == "CC2" else "CCSD")
                 names = DF_BLOCKS
             else:
-                H = ccwfn.H
-                self.hbar = build_hbar(ccwfn.model, H.F, H.ERI, H.L,
+                ERI, L = eri_views(ccwfn)
+                self.hbar = build_hbar(ccwfn.model, ccwfn.H.F, ERI, L,
                                        ccwfn.t1, ccwfn.t2, ccwfn.no)
                 names = BLOCKS
         for name in names:

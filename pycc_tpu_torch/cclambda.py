@@ -1,20 +1,24 @@
 """Lambda-amplitude solver: the left-hand eigenvector of HBAR.
 
-The counterpart of pycc_tpu/cclambda.py for storage='full' and 'df' and
-the models CCD, CC2, CCSD, CCSD(T) and CC3.  The residual is a plain
-function of (hbar, t, l); its Hvvvv ladder ('ijef,efab') runs through K1,
-on the HBAR's pre-laid operand under full storage, and a block of a at a
-time over the dressed factors under storage='df'
-(models/dfhbar.lambda_residuals_df, pycc_tpu's fused DF
+The counterpart of pycc_tpu/cclambda.py for storage='full', 'blocked'
+and 'df' and the models CCD, CC2, CCSD, CCSD(T) and CC3.  The residual is
+a plain function of (hbar, t, l); its Hvvvv ladder ('ijef,efab') runs
+through K1, on the HBAR's pre-laid operand under full and blocked
+storage, and a block of a at a time over the dressed factors under
+storage='df' (models/dfhbar.lambda_residuals_df, pycc_tpu's fused DF
 step).  `solve_lambda` is the T-amplitude solver's loop: a Jacobi step from
 diag(F), the pseudo-energy of the pre-extrapolation update, the on-device
 DIIS ring from `start_diis`, and one host read per iteration.  For CCSD(T)
 the (T) sources S1/S2 come from `triples.t3_lambda_sources`; CC3 adds the
 T3/L3 terms of models/cc3.py to the CCSD form, over the full tensors or
 one slab at a time (`ccwfn.t3_slabs`), over factors always the slab form
-(`cc3.cc3_lambda_extra_scan_df`).
+(`cc3.cc3_lambda_extra_scan_df`).  `solve_lambda(chk=..., resume=...)`
+checkpoints l1/l2 and the DIIS ring as solve_cc does;
+`solve_lambda_mixed` converges a float32 HBAR and Lambda first, then
+refines in float64.
 """
 
+import os
 import time
 import warnings
 
@@ -22,19 +26,13 @@ import torch
 
 from .cchbar import build_hbar
 from .models import cc3
-from .models.ccsd import build_tau, slices, vvvv_contract_efab
+from .models.blocked import eri_views
+from .models.ccsd import (build_tau, pair_symmetric, slices,
+                          vvvv_contract_efab)
 from .ops.contract import contract
 from .ops.diis import DIIS
 from .ops.kernels.vvvv import vvvv_nt
 from .utils.log import logger as log
-
-_NOT_PORTED_SOLVE_KWARGS = {
-    "chk": "Queue 1, item 10 (checkpoint/resume)",
-    "chk_every": "Queue 1, item 10 (checkpoint/resume)",
-    "chk_ring": "Queue 1, item 10 (checkpoint/resume)",
-    "resume": "Queue 1, item 10 (checkpoint/resume)",
-}
-
 
 def build_Goo(t2, l2):
     return contract("mjab,ijab->mi", t2, l2)
@@ -159,14 +157,42 @@ class cclambda:
             raise _not_ported("cclambda.residuals over factors "
                               "(lambda_residuals_from_F_df)",
                               "Queue 1, item 11 (real-time CC)")
-        return lambda_residuals_from_F(cc.model, F, cc.H.ERI, cc.H.L,
-                                       t1, t2, l1, l2, cc.no)
+        ERI, L = eri_views(cc)
+        return lambda_residuals_from_F(cc.model, F, ERI, L, t1, t2, l1, l2,
+                                       cc.no)
 
-    def solve_lambda_mixed(self, *args, **kwargs):
-        from .ccwfn import _not_ported
-        raise _not_ported("cclambda.solve_lambda_mixed",
-                          "Queue 1, item 10 (blocked storage and mixed "
-                          "precision)")
+    def solve_lambda_mixed(self, e_conv=1e-10, r_conv=1e-10, maxiter=100,
+                           sp_conv=1e-6, sp_dtype=torch.float32,
+                           refine_maxiter=None, **kw):
+        """Mixed-precision Lambda, the scheme of ccwfn.solve_cc_mixed: the
+        HBAR rebuilt in `sp_dtype` (float32) and Lambda converged to
+        sp_conv or its noise floor, then the HBAR rebuilt in float64 and
+        the same l1/l2 refined to e_conv/r_conv.  t1/t2 are a parameter of
+        the Lambda equations, so the exact float64 amplitudes are kept
+        through the floor stage and restored for the refinement, which
+        starts from the floor's l2 made pair-symmetric.
+        `self.hbar` is left at the float64 build and `self.e_sp_floor` is
+        the floor's pseudo-energy.  Needs a precision='DP' ccwfn."""
+        from .cchbar import cchbar
+        cc = self.ccwfn
+        if cc.precision != "DP":
+            raise ValueError("solve_lambda_mixed needs a precision='DP' "
+                             "ccwfn construction (the f64 masters are the "
+                             "refinement-stage Hamiltonian).")
+        cc._ensure_mixed_masters()
+        t1_64, t2_64 = cc.t1, cc.t2
+        cc._cast_stage(sp_dtype)
+        self.hbar = cchbar(cc)
+        self.l1, self.l2 = self.l1.to(sp_dtype), self.l2.to(sp_dtype)
+        self.e_sp_floor = float(self.solve_lambda(sp_conv, sp_conv, maxiter,
+                                                  **kw))
+        cc._cast_stage(torch.float64)
+        cc.t1, cc.t2 = t1_64, t2_64
+        self.hbar = cchbar(cc)
+        self.l1 = self.l1.to(torch.float64)
+        self.l2 = pair_symmetric(self.l2.to(torch.float64))
+        return self.solve_lambda(e_conv, r_conv, refine_maxiter or maxiter,
+                                 **kw)
 
     def _residual_fn(self, hb, S1, S2):
         """(residuals(l1, l2) -> (r1, r2), the <oo|vv> integrals of the
@@ -193,25 +219,29 @@ class cclambda:
             return residuals, _eri_oovv(cc.dfb)
 
         extra = cc3_extra_fn(cc) if model == "CC3" else None
+        ERI, L = eri_views(cc)
 
         def residuals(l1, l2):
-            r1, r2 = lambda_residuals(model, hb, H.F, H.ERI, H.L, t1, t2, l1,
-                                      l2, no, S1, S2)
+            r1, r2 = lambda_residuals(model, hb, H.F, ERI, L, t1, t2, l1, l2,
+                                      no, S1, S2)
             if extra is not None:
-                Y1, Y2 = extra(H.F, H.ERI, H.L, t1, t2, l1, l2, no)
+                Y1, Y2 = extra(H.F, ERI, L, t1, t2, l1, l2, no)
                 r1, r2 = r1 + Y1, r2 + Y2
             return r1, r2
         o, v = slices(no)
-        return residuals, H.ERI[o, o, v, v]
+        return residuals, ERI[o, o, v, v]
 
     def solve_lambda(self, e_conv=1e-7, r_conv=1e-7, maxiter=100, max_diis=8,
-                     start_diis=1, stall_limit=10, **kwargs):
+                     start_diis=1, stall_limit=10, chk=None, chk_every=10,
+                     chk_ring=False, resume=False):
         """Iterate the Lambda equations to the requested tolerances; returns
         the pseudo-energy.  max_diis=0 turns DIIS off; the noise-floor stop
         after `stall_limit` iterations without a 2% rms gain sets
-        `self.converged` from the energy change alone, as in solve_cc."""
-        from .ccwfn import _reject
-        _reject(kwargs, _NOT_PORTED_SOLVE_KWARGS, "solve_lambda")
+        `self.converged` from the energy change alone, as in solve_cc.
+        chk/chk_every/chk_ring/resume checkpoint the post-extrapolation
+        l1/l2 (keys l1, l2, niter, lecc, and the DIIS ring), as
+        ccwfn.solve_cc does."""
+        from .ccwfn import _load_ring
         tstart = time.time()
         cc = self.ccwfn
         no = cc.no
@@ -230,18 +260,33 @@ class cclambda:
         D2 = (eps[:no, None, None, None] + eps[None, :no, None, None]
               - eps[None, None, no:, None] - eps[None, None, None, no:])
         use_diis = max_diis > 0
+        niter0 = 0
+        ring = None
+        if resume and chk is not None and os.path.exists(chk):
+            from .utils.checkpoint import load_amps
+            d = load_amps(chk)
+            dev = self.l1.device
+            self.l1 = torch.as_tensor(d["l1"]).to(dev, self.l1.dtype)
+            self.l2 = torch.as_tensor(d["l2"]).to(dev, self.l2.dtype)
+            niter0 = int(d["niter"])
+            if "diis_amps" in d and use_diis:
+                ring = d
+            log.info("Lambda-CC resumed from %s at iteration %d%s"
+                     % (chk, niter0, " (with DIIS ring)" if ring else ""))
         diis = DIIS((self.l1, self.l2), max_diis=max(max_diis, 1))
         state = diis.init() if use_diis else None
+        if ring is not None:
+            _load_ring(diis, state, ring, "Lambda")
 
         l1, l2 = self.l1, self.l2
         lecc = float(0.5 * contract("ijab,ijab->", eri_oovv, l2))
         log.info("\nLCC Iter %3d: LCC PseudoE = %.15f  dE = % .5E"
-                 % (0, lecc, -lecc))
+                 % (niter0, lecc, -lecc))
         rms = float("inf")
         ediff = float("nan")
         best_rms = float("inf")
         stalled = 0
-        for niter in range(1, maxiter + 1):
+        for niter in range(niter0 + 1, maxiter + 1):
             with cc.timers.time("lambda.iteration"):
                 lecc_last = lecc
                 r1, r2 = residuals(l1, l2)
@@ -267,6 +312,13 @@ class cclambda:
             ediff = lecc - lecc_last
             log.info("LCC Iter %3d: LCC PseudoE = %.15f  dE = % .5E  "
                      "rms = % .5E" % (niter, lecc, ediff, rms))
+            if chk is not None and niter % chk_every == 0:
+                from .utils.checkpoint import save_amps
+                data = dict(l1=l1, l2=l2, niter=niter, lecc=lecc)
+                if chk_ring and use_diis:
+                    data.update(diis_amps=state.amps, diis_errs=state.errs,
+                                diis_count=state.count)
+                save_amps(chk, **data)
             if rms < 0.98 * best_rms:
                 best_rms = rms
                 stalled = 0

@@ -1,6 +1,7 @@
 """CC linear response: dynamic polarizabilities and pseudoresponses.
 
-The counterpart of pycc_tpu/ccresponse.py for storage='full' and 'df':
+The counterpart of pycc_tpu/ccresponse.py for storage='full', 'blocked'
+and 'df':
 the similarity-transformed perturbations (`pertbar`), the
 perturbed-amplitude residuals `r_X` (right, X) and `r_Y` (left, Y) with
 the left inhomogeneous terms `in_Y1`/`in_Y2`, term for term as plain
@@ -9,7 +10,8 @@ solvers (`solve_right`, `solve_left`; one host read an iteration), the
 conditioning probe and the asymmetric linear-response function.  Over DF
 factors the residuals are models/dfresponse.py's (`rX_df`, `inY1_df`,
 `inY2_df`, `rY_df`) on the DF-HBAR, the pertbars hold no o v^3 Avvvo, and
-no o^2 v^2 denominator stays resident.
+no o^2 v^2 denominator stays resident.  `solve_right_mixed` and
+`solve_left_mixed` converge in float32 and refine in float64.
 
 The magnetic-dipole and momentum perturbations (M, M*, P, P*) are
 complex128, so their X and Y are complex while HBAR is real: `contract`
@@ -26,7 +28,9 @@ import numpy as np
 import torch
 
 from .cclambda import build_Goo, build_Gvv
-from .models.ccsd import slices, vvvv_contract, vvvv_contract_efab
+from .models.blocked import LoovvOnly, eri_views
+from .models.ccsd import (pair_symmetric, slices, vvvv_contract,
+                          vvvv_contract_efab)
 from .ops.contract import contract
 from .ops.diis import DIIS
 from .ops.kernels.vvvv import vvvv_nt
@@ -283,8 +287,9 @@ def r_Y(hb, L, t2, imY1, imY2, omega, Y1, Y2, no, aux, ladder=vvvv_nt):
 
 
 class ccresponse:
-    """RHF-CC response properties of a storage='full' or 'df' ccdensity
-    (any object with `.ccwfn` and `.cclambda`), on the ccwfn's device.
+    """RHF-CC response properties of a storage='full', 'blocked' or 'df'
+    ccdensity (any object with `.ccwfn` and `.cclambda`), on the ccwfn's
+    device.
     `pertbar` holds the similarity-transformed perturbations by key:
     MU_X..Z, M_*, M*_*, P_*, P*_* and Q_XX..ZZ, for each operator the
     Hamiltonian carries."""
@@ -296,10 +301,16 @@ class ccresponse:
         self.cart = CART
         self._rebuild_stage()
 
-    def _rebuild_stage(self):
+    def _rebuild_stage(self, rebuild_hbar=False):
         """Every piece of response state derived from the ccwfn's current
-        amplitudes: the pertbars, the spin-adapted HBAR combinations, the
-        HBAR-diagonal denominators, and an empty conditioning cache."""
+        amplitudes and dtype stage: the pertbars, the spin-adapted HBAR
+        combinations, the <oo|vv> blocks, the HBAR-diagonal denominators,
+        and an empty conditioning cache.  rebuild_hbar=True first rebuilds
+        the Lambda object's HBAR from the ccwfn (the mixed solvers, after
+        `ccwfn._cast_stage`)."""
+        if rebuild_hbar:
+            from .cchbar import cchbar
+            self.cclambda.hbar = cchbar(self.ccwfn)
         self.H = self.ccwfn.H
         self.hbar = self.cclambda.hbar
         cc = self.ccwfn
@@ -329,7 +340,12 @@ class ccresponse:
             self._Loovv = loovv_df(hb.df)
             self._Eoovv = _eri_oovv(hb.df)
         else:
+            # the dense equations read only L[o,o,v,v] and <oo|vv>, of the
+            # full tensors or the blocks (`models/blocked.eri_views`)
             self._aux = build_response_aux(hb)
+            ERI, L = eri_views(cc)
+            o, v = slices(cc.no)
+            self._Loovv, self._Eoovv = L[o, o, v, v], ERI[o, o, v, v]
         self._eps_occ = torch.diagonal(hb.Hoo)
         self._eps_vir = torch.diagonal(hb.Hvv)
         self._cond_cache = {}
@@ -345,6 +361,10 @@ class ccresponse:
 
     def _hb(self):
         return getattr(self.hbar, "hbar", self.hbar)
+
+    def _oovv(self, block):
+        """An o/o/v/v block as the dense equations index it."""
+        return LoovvOnly(block, self.ccwfn.no)
 
     def _Adict(self, A):
         d = {"Aov": A.Aov, "Aoo": A.Aoo, "Avv": A.Avv, "Avo": A.Avo,
@@ -364,8 +384,8 @@ class ccresponse:
                          X1, X2, cc.no,
                          nblocks=getattr(cc, "df_nblocks", None),
                          ladder=ladder)
-        return r_X(self._hb(), cc.H.L, cc.t2, Ad, omega, X1, X2, cc.no,
-                   self._aux, ladder=ladder)
+        return r_X(self._hb(), self._oovv(self._Loovv), cc.t2, Ad, omega,
+                   X1, X2, cc.no, self._aux, ladder=ladder)
 
     def _in_Y(self, A, X1, X2, ladder=vvvv_nt):
         """The left inhomogeneous terms (imY1, imY2) of pertbar A over the
@@ -382,10 +402,11 @@ class ccresponse:
                     inY2_df(*args, X1, X2, no,
                             nblocks=getattr(cc, "df_nblocks", None),
                             ladder=ladder))
-        return (in_Y1(hb, cc.H.L, cc.t2, l1, l2, Ad, X1, X2, no, self._aux,
+        L = self._oovv(self._Loovv)
+        return (in_Y1(hb, L, cc.t2, l1, l2, Ad, X1, X2, no, self._aux,
                       ladder=ladder),
-                in_Y2(hb, cc.H.L, cc.H.ERI, cc.t2, l1, l2, Ad, X1, X2, no,
-                      self._aux))
+                in_Y2(hb, L, self._oovv(self._Eoovv), cc.t2, l1, l2, Ad, X1,
+                      X2, no, self._aux))
 
     def _r_Y(self, imY1, imY2, omega, Y1, Y2, ladder=vvvv_nt):
         """r_Y (full storage) or rY_df (DF) at the ccwfn's amplitudes."""
@@ -396,8 +417,8 @@ class ccresponse:
                          omega, Y1, Y2, cc.no,
                          nblocks=getattr(cc, "df_nblocks", None),
                          ladder=ladder)
-        return r_Y(self._hb(), cc.H.L, cc.t2, imY1, imY2, omega, Y1, Y2,
-                   cc.no, self._aux, ladder=ladder)
+        return r_Y(self._hb(), self._oovv(self._Loovv), cc.t2, imY1, imY2,
+                   omega, Y1, Y2, cc.no, self._aux, ladder=ladder)
 
     def pseudoresponse(self, A, X1, X2):
         polar1 = 2.0 * contract("ai,ia->", torch.conj(A.Avo), X1)
@@ -552,12 +573,17 @@ class ccresponse:
         return v1, v2, pseudo
 
     def _warm(self, v1, v2):
-        """A warm start widened to the amplitudes' dtype, complex kept."""
+        """A warm start widened to the amplitudes' dtype, complex kept, its
+        doubles made pair-symmetric (`models/ccsd.pair_symmetric`): the
+        float32 roundoff of a mixed solve's floor stage moved the refined
+        MU_Z pseudo-response of H2O/cc-pVDZ at omega = 0.0656 by 7.9e-9
+        (pycc_tpu keeps it: the warm/cold drift its _solve_mixed
+        docstring describes)."""
         t2 = self.ccwfn.t2
         v1 = torch.as_tensor(v1, device=t2.device)
         v2 = torch.as_tensor(v2, device=t2.device)
         dt = torch.promote_types(v1.dtype, t2.dtype)
-        return v1.to(dt), v2.to(dt)
+        return v1.to(dt), pair_symmetric(v2.to(dt))
 
     def solve_right(self, A, omega, e_conv=1e-12, r_conv=1e-12, maxiter=200,
                     max_diis=7, start_diis=1, stall_limit=10,
@@ -604,17 +630,73 @@ class ccresponse:
         self.Y1, self.Y2 = Y1, Y2
         return Y1, Y2, pseudo
 
-    def solve_right_mixed(self, *args, **kwargs):
-        from .ccwfn import _not_ported
-        raise _not_ported("ccresponse.solve_right_mixed",
-                          "Queue 1, item 10 (blocked storage and mixed "
-                          "precision)")
+    def _solve_mixed(self, side, pertkey, omega, e_conv, r_conv, maxiter,
+                     sp_conv, sp_dtype, refine_maxiter, kw):
+        """The mixed-precision perturbed-amplitude solve, the scheme of
+        ccwfn.solve_cc_mixed: HBAR and pertbars rebuilt in `sp_dtype`
+        (float32) and X (or Y) converged to sp_conv or its noise floor,
+        then everything rebuilt in float64 and the same vectors refined.
+        t1/t2 and l1/l2 (and, for a left solve, the right amplitudes X)
+        are parameters of the response equations: their exact float64
+        copies are restored for the refinement.  The HBAR and the
+        pertbars are left at the float64 build; `self.pseudo_sp_floor` is
+        the floor's pseudo-response.  Near a pole of (HBAR - omega) any
+        two solutions of working precision may differ by
+        ||r|| / sigma_min (`estimate_conditioning`)."""
+        cc = self.ccwfn
+        if cc.precision != "DP":
+            raise ValueError("mixed-precision response needs a "
+                             "precision='DP' ccwfn construction (the f64 "
+                             "masters are the refinement-stage "
+                             "Hamiltonian).")
+        cc._ensure_mixed_masters()
+        t1_64, t2_64 = cc.t1, cc.t2
+        l1_64, l2_64 = self.cclambda.l1, self.cclambda.l2
+        # a left solve reads the last right amplitudes: the floor takes
+        # them in its own width (complex X in the complex one)
+        X_64 = (self.X1, self.X2) if side == "left" else None
+        cc._cast_stage(sp_dtype)
+        self.cclambda.l1 = l1_64.to(sp_dtype)
+        self.cclambda.l2 = l2_64.to(sp_dtype)
+        if X_64 is not None:
+            cdt = torch.complex64 if sp_dtype == torch.float32 \
+                else torch.complex128
+            self.X1, self.X2 = (x.to(cdt if x.is_complex() else sp_dtype)
+                                for x in X_64)
+        self._rebuild_stage(rebuild_hbar=True)
+        solver = self.solve_right if side == "right" else self.solve_left
+        v1, v2, self.pseudo_sp_floor = solver(
+            self.pertbar[pertkey], omega, sp_conv, sp_conv, maxiter, **kw)
+        cc._cast_stage(torch.float64)
+        cc.t1, cc.t2 = t1_64, t2_64
+        self.cclambda.l1, self.cclambda.l2 = l1_64, l2_64
+        if X_64 is not None:
+            self.X1, self.X2 = X_64
+        self._rebuild_stage(rebuild_hbar=True)
+        init = (dict(X1_init=v1, X2_init=v2) if side == "right"
+                else dict(Y1_init=v1, Y2_init=v2))
+        return solver(self.pertbar[pertkey], omega, e_conv, r_conv,
+                      refine_maxiter or maxiter, **init, **kw)
 
-    def solve_left_mixed(self, *args, **kwargs):
-        from .ccwfn import _not_ported
-        raise _not_ported("ccresponse.solve_left_mixed",
-                          "Queue 1, item 10 (blocked storage and mixed "
-                          "precision)")
+    def solve_right_mixed(self, pertkey, omega, e_conv=1e-12, r_conv=1e-12,
+                          maxiter=200, sp_conv=1e-6, sp_dtype=torch.float32,
+                          refine_maxiter=None, **kw):
+        """Mixed-precision right-hand (X) solve of the pertbar named
+        `pertkey` ('MU_X', ...): the pertbar is rebuilt in each stage's
+        dtype (`_solve_mixed`).  Returns (X1, X2, pseudo-response)."""
+        return self._solve_mixed("right", pertkey, omega, e_conv, r_conv,
+                                 maxiter, sp_conv, sp_dtype, refine_maxiter,
+                                 kw)
+
+    def solve_left_mixed(self, pertkey, omega, e_conv=1e-12, r_conv=1e-12,
+                         maxiter=200, sp_conv=1e-6, sp_dtype=torch.float32,
+                         refine_maxiter=None, **kw):
+        """Mixed-precision left-hand (Y) solve (see solve_right_mixed); the
+        right amplitudes it reads are `self.X1/X2` of the last right solve,
+        as solve_left reads them."""
+        return self._solve_mixed("left", pertkey, omega, e_conv, r_conv,
+                                 maxiter, sp_conv, sp_dtype, refine_maxiter,
+                                 kw)
 
     # ------------------------------------------------------------------
     def linresp_asym(self, pertkey_a, X1_B, X2_B, Y1_B, Y2_B):

@@ -1,7 +1,7 @@
 """CC T-amplitude solver driver.
 
-The counterpart of pycc_tpu/ccwfn.py for storage='full' and 'df' and the
-models CCD, CC2, CCSD, CCSD(T) and CC3:
+The counterpart of pycc_tpu/ccwfn.py for storage='full', 'blocked' and
+'df' and the models CCD, CC2, CCSD, CCSD(T) and CC3:
 ``ccwfn(scf_wfn, model=..., precision=..., device=..., storage=...)``
 (or ``ccwfn.from_df_factors(B, F, no, ...)``) then ``solve_cc(e_conv,
 r_conv, maxiter, max_diis, start_diis, stall_limit)``.  Each iteration
@@ -25,9 +25,21 @@ wavefunction carries AO factors, i.e. run_rhf(df=True)) no four-index
 tensor exists anywhere: AO factors -> MO transform (host) ->
 recompression to active-space rank (on `device`).  Otherwise the dense MO
 ERI is built once, factored on `device` and dropped.
+
+storage='blocked' keeps the six unique Dirac blocks (models/blocked.py,
+`self.blocks`), each transformed straight from the AO ERI
+(`hamiltonian.mo_eri_blocks`), instead of ERI and L: H.ERI = H.L = None,
+and every consumer reads the block views (`models/blocked.eri_views`).
+
+`solve_cc(bf16_until=...)` (blocked and DF storage) runs the early
+residuals from bfloat16 operands, K1 in its bf16 mode;
+`solve_cc_mixed` pre-converges in float32 and refines in float64 from
+float64 host masters; `solve_cc(chk=..., resume=...)` checkpoints the
+iterate and the DIIS ring (utils/checkpoint.py, pycc_tpu's format).
 """
 
 import dataclasses
+import os
 import time
 import warnings
 
@@ -35,10 +47,12 @@ import numpy as np
 import torch
 
 from . import triples
-from .hamiltonian import Hamiltonian, build_hamiltonian
+from .hamiltonian import Hamiltonian, build_hamiltonian, mo_eri_blocks
 from .models import cc3
 from .models import ccsd as eqs
 from .models import dfccsd as dfq
+from .models.blocked import ERIBlocks, LoovvOnly, blocked_views, eri_views
+from .models.dfhbar import loovv_df
 from .ops.diis import DIIS
 from .utils.device import init_device
 from .utils.log import logger as log
@@ -71,9 +85,6 @@ _DF_RESIDUALS = {
 # past this many o^3 v^3 elements the triples run one slab at a time
 T3_FULL_MAX = 2e8
 
-_NOT_PORTED_STORAGE = {
-    "blocked": "Queue 1, item 10 (blocked storage and mixed precision)",
-}
 _NOT_PORTED_INIT_KWARGS = {
     "local": "Queue 1, item 12 (local correlation)",
     "local_cutoff": "Queue 1, item 12 (local correlation)",
@@ -84,13 +95,10 @@ _NOT_PORTED_INIT_KWARGS = {
     "mesh": "Queue 1, item 13 (multi-device)",
     "real_time": "Queue 1, item 11 (real-time CC)",
 }
-_NOT_PORTED_SOLVE_KWARGS = {
-    "bf16_until": "Queue 1, item 10 (blocked storage and mixed precision)",
-    "chk": "Queue 1, item 10 (checkpoint/resume)",
-    "chk_every": "Queue 1, item 10 (checkpoint/resume)",
-    "chk_ring": "Queue 1, item 10 (checkpoint/resume)",
-    "resume": "Queue 1, item 10 (checkpoint/resume)",
-}
+# what a precision stage derives from the stage's tensors: _cast_stage
+# drops them (the bf16 copies, the (T) Lambda sources and density blocks)
+_STAGE_CACHES = ("_bf16", "S1", "S2", "Doo_t3", "Dvv_t3", "Dov_t3",
+                 "Goovv", "Gooov", "Gvvvo")
 
 
 def _not_ported(what, item):
@@ -137,10 +145,12 @@ def _check_precision(precision):
 class ccwfn:
     """An RHF-CC wave function and energy object on one torch device.
 
-    storage='df' options: df_tol (the Cholesky tolerance, default 1e-8),
-    df_direct (None: on when scf_wfn carries AO factors), df_nblocks (the
-    ladder's a-blocks; None: `dfccsd._ladder_blocks`).  They are ignored
-    under storage='full', as pycc_tpu ignores them."""
+    storage: 'full' (ERI and L), 'blocked' (the six Dirac blocks) or 'df'
+    (Cholesky factors).  storage='df' options: df_tol (the Cholesky
+    tolerance, default 1e-8), df_direct (None: on when scf_wfn carries AO
+    factors), df_nblocks (the ladder's a-blocks; None:
+    `dfccsd._ladder_blocks`).  They are ignored under the other storages,
+    as pycc_tpu ignores them."""
 
     def __init__(self, scf_wfn, model="CCSD", precision="DP", device="cuda",
                  storage="full", df_tol=1e-8, df_direct=None,
@@ -149,10 +159,7 @@ class ccwfn:
         time_init = time.time()
         model = _check_model(model)
         storage = storage.lower()
-        if storage in _NOT_PORTED_STORAGE:
-            raise _not_ported("storage=%r" % storage,
-                              _NOT_PORTED_STORAGE[storage])
-        if storage not in ("full", "df"):
+        if storage not in ("full", "blocked", "df"):
             raise ValueError("%s is not an allowed storage mode." % storage)
         precision = _check_precision(precision)
         _reject(kwargs, _NOT_PORTED_INIT_KWARGS, "ccwfn")
@@ -178,6 +185,15 @@ class ccwfn:
             self.H = build_hamiltonian(scf_wfn, device=self.device,
                                        dtype=self.dtype)
             self._set_amplitudes(self.H.ERI[self.o, self.o, self.v, self.v])
+        elif storage == "blocked":
+            # no nact^4 tensor: F and the properties, then the six blocks
+            with self.timers.time("ccwfn.hamiltonian"):
+                self.H = build_hamiltonian(scf_wfn, device=self.device,
+                                           dtype=self.dtype, eri=False)
+            with self.timers.time("ccwfn.blocks"):
+                self.blocks = mo_eri_blocks(scf_wfn, device=self.device,
+                                            dtype=self.dtype)
+            self._set_amplitudes(self.blocks.oovv)
         else:
             if df_direct is None:
                 df_direct = getattr(scf_wfn, "B_ao", None) is not None
@@ -248,17 +264,24 @@ class ccwfn:
     def _set_amplitudes(self, eri_oovv):
         """Denominators from diag(F), t1 = 0, the MP2 t2 guess, and the
         model's residual and energy functions for the storage."""
+        self._set_denominators()
+        self.t1 = torch.zeros((self.no, self.nv), dtype=self.dtype,
+                              device=self.device)
+        self.t2 = eri_oovv / self.Dijab
+        self._bind_model()
+
+    def _set_denominators(self):
         o, v = self.o, self.v
         eps = torch.diagonal(self.H.F)
         self.Dia = eps[o, None] - eps[None, v]
         self.Dijab = (eps[o, None, None, None] + eps[None, o, None, None]
                       - eps[None, None, v, None] - eps[None, None, None, v])
-        self.t1 = torch.zeros((self.no, self.nv), dtype=self.dtype,
-                              device=self.device)
-        self.t2 = eri_oovv / self.Dijab
+
+    def _bind_model(self):
+        """The model's residual and energy functions for the storage."""
         self._residual_fn = (_DF_RESIDUALS if self.storage == "df"
                              else _RESIDUALS)[self.model]
-        if (self.model == "CC3" and self.storage == "full"
+        if (self.model == "CC3" and self.storage != "df"
                 and t3_slabs(self)):
             self._residual_fn = cc3.residuals_cc3_scan
         self._energy_fn = _ENERGY[self.model]
@@ -290,6 +313,7 @@ class ccwfn:
         self.eref = float(escf)
         self.nfzc = 0
 
+        F_in = F
         F = torch.as_tensor(F, dtype=self.dtype, device=self.device)
         self.no = int(no)
         self.nact = F.shape[0]
@@ -299,29 +323,85 @@ class ccwfn:
             torch.as_tensor(m, dtype=self.dtype, device=self.device)
             for m in mu)
         self.H = Hamiltonian(F=F, ERI=None, L=None, mu=mu, no=self.no)
+        if self.precision == "DP":
+            # the float64 host masters of solve_cc_mixed, taken while B
+            # and F are still what the caller handed in (a lazy stash
+            # would copy the device factors back)
+            Bh = torch.as_tensor(B, dtype=torch.float64, device="cpu")
+            no_ = self.no
+            self._mixed_masters = dict(
+                F=torch.as_tensor(F_in, dtype=torch.float64, device="cpu"),
+                ERI=None, L=None, blocks=None,
+                dfb=dfq.DFERI(Boo=Bh[:, :no_, :no_], Bov=Bh[:, :no_, no_:],
+                              Bvv=Bh[:, no_:, no_:]),
+                mu=tuple(x.to("cpu", torch.float64) for x in mu),
+                m=(), p=(), Q=())
         self._set_df(torch.as_tensor(B, dtype=torch.float64,
                                      device=self.device))
         return self
 
     # ------------------------------------------------------------------
+    def vvvv(self):
+        """<ab|ef> as one contiguous (v,v,v,v) tensor, K1's B operand."""
+        if self.storage == "blocked":
+            return self.blocks.vvvv
+        return self.H.vvvv
+
     def residuals(self, F, t1, t2):
         """T1/T2 residuals r_mu = <mu|HBAR|0> for the current amplitudes."""
         if self.storage == "df":
             return self._residual_fn(F, self.dfb, t1, t2, self.no,
                                      nblocks=self.df_nblocks)
-        H = self.H
-        return self._residual_fn(F, H.ERI, H.L, H.vvvv, t1, t2, self.no)
+        ERI, L = eri_views(self)
+        return self._residual_fn(F, ERI, L, self.vvvv(), t1, t2, self.no)
+
+    def _integrals_bf16(self):
+        """bfloat16 copies of the blocks or the factors, made once a stage
+        (`_cast_stage` drops them)."""
+        if "_bf16" not in self.__dict__:
+            if self.storage == "df":
+                self._bf16 = dfq.DFERI(*(b.to(torch.bfloat16)
+                                         for b in self.dfb))
+            else:
+                self._bf16 = ERIBlocks(*(b.to(torch.bfloat16)
+                                         for b in self.blocks))
+        return self._bf16
+
+    def residuals_bf16(self, F, t1, t2):
+        """The residuals from bfloat16 operands: F, t1, t2 and the blocks
+        or factors are all cast, so no float64 leftover promotes a product
+        back; K1 takes its bf16 mode (`ladder_product`).  The result is
+        bfloat16."""
+        bf = torch.bfloat16
+        F16, t1_16, t2_16 = F.to(bf), t1.to(bf), t2.to(bf)
+        H16 = self._integrals_bf16()
+        if self.storage == "df":
+            return self._residual_fn(F16, H16, t1_16, t2_16, self.no,
+                                     nblocks=self.df_nblocks)
+        bE, bL = blocked_views(H16, self.no)
+        return self._residual_fn(F16, bE, bL, H16.vvvv, t1_16, t2_16,
+                                 self.no)
+
+    def _loovv_bf16_stage(self):
+        """L[o,o,v,v] for the energy of a bf16 step, in the working dtype:
+        from blocks.oovv, or over DF assembled from the bf16 factors and
+        cast up, as pycc_tpu's step16 has it."""
+        if self.storage == "df":
+            return loovv_df(self._integrals_bf16()).to(self.t2.dtype)
+        e = self.blocks.oovv
+        return 2.0 * e - e.swapaxes(2, 3)
 
     def cc_energy(self, t1, t2, F=None):
         F = self.H.F if F is None else F
         if self.storage == "df":
             # t1 stays 0 under CCD, where this is the CCD energy
             return dfq.cc_energy_df(F, self.dfb, t1, t2, self.no)
-        return self._energy_fn(F, self.H.L, t1, t2, self.no)
+        return self._energy_fn(F, eri_views(self)[1], t1, t2, self.no)
 
     # ------------------------------------------------------------------
     def solve_cc(self, e_conv=1e-7, r_conv=1e-7, maxiter=100, max_diis=8,
-                 start_diis=1, stall_limit=10, **kwargs):
+                 start_diis=1, bf16_until=0.0, stall_limit=10, chk=None,
+                 chk_every=10, chk_ring=False, resume=False):
         """Iterate the CC amplitude equations to the requested tolerances.
 
         max_diis=0 turns DIIS off (plain Jacobi).  When the update rms has
@@ -329,36 +409,90 @@ class ccwfn:
         working precision's noise floor, common in SP), the solve stops and
         `self.converged` says whether the energy change met e_conv.
 
+        bf16_until > 0 (storage 'blocked' or 'df', models CCD, CC2, CCSD,
+        CCSD(T)) evaluates the residuals from bfloat16 operands
+        (`residuals_bf16`) while the update, DIIS and the energy stay in
+        the working dtype, until the rms drops below bf16_until.  A bf16
+        step whose rms does not improve (the bf16 noise floor) is rolled
+        back, the DIIS ring's overwritten slot included, and the solve
+        goes on in the working dtype.  `self.niter_bf16` counts the bf16
+        iterations.
+
+        chk=<path.npz> saves the post-extrapolation iterate (t1, t2,
+        niter, ecc; with chk_ring=True the DIIS ring too) every
+        `chk_every` iterations, atomically (utils/checkpoint.py, the
+        format of pycc_tpu's); resume=True reloads it and continues the
+        iteration count, on the uninterrupted trajectory when the ring
+        was saved.  A ring of another depth than max_diis is dropped with
+        a warning.
+
         For model="CCSD(T)" a converged solve adds the (T) energy: the
         return value and `self.ecc` are E(CCSD) + E(T).  The noise-floor
         stop and a solve that does not converge return E(CCSD) alone, as
         pycc_tpu does."""
-        _reject(kwargs, _NOT_PORTED_SOLVE_KWARGS, "solve_cc")
         tstart = time.time()
         F = self.H.F
+        use_bf16 = (bf16_until > 0 and self.storage in ("blocked", "df")
+                    and self.model != "CC3")
+        if bf16_until > 0 and not use_bf16:
+            raise ValueError("bf16_until requires storage='blocked' or 'df' "
+                             "and a canonical (non-local, non-CC3) model.")
         use_diis = max_diis > 0
+
+        niter0 = 0
+        ring = None
+        if resume and chk is not None and os.path.exists(chk):
+            from .utils.checkpoint import load_amps
+            d = load_amps(chk)
+            self.t1 = torch.as_tensor(d["t1"]).to(self.device, self.t1.dtype)
+            self.t2 = torch.as_tensor(d["t2"]).to(self.device, self.t2.dtype)
+            niter0 = int(d["niter"])
+            if "diis_amps" in d and use_diis:
+                ring = d
+            log.info("CCWFN resumed from %s at iteration %d%s"
+                     % (chk, niter0, " (with DIIS ring)" if ring else ""))
         diis = DIIS((self.t1, self.t2), max_diis=max(max_diis, 1))
         state = diis.init() if use_diis else None
+        if ring is not None:
+            _load_ring(diis, state, ring, "CCWFN")
 
         t1, t2 = self.t1, self.t2
         ecc = float(self.cc_energy(t1, t2))
         log.info("CC Iter %3d: CC Ecorr = %.15f  dE = % .5E  MP2"
-                 % (0, ecc, -ecc))
+                 % (niter0, ecc, -ecc))
+        Loovv16 = self._loovv_bf16_stage() if use_bf16 else None
+        bf16_active = use_bf16
+        self.niter_bf16 = 0
         rms = float("inf")
         ediff = float("nan")
         best_rms = float("inf")
         stalled = 0
-        for niter in range(1, maxiter + 1):
+        for niter in range(niter0 + 1, maxiter + 1):
             with self.timers.time("ccwfn.iteration"):
                 ecc_last = ecc
-                r1, r2 = self.residuals(F, t1, t2)
+                if bf16_active and rms <= bf16_until:
+                    bf16_active = False
+                if bf16_active:
+                    # the step may be rolled back: keep the pre-step
+                    # amplitudes and what the push will overwrite
+                    prev = (rms, t1, t2,
+                            diis.mark(state) if use_diis else None)
+                    r1, r2 = self.residuals_bf16(F, t1, t2)
+                    r1, r2 = r1.to(t1.dtype), r2.to(t2.dtype)
+                    self.niter_bf16 += 1
+                else:
+                    r1, r2 = self.residuals(F, t1, t2)
                 inc1 = r1 / self.Dia
                 inc2 = r2 / self.Dijab
                 t1n = t1 + inc1
                 t2n = t2 + inc2
                 rms_t = torch.sqrt(torch.sum(inc1 * inc1)
                                    + torch.sum(inc2 * inc2))
-                ecc_t = self.cc_energy(t1n, t2n)
+                if bf16_active:
+                    ecc_t = self._energy_fn(F, LoovvOnly(Loovv16, self.no),
+                                            t1n, t2n, self.no)
+                else:
+                    ecc_t = self.cc_energy(t1n, t2n)
                 if use_diis:
                     # DIIS error = the Jacobi increment from the amplitudes
                     # this iteration started from (post-extrapolation)
@@ -371,15 +505,29 @@ class ccwfn:
                     t1, t2 = t1n, t2n
                 # the one host read of the iteration
                 ecc, rms = torch.stack([ecc_t, rms_t]).tolist()
+                if bf16_active and not rms < prev[0]:
+                    # the bf16 noise floor (or a non-finite step): DIIS
+                    # would extrapolate on noise, so undo the step and go
+                    # on in the working dtype
+                    log.info("CC Iter %3d: bf16 stage hit its noise floor "
+                             "(rms % .3E); switching to full precision"
+                             % (niter, rms))
+                    bf16_active = False
+                    rms, t1, t2 = prev[:3]
+                    if use_diis:
+                        diis.restore(state, prev[3])
             self.t1, self.t2 = t1n, t2n
             self.niter = niter
             ediff = ecc - ecc_last
             log.info("CC Iter %3d: CC Ecorr = %.15f  dE = % .5E  rms = % .5E"
                      % (niter, ecc, ediff, rms))
+            if chk is not None and niter % chk_every == 0:
+                self._save_chk(chk, t1, t2, niter, ecc,
+                               state if chk_ring and use_diis else None)
             if rms < 0.98 * best_rms:
                 best_rms = rms
                 stalled = 0
-            else:
+            elif not bf16_active:
                 stalled += 1
                 if stall_limit and stalled >= stall_limit and rms >= r_conv:
                     self.ecc = ecc
@@ -414,6 +562,15 @@ class ccwfn:
                       "(dE=%.2e rms=%.2e)" % (maxiter, ediff, rms))
         return ecc
 
+    def _save_chk(self, chk, t1, t2, niter, ecc, state):
+        from .utils.checkpoint import save_amps
+        data = dict(t1=t1, t2=t2, niter=niter, ecc=ecc)
+        if state is not None:
+            data.update(diis_amps=state.amps, diis_errs=state.errs,
+                        diis_count=state.count)
+        with self.timers.time("ccwfn.checkpoint"):
+            save_amps(chk, **data)
+
     def t3_density(self):
         """E(T) with the (T) density blocks and Lambda sources, which stay
         on this object for cclambda and ccdensity (`triples.t3_density`,
@@ -426,3 +583,151 @@ class ccwfn:
         log.info("E(%s) = %20.15f" % (self.model, ecc))
         log.info("E(TOT)  = %20.15f" % (ecc + self.eref))
         self.timers.report()
+
+    # ------------------------------------------------------------------
+    def _ensure_mixed_masters(self):
+        """Stash float64 host (CPU) masters of F, the integrals of the
+        storage (ERI and L, the blocks or the factors) and the property
+        operators: each precision stage's device copies are cast from
+        them, so the card never holds both precisions at once."""
+        if "_mixed_masters" in self.__dict__:
+            return
+
+        def host(x):
+            return None if x is None else x.detach().to("cpu", copy=True)
+
+        H = self.H
+        self._mixed_masters = dict(
+            F=host(H.F),
+            ERI=host(H.ERI) if self.storage == "full" else None,
+            L=host(H.L) if self.storage == "full" else None,
+            blocks=(ERIBlocks(*map(host, self.blocks))
+                    if self.storage == "blocked" else None),
+            dfb=(dfq.DFERI(*map(host, self.dfb))
+                 if self.storage == "df" else None),
+            **{k: tuple(map(host, getattr(H, k)))
+               for k in ("mu", "m", "p", "Q")})
+
+    def _cast_stage(self, dtype):
+        """Re-point everything a residual, Lambda or sigma reads at `dtype`
+        copies of the float64 masters on the device: F, the integrals of
+        the storage, the properties (mu and Q in `dtype`, m and p in its
+        complex width), the amplitudes (t2 made pair-symmetric,
+        `models/ccsd.pair_symmetric`); re-derive Dia/Dijab and rebind the
+        model; drop the caches derived from the old stage (`_STAGE_CACHES`:
+        the bf16 copies, the (T) sources and density blocks).  The old
+        stage's integrals lose their last reference before the new ones
+        are made."""
+        m = self._mixed_masters
+        dev = self.device
+        cdtype = torch.complex64 if dtype == torch.float32 \
+            else torch.complex128
+
+        def put(x):
+            return x.to(dev, dtype).contiguous()
+
+        def putp(x):
+            return x.to(dev, cdtype if x.is_complex() else dtype)
+
+        self.H = self.blocks = self.dfb = None
+        for name in _STAGE_CACHES:
+            self.__dict__.pop(name, None)
+        full = self.storage == "full"
+        self.H = Hamiltonian(
+            F=put(m["F"]), ERI=put(m["ERI"]) if full else None,
+            L=put(m["L"]) if full else None,
+            **{k: tuple(map(putp, m[k])) for k in ("mu", "m", "p", "Q")},
+            no=self.no)
+        if self.storage == "blocked":
+            self.blocks = ERIBlocks(*map(put, m["blocks"]))
+        elif self.storage == "df":
+            self.dfb = dfq.DFERI(*map(put, m["dfb"]))
+        self.dtype = dtype
+        self.t1 = self.t1.to(dtype)
+        # a float32 stage leaves roundoff in the pair-antisymmetric part of
+        # t2, which moved the refined Ecorr of (H2O)_6/cc-pVDZ by 2.1e-10
+        self.t2 = eqs.pair_symmetric(self.t2.to(dtype))
+        self._set_denominators()
+        self._bind_model()
+
+    def solve_cc_mixed(self, e_conv=1e-10, r_conv=1e-10, maxiter=100,
+                       sp_conv=1e-6, sp_dtype=torch.float32,
+                       refine_maxiter=None, sp_kwargs=None,
+                       refine_kwargs=None, chk=None, chk_every=20,
+                       resume=False, **kw):
+        """Mixed-precision solve for any storage: converge in `sp_dtype`
+        (float32) to sp_conv or its noise floor, then refine in float64 to
+        e_conv/r_conv from the floor amplitudes.  The fixed point does not
+        depend on the dtype, so the result is a pure float64 solve's.
+
+        sp_kwargs go to the floor stage only (bf16_until, say, which then
+        runs its own bf16 stage first), refine_kwargs to the refinement
+        only, **kw to both.  chk=<base> checkpoints each stage
+        (<base>.sp.npz, <base>.rf.npz) and the floor's end
+        (<base>.floor.npz: its amplitudes and `e_sp_floor`), so resume=True
+        re-enters the right stage: a finished floor is not solved again.
+        `self.e_sp_floor` is the floor stage's energy; `self.stages` lists
+        (stage, dtype, iterations, seconds, bf16 iterations).  Needs a
+        precision='DP' construction (the float64 masters are the
+        refinement's Hamiltonian)."""
+        if self.precision != "DP":
+            raise ValueError("solve_cc_mixed needs a precision='DP' "
+                             "construction (the f64 masters are the "
+                             "refinement-stage Hamiltonian).")
+        from .utils.checkpoint import load_amps, save_amps
+        self._ensure_mixed_masters()
+        self.stages = []
+        floor_chk = (str(chk) + ".floor.npz") if chk else None
+        if resume and floor_chk and os.path.exists(floor_chk):
+            d = load_amps(floor_chk, device=self.device)
+            self.t1, self.t2 = d["t1"], d["t2"]
+            self.e_sp_floor = float(d["e_sp_floor"])
+            log.info("CCWFN mixed resume: floor stage already complete "
+                     "(%s, E_floor=%.10f); entering f64 refinement"
+                     % (floor_chk, self.e_sp_floor))
+        else:
+            self._cast_stage(sp_dtype)
+            kw_sp = dict(kw)
+            kw_sp.update(sp_kwargs or {})
+            if chk is not None:
+                kw_sp.setdefault("chk", str(chk) + ".sp.npz")
+                kw_sp.setdefault("chk_every", chk_every)
+                kw_sp.setdefault("resume", resume)
+            t0 = time.time()
+            self.e_sp_floor = float(self.solve_cc(sp_conv, sp_conv, maxiter,
+                                                  **kw_sp))
+            self.stages.append(("floor", str(sp_dtype), self.niter,
+                                time.time() - t0, self.niter_bf16))
+            if floor_chk is not None:
+                with self.timers.time("ccwfn.checkpoint"):
+                    save_amps(floor_chk, t1=self.t1, t2=self.t2,
+                              e_sp_floor=self.e_sp_floor)
+        self._cast_stage(torch.float64)
+        kw_rf = dict(kw)
+        kw_rf.update(refine_kwargs or {})
+        if chk is not None:
+            kw_rf.setdefault("chk", str(chk) + ".rf.npz")
+            kw_rf.setdefault("chk_every", max(1, chk_every // 4))
+            kw_rf.setdefault("resume", resume)
+        t0 = time.time()
+        ecc = self.solve_cc(e_conv, r_conv, refine_maxiter or maxiter,
+                            **kw_rf)
+        self.stages.append(("refine", str(torch.float64), self.niter,
+                            time.time() - t0, self.niter_bf16))
+        return ecc
+
+
+def _load_ring(diis, state, ring, who):
+    """Fill a fresh DIIS ring from a checkpoint's diis_amps/diis_errs/
+    diis_count, unless it was saved at another depth: then warn and keep
+    the empty ring (the amplitudes are restored all the same)."""
+    depth = ring["diis_amps"].shape[0]
+    if depth != state.amps.shape[0]:
+        log.warning("%s resume: checkpoint DIIS ring depth %d != current "
+                    "max_diis ring depth %d; starting with an empty ring "
+                    "(amplitudes are restored)."
+                    % (who, depth, state.amps.shape[0]))
+        return
+    state.amps.copy_(torch.as_tensor(ring["diis_amps"]))
+    state.errs.copy_(torch.as_tensor(ring["diis_errs"]))
+    state.count = int(ring["diis_count"])

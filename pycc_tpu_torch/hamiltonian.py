@@ -79,6 +79,46 @@ def _mo_eri_dirac(ERI_ao, C):
     return t.swapaxes(1, 2).contiguous()
 
 
+def mo_eri_blocks(wfn, device="cuda", dtype=torch.float64):
+    """The six canonical Dirac blocks of the active-space ERI
+    (models/blocked.ERIBlocks: oooo, ooov, oovv, ovov, ovvv, vvvv), each
+    transformed straight from the AO ERI by four quarter transforms with
+    the occupied or the virtual columns of C, in float64 on `device`, then
+    cast to `dtype`.  The nact^4 MO ERI is never formed.  A partial
+    transform that several blocks share is made once, and dropped as soon
+    as no block left needs it.  The AO ERI is the wavefunction's (`ERI_ao`), or
+    is computed here."""
+    from .models.blocked import CANONICAL, ERIBlocks
+    from .scf import integrals as ints
+
+    dev = init_device(device)
+    no = wfn.doccpi()[0] - wfn.frzcpi()[0]
+    C = torch.as_tensor(np.asarray(wfn.Ca_subset("AO", "ACTIVE")),
+                        dtype=torch.float64, device=dev)
+    cols = {"o": C[:, :no], "v": C[:, no:]}
+    ERI_ao = getattr(wfn, "ERI_ao", None)
+    if ERI_ao is None:
+        ERI_ao = ints.eri(wfn.basisset())
+    # <pq|rs> = (pr|qs): block pat transforms the AO indices in the
+    # chemists' order p, r, q, s
+    chem = [pat[0] + pat[2] + pat[1] + pat[3] for pat in CANONICAL]
+    done = {"": torch.as_tensor(ERI_ao, device=dev)}
+    del ERI_ao
+    blocks = []
+    for k, order in enumerate(chem):
+        for depth in range(1, 5):
+            key = order[:depth]
+            if key not in done:
+                done[key] = torch.tensordot(done[key[:-1]], cols[key[-1]],
+                                            dims=([0], [0]))
+            # a partial transform goes as soon as no later block needs it
+            if not any(c.startswith(key[:-1]) for c in chem[k + 1:]):
+                done.pop(key[:-1], None)
+        blocks.append(done.pop(order).permute(0, 2, 1, 3).to(dtype)
+                      .contiguous())
+    return ERIBlocks(*blocks)
+
+
 def build_hamiltonian(wfn, device="cuda", dtype=torch.float64, eri=True):
     """Build the active-space Hamiltonian from an SCF wavefunction.
 

@@ -1,8 +1,9 @@
 """CC3: the iterative approximate-triples model.
 
-The counterpart of pycc_tpu/models/cc3.py for storage='full' and over
-Cholesky/DF factors (energy, Lambda and the one-electron density).  Each
-function keeps the name of its counterpart and its terms.
+The counterpart of pycc_tpu/models/cc3.py for storage='full' and
+'blocked' and over Cholesky/DF factors (energy, Lambda and the
+one-electron density).  Each function keeps the name of its counterpart
+and its terms.
 
 Two forms of every triples contribution:
 
@@ -35,6 +36,7 @@ from ..ops.kernels.vvvv import vvvv_nt
 from ..triples import (_dslice, _swap_ac, _swap_bc, _t3c_chunk_ij,
                        _t3c_slab, _t3c_slab_ij, _t_df_kc, slab_layouts,
                        t3_denom, t3c_full)
+from .blocked import eri_views
 from .ccsd import build_Fme, residuals_ccsd, slices
 
 # no v^3 elements of one pair slab past which the rows are k-chunked
@@ -357,7 +359,7 @@ def _pdm_blocks(cc, t1, t2, l1, l2, Doo, Dvv, Dov):
 
 def cc3_onepdm(cc, t1, t2, l1, l2, real_time=False):
     no = cc.no
-    F, ERI, L = cc.H.F, cc.H.ERI, cc.H.L
+    F, (ERI, L) = cc.H.F, eri_views(cc)
     if t1.is_complex():
         F = F.to(t1.dtype)
 
@@ -1005,7 +1007,7 @@ def cc3_onepdm_scan(cc, t1, t2, l1, l2, real_time=False):
          Vov) = cc3_lambda_prep_df(F, cc.dfb, t1, t2, no,
                                    real_time=real_time, F_ref=cc.H.F)
     else:
-        ERI, L = cc.H.ERI, cc.H.L
+        ERI, L = eri_views(cc)
         Fov = build_Fme(F, L, t1, no)
         _, Wmbij, Wmnie, Wamef, Wabei = cc3_intermediates(ERI, t1, no)
         Wabei_o, Wmbij_t = slab_layouts(Wabei, Wmbij)

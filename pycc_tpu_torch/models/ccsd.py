@@ -15,11 +15,20 @@ complex amplitudes as stacked real and imaginary rows.
 import torch
 
 from ..ops.contract import contract
-from ..ops.kernels.vvvv import vvvv_nt
+from ..ops.kernels.vvvv import ladder_product, vvvv_nt
 
 
 def slices(no):
     return slice(0, no), slice(no, None)
+
+
+def pair_symmetric(x):
+    """The part of doubles x[..., i, j, a, b] symmetric under (ij)(ab), where
+    every closed-shell doubles solution lies.  The residuals are
+    symmetrised, so an antisymmetric part of a start vector is never
+    corrected, yet it moves the fixed point through the unsymmetrised
+    terms: the mixed solvers project float32 roundoff out with this."""
+    return 0.5 * (x + x.transpose(-4, -3).transpose(-2, -1))
 
 
 def build_tau(t1, t2, f1=1.0, f2=1.0):
@@ -35,7 +44,9 @@ def vvvv_contract(tau, W, ladder=vvvv_nt):
     A complex tau (the response amplitudes of the M and P perturbations)
     against a real W is still one real product: its real and imaginary
     rows stacked as one (2 o^2, v^2) matrix, recombined after.  A complex
-    W is not reached by the ported modules (real-time CC is)."""
+    W is not reached by the ported modules (real-time CC is).  bfloat16
+    operands take K1's bf16 mode and give a bfloat16 result
+    (`ladder_product`)."""
     if W.is_complex():
         from ..ccwfn import _not_ported
         raise _not_ported("vvvv_contract with a complex W",
@@ -46,10 +57,10 @@ def vvvv_contract(tau, W, ladder=vvvv_nt):
     B = W.reshape(na * nb, nv * nv)
     if A.is_complex():
         m = A.shape[0]
-        out = ladder(torch.cat([A.real, A.imag]), B)
+        out = ladder_product(ladder, torch.cat([A.real, A.imag]), B)
         out = torch.complex(out[:m], out[m:])
     else:
-        out = ladder(A, B)
+        out = ladder_product(ladder, A, B)
     return out.reshape(no1, no2, na, nb)
 
 

@@ -41,7 +41,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.contract import contract
-from ..ops.kernels.vvvv import vvvv_nt
+from ..ops.kernels.vvvv import ladder_product, vvvv_nt
 from .dfccsd import (DFERI, _eri_oooo, _eri_ooov, _eri_oovv, _eri_ovoo,
                      _eri_ovov, _eri_ovvo, _ladder_blocks, _tau, ladder_W)
 
@@ -95,7 +95,9 @@ def ladder_apply(BL, BR, x2, nblocks=None, ladder=vvvv_nt):
 
     A complex x2 goes in as one real product, its real and imaginary rows
     stacked; a complex BL (an X1-dressed factor of the response) is two
-    real ladders.  A complex BR is real-time CC's (item 11)."""
+    real ladders.  A complex BR is real-time CC's (item 11).  bfloat16
+    operands take K1's bf16 mode and give a bfloat16 result
+    (`ladder_product`)."""
     if BR.is_complex():
         from ..ccwfn import _not_ported
         raise _not_ported("ladder_apply with a complex right factor",
@@ -118,7 +120,7 @@ def ladder_apply(BL, BR, x2, nblocks=None, ladder=vvvv_nt):
     for a0 in range(0, na, blk):
         a1 = min(a0 + blk, na)
         W = ladder_W(BL[:, a0:a1], BR)
-        z[:, a0:a1] = ladder(A, W).view(-1, a1 - a0, nb)
+        z[:, a0:a1] = ladder_product(ladder, A, W).view(-1, a1 - a0, nb)
         del W
     if x2.is_complex():
         z = torch.complex(z[:m], z[m:])

@@ -56,6 +56,21 @@ class DIIS:
         state.count += 1
         return state
 
+    def mark(self, state):
+        """What the next `push` overwrites: its slot's amplitude and error
+        rows (two copies of one row each, never the ring) and the count;
+        `restore` puts them back."""
+        slot = state.count % self.max_diis
+        return (slot, state.amps[slot].clone(), state.errs[slot].clone(),
+                state.count)
+
+    def restore(self, state, mark):
+        """Undo the push that followed `mark(state)`, in place."""
+        slot, amps, errs, count = mark
+        state.amps[slot] = amps
+        state.errs[slot] = errs
+        state.count = count
+
     def extrapolate(self, state, amps):
         """Solve the Pulay system over the filled slots.  Unfilled slots are
         masked to an identity row and a zero border, and B is normalised by

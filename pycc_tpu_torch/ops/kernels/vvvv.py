@@ -72,7 +72,8 @@ def vvvv_nt(A, B, bf16=False):
     bf16=True the operands (float32 or bfloat16) are rounded to bfloat16,
     accumulated in float32, and the result is float32.  CPU tensors take
     the plain version; CUDA tensors launch the kernel (`vvvv_nt.launches`
-    counts the launches)."""
+    counts the launches, `vvvv_nt.launches_by_mode` them by mode: "f64",
+    "f32" or "bf16")."""
     if A.device.type == "cpu" and B.device.type == "cpu":
         return vvvv_nt_reference(A, B, bf16)
     if A.device.type != "cuda" or A.device != B.device:
@@ -92,11 +93,11 @@ def vvvv_nt(A, B, bf16=False):
                             "got %s" % A.dtype)
         A = A.to(torch.bfloat16)
         B = B.to(torch.bfloat16)
-        entry, out_dtype = "vvvv_nt_bf16", torch.float32
+        mode, out_dtype = "bf16", torch.float32
     elif A.dtype == torch.float64:
-        entry, out_dtype = "vvvv_nt_f64", torch.float64
+        mode, out_dtype = "f64", torch.float64
     elif A.dtype == torch.float32:
-        entry, out_dtype = "vvvv_nt_f32", torch.float32
+        mode, out_dtype = "f32", torch.float32
     else:
         raise TypeError("vvvv_nt takes float64 or float32 (or bf16=True), "
                         "got %s" % A.dtype)
@@ -110,13 +111,34 @@ def vvvv_nt(A, B, bf16=False):
         return C
     lib = _library()
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    rc = getattr(lib, entry)(A.data_ptr(), B.data_ptr(), C.data_ptr(),
+    rc = getattr(lib, "vvvv_nt_" + mode)(A.data_ptr(), B.data_ptr(), C.data_ptr(),
                              M, N, K, copy_bytes(A, B), stream)
     if rc != 0:
         raise RuntimeError("vvvv_nt launch failed: %s"
                            % lib.vvvv_nt_error_string(rc).decode())
     vvvv_nt.launches += 1
+    vvvv_nt.launches_by_mode[mode] += 1
     return C
 
 
 vvvv_nt.launches = 0
+vvvv_nt.launches_by_mode = {"f64": 0, "f32": 0, "bf16": 0}
+
+
+def reset_launches():
+    """Set K1's launch counts (total and by mode) to 0."""
+    vvvv_nt.launches = 0
+    for mode in vvvv_nt.launches_by_mode:
+        vvvv_nt.launches_by_mode[mode] = 0
+
+
+def ladder_product(ladder, A, B):
+    """`ladder(A, B)` = A @ B.T in A's dtype, the one place every ladder
+    caller goes through: bfloat16 operands take the bf16 mode (float32
+    accumulation) and the product is rounded back to bfloat16, as
+    pycc_tpu's dot with preferred_element_type=tau.dtype gives; float64
+    and float32 operands go as they are.  `ladder` is `vvvv_nt` (K1) or
+    `vvvv_nt_reference`."""
+    if A.dtype == torch.bfloat16:
+        return ladder(A, B, bf16=True).to(torch.bfloat16)
+    return ladder(A, B)

@@ -1,6 +1,8 @@
 """Connected-triples (T) energy drivers.
 
-The counterpart of pycc_tpu/triples.py for storage='full' and 'df':
+The counterpart of pycc_tpu/triples.py for storage='full', 'blocked' and
+'df' (the dense functions read `models/blocked.eri_views`, so blocked
+storage cuts every slice from the views of its six blocks):
 
 - `t_vikings(cc)`: the full-tensor (T), o^3 v^3 memory, for small systems
   and tests;
@@ -8,7 +10,8 @@ The counterpart of pycc_tpu/triples.py for storage='full' and 'df':
   t3 at a time, as a plain whole-(T) reference (a Python loop over rows and
   j-chunks);
 - `t_vikings_scan(cc)`: the production (T) of `ccwfn(model="CCSD(T)")`.
-  It cuts the integral slices once (from the factors under storage='df',
+  It cuts the integral slices once (from the block views under
+  storage='blocked', from the factors under storage='df',
   `t_scan_df_slices`) and runs every row through the K2 kernel wrapper
   (`ops/kernels/triples.py`), which launches the CUDA kernel on CUDA
   tensors;
@@ -17,7 +20,7 @@ The counterpart of pycc_tpu/triples.py for storage='full' and 'df':
 - `t_vikings_inverted` and `t_tjl`: the virtual-driven and the Lee/Rendell
   restricted-triples (T), two oracles with other reduction orders;
 - the (T) density of CCSD(T): `t3_density` over the full T3 tensor
-  (storage='full') and `t3_density_scan`, one pass per (i, j) slab pair,
+  (storage 'full' or 'blocked') and `t3_density_scan`, one pass per (i, j) slab pair,
   on slices cut from the ERI or assembled from DF factors; both leave the
   Lambda sources S1/S2 and the density blocks on the ccwfn
   (`t3_density_energy` picks one, `t3_lambda_sources` reads them).
@@ -28,6 +31,7 @@ the JAX versions have no counterpart here.
 
 import torch
 
+from .models.blocked import eri_views
 from .ops.contract import contract
 
 
@@ -101,7 +105,7 @@ def _vikings_X(F, ERI, L, t2, t3, no):
 def t_vikings(cc):
     """Occupied-driven (T) energy over the full T3 tensor (0-d tensor)."""
     no = cc.no
-    F, ERI, L = cc.H.F, cc.H.ERI, cc.H.L
+    F, (ERI, L) = cc.H.F, eri_views(cc)
     t1, t2 = cc.t1, cc.t2
     o, v = _slices(no)
     t3 = t3c_full(ERI[v, v, v, o], ERI[o, v, o, o], t2, F, no)
@@ -115,7 +119,7 @@ def t_vikings_inverted(cc):
     virtual slab (fixed first virtual index of T3 and X2) at a time, a
     different reduction order kept as a numerical cross-check."""
     no = cc.no
-    F, ERI, L = cc.H.F, cc.H.ERI, cc.H.L
+    F, (ERI, L) = cc.H.F, eri_views(cc)
     t1, t2 = cc.t1, cc.t2
     o, v = _slices(no)
     t3 = t3c_full(ERI[v, v, v, o], ERI[o, v, o, o], t2, F, no)
@@ -138,7 +142,7 @@ def t_tjl(cc):
     occupied triple i >= j >= k, the a >= b >= c triangle of each block
     kept by a mask, and the degenerate triples weighted."""
     no, nv = cc.no, cc.nv
-    F, ERI = cc.H.F, cc.H.ERI
+    F, ERI = cc.H.F, eri_views(cc)[0]
     t1, t2 = cc.t1, cc.t2
     o, v = _slices(no)
     dt, dev = F.dtype, F.device
@@ -237,18 +241,12 @@ def _X3_o(M):
             + 2.0 * _perm_o(M, "jki"))
 
 
-def _require_full(cc, what):
-    """The full-tensor (T) density reads the full ERI: DF factors take the
-    slab scan, blocked storage names its item."""
-    storage = getattr(cc, "storage", "full")
-    if storage == "df":
+def _require_dense(cc, what):
+    """The full-tensor (T) density reads ERI slices, full or blocked: over
+    DF factors it is t3_density_scan."""
+    if getattr(cc, "storage", "full") == "df":
         raise ValueError("%s reads the full ERI; over DF factors the (T) "
                          "density is t3_density_scan" % what)
-    if storage != "full":
-        from .ccwfn import _not_ported
-        raise _not_ported("%s(storage=%r)" % (what, storage),
-                          "Queue 1, item 10 (blocked storage and mixed "
-                          "precision)")
 
 
 def _keep_t3_density(cc, Doo, Dvv, Dov, Goovv, Gooov, Gvvvo, S1, S2):
@@ -264,9 +262,9 @@ def t3_density(cc):
     systems and tests): Lambda sources S1/S2, 1-pdm blocks Doo/Dvv/Dov,
     2-pdm blocks Goovv/Gooov/Gvvvo, kept on the ccwfn; returns E(T) as a
     0-d tensor."""
-    _require_full(cc, "t3_density")
+    _require_dense(cc, "t3_density")
     no = cc.no
-    F, ERI, L = cc.H.F, cc.H.ERI, cc.H.L
+    F, (ERI, L) = cc.H.F, eri_views(cc)
     t1, t2 = cc.t1, cc.t2
     o, v = _slices(no)
     M = t3c_full(ERI[v, v, v, o], ERI[o, v, o, o], t2, F, no)
@@ -526,10 +524,11 @@ def t_vikings_scan_core(Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps,
 
 def scan_slices(cc):
     """The integral slices the (T) row scan consumes, cut once from the
-    full ERI/L as contiguous tensors on cc's device: (Wvvvo_o, Wovoo_t,
-    Evovv, Eooov, Loovv, Fov, eps)."""
+    full ERI/L, or under storage='blocked' from the block views, as
+    contiguous tensors on cc's device: (Wvvvo_o, Wovoo_t, Evovv, Eooov,
+    Loovv, Fov, eps)."""
     o, v = _slices(cc.no)
-    ERI, L, F = cc.H.ERI, cc.H.L, cc.H.F
+    (ERI, L), F = eri_views(cc), cc.H.F
     Wvvvo_o, Wovoo_t = slab_layouts(ERI[v, v, v, o], ERI[o, v, o, o])
     return (Wvvvo_o, Wovoo_t, ERI[v, o, v, v].contiguous(),
             ERI[o, o, o, v].contiguous(), L[o, o, v, v].contiguous(),
@@ -554,15 +553,11 @@ def t_scan_df_slices(F, Boo, Bov, Bvv, no):
 
 def t_vikings_scan(cc):
     """The (T) energy of a converged ccwfn, as a 0-d tensor: the slices
-    once (cut from the full ERI, or under storage='df' assembled from the
-    factors by `t_scan_df_slices`), then one K2 row per occupied index
-    (the CUDA kernel on CUDA tensors, its plain version on CPU tensors)."""
+    once (cut from the full ERI or the blocked views, or under
+    storage='df' assembled from the factors by `t_scan_df_slices`), then
+    one K2 row per occupied index (the CUDA kernel on CUDA tensors, its
+    plain version on CPU tensors)."""
     storage = getattr(cc, "storage", "full")
-    if storage == "blocked":
-        from .ccwfn import _not_ported
-        raise _not_ported("t_vikings_scan(storage='blocked')",
-                          "Queue 1, item 10 (blocked storage and mixed "
-                          "precision)")
     from .ops.kernels.triples import t_vikings_rows
     if storage == "df":
         sl = t_scan_df_slices(cc.H.F, *cc.dfb, cc.no)
@@ -612,7 +607,8 @@ def _t3d_slab_ij(i, j, t1, t2, Eoovv, Fov, eps_o, eps_v):
 def density_slices(cc):
     """The integral slices the (T)-density scan consumes, as contiguous
     tensors on cc's device: (Wvvvo_o, Wovoo_t, Evovv, Eooov, Eoovv, Loovv,
-    Fov, eps), cut once from the full ERI/L or, under storage='df',
+    Fov, eps), cut once from the full ERI/L or the blocked views or,
+    under storage='df',
     assembled from the factors (`t_scan_df_slices` and <oo|vv>)."""
     o, v = _slices(cc.no)
     if getattr(cc, "storage", "full") == "df":
@@ -621,9 +617,8 @@ def density_slices(cc):
         Bov = cc.dfb.Bov
         Eoovv = contract("Pia,Pjb->ijab", Bov, Bov)
     else:
-        _require_full(cc, "t3_density_scan")
         Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps = scan_slices(cc)
-        Eoovv = cc.H.ERI[o, o, v, v].contiguous()
+        Eoovv = eri_views(cc)[0][o, o, v, v].contiguous()
     return (Wvvvo_o, Wovoo_t, Evovv, Eooov, Eoovv, Loovv, Fov, eps)
 
 

@@ -175,6 +175,8 @@ def _davidson_on(A, D, no, nv):
     from pycc_tpu_torch.utils.timing import Timers
     eom = object.__new__(teom.cceom)
     eom.no, eom.nv = no, nv
+    # A does not map pair-symmetric doubles to pair-symmetric ones
+    eom.pair_symmetric = False
     eom.D = torch.tensor(D)
     eom.ccwfn = types.SimpleNamespace(timers=Timers())
     At = torch.tensor(A)

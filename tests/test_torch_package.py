@@ -8,8 +8,10 @@ import io
 import os
 import subprocess
 import sys
+import tempfile
 import types
 
+import numpy as np
 import pytest
 import torch
 
@@ -84,8 +86,11 @@ def test_entry_points_default_to_the_card():
     {"storage": "blocked"}, {"local": "PNO"}, {"mesh": object()},
 ])
 def test_options_outside_the_slice_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pycc_tpu_torch.ccwfn(_wfn(), **kwargs)
+    """Each option outside the slice raises naming its ROADMAP.md item;
+    storage='blocked' (ported with item 10) builds."""
+    item = None if kwargs == {"storage": "blocked"} else "ROADMAP.md"
+    _ran_or_raised(lambda: pycc_tpu_torch.ccwfn(_wfn(), device="cpu",
+                                                **kwargs).t2, item)
 
 
 def test_t3_scan_names_the_cc3_item():
@@ -130,13 +135,38 @@ def _full_hbar():
 
 
 def _lambda_chk():
+    """A Lambda solve that checkpoints every iteration (ported with item
+    10): the pseudo-energy, and the checkpoint's l2."""
     cc, hb = _full_hbar()
-    pycc_tpu_torch.cclambda(cc, hb).solve_lambda(chk="l.npz")
+    with tempfile.TemporaryDirectory() as d, \
+            contextlib.redirect_stdout(io.StringIO()):
+        path = os.path.join(d, "l.npz")
+        lecc = pycc_tpu_torch.cclambda(cc, hb).solve_lambda(chk=path,
+                                                            chk_every=1)
+        return torch.tensor(lecc), torch.from_numpy(np.load(path)["l2"])
 
 
 def _eom_resume():
+    """An EOM solve cut after two iterations and resumed from its
+    checkpoint (ported with item 10): the roots."""
     _, hb = _full_hbar()
-    pycc_tpu_torch.cceom(hb).solve_eom(resume=True)
+    with tempfile.TemporaryDirectory() as d, \
+            contextlib.redirect_stdout(io.StringIO()):
+        path = os.path.join(d, "eom.npz")
+        with pytest.warns(UserWarning, match="did NOT converge"):
+            pycc_tpu_torch.cceom(hb).solve_eom(maxiter=2, chk=path)
+        return pycc_tpu_torch.cceom(hb).solve_eom(chk=path, resume=True)[0]
+
+
+def _blocked_hbar():
+    with contextlib.redirect_stdout(io.StringIO()):
+        return pycc_tpu_torch.cchbar(_converged(storage="blocked")).Hovoo
+
+
+def _mixed_lambda_df():
+    _, lam = _df_lambda("CCSD")
+    with contextlib.redirect_stdout(io.StringIO()):
+        return torch.tensor(lam.solve_lambda_mixed())
 
 
 def _cc3_onepdm():
@@ -184,22 +214,22 @@ def _ran_or_raised(call, item):
     (lambda: pycc_tpu_torch.cchbar(_converged(storage="df")).hbar.Hovoo,
      None),
     (lambda: _converged(storage="df").t3_density(), None),
-    (lambda: pycc_tpu_torch.cchbar(types.SimpleNamespace(storage="blocked")),
-     "item 10"),
+    (_blocked_hbar, None),
     (lambda: pycc_tpu_torch.cchbar(types.SimpleNamespace(mesh=object())),
      "item 13"),
-    (_lambda_chk, "item 10"),
-    (_eom_resume, "item 10"),
+    (_lambda_chk, None),
+    (_eom_resume, None),
     (_cc3_onepdm, None),
     (_cc3_lambda_residuals, None),
     (_df_lambda_from_F, "item 11"),
-    (lambda: _df_lambda("CCSD")[1].solve_lambda_mixed(), "item 10"),
+    (_mixed_lambda_df, None),
 ], ids=["hbar-df", "t3-density-df", "hbar-blocked", "hbar-mesh", "lambda-chk", "eom-resume",
         "onepdm-cc3", "lambda-cc3", "lambda-from-F-df", "lambda-mixed-df"])
 def test_post_convergence_options_outside_the_slice_name_their_item(call,
                                                                     item):
     """Options outside the slice raise naming their ROADMAP.md item; the
-    DF cases item 9 ported (item None) now run."""
+    DF cases item 9 ported and the blocked, checkpoint and mixed cases
+    item 10 ported (item None) now run."""
     _ran_or_raised(call, item)
 
 
@@ -229,24 +259,46 @@ def _df_right_solve():
     return X1, X2
 
 
+def _mixed_response(storage, sides):
+    """Mixed-precision solves (ported with item 10): the pseudo-responses
+    of a right solve and, for the left side, the left solve over it."""
+    resp = _response(storage)
+    out = []
+    with contextlib.redirect_stdout(io.StringIO()):
+        for side in sides:
+            solve = getattr(resp, "solve_%s_mixed" % side)
+            out.append(torch.tensor(solve("MU_X", 0.1, e_conv=1e-8,
+                                          r_conv=1e-8)[2]))
+    return out
+
+
 @pytest.mark.parametrize("call,item", [
     (_df_right_solve, None),
-    (lambda: _response().solve_right_mixed("MU_X", 0.1), "item 10"),
-    (lambda: _response().solve_left_mixed("MU_X", 0.1), "item 10"),
-    (lambda: _response("df").solve_left_mixed("MU_X", 0.1), "item 10"),
+    (lambda: _mixed_response("full", ["right"]), None),
+    (lambda: _mixed_response("full", ["right", "left"]), None),
+    (lambda: _mixed_response("df", ["right", "left"]), None),
 ], ids=["response-df", "right-mixed", "left-mixed", "left-mixed-df"])
 def test_response_options_outside_the_slice_name_their_item(call, item):
-    """As the post-convergence options; DF response (item None) runs."""
+    """As the post-convergence options; DF response and the mixed solvers
+    (item None) run."""
     _ran_or_raised(call, item)
 
 
 @pytest.mark.parametrize("kwargs", [
     {"bf16_until": 1e-3}, {"chk": "amps.npz"}, {"resume": True},
 ])
-def test_solver_options_outside_the_slice_raise(kwargs):
+def test_solver_options_outside_the_slice_raise(kwargs, tmp_path,
+                                                monkeypatch):
+    """bf16_until on full storage raises as pycc_tpu's solve_cc does
+    (naming blocked storage); chk and resume (ported with item 10) run."""
+    monkeypatch.chdir(tmp_path)
     cc = pycc_tpu_torch.ccwfn(_wfn(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cc.solve_cc(**kwargs)
+    if "bf16_until" in kwargs:
+        with pytest.raises(ValueError, match="blocked"):
+            cc.solve_cc(**kwargs)
+        return
+    with contextlib.redirect_stdout(io.StringIO()):
+        _ran_or_raised(lambda: torch.tensor(cc.solve_cc(**kwargs)), None)
 
 
 def test_bad_values_raise():
