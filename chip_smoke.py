@@ -13,10 +13,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      at four shape groups (the last one a-block of the DF ladder of
      phase 7), each in float64, float32 and bf16->float32, and at the
      EOM sigma batch of phase 6b, the stacked complex / in_Y1 ladder
-     of phase 6c, the CC3 ladder of phase 6d and the DF EOM sigma
-     block of phase 7b in float64, with the median of 5 timed runs and
-     the least time the card could take (bound_ms: the larger of bytes /
-     3.35 TB/s and flop / peak);
+     of phase 6c (also real-time CC's T ladder, phase 6f), the CC3
+     ladder of phase 6d, the DF EOM sigma block of phase 7b and the
+     stacked complex-W Lambda ladder of phase 6f (its library yardstick
+     one complex128 A @ B.T) in float64, with the median of 5 timed runs
+     and the least time the card could take (bound_ms: the larger of
+     bytes / 3.35 TB/s and flop / peak);
   4. K2 against its plain version (t_energy_row_reference) at (no, nv) =
      (4, 19), (7, 45) and (24, 114), each in float64, float32 and
      bf16->float32, and at (24, 216) (phase 7's (T)) in float64, with the
@@ -37,6 +39,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
      test_026, each against its frozen value or dense storage;
      Then tests/test_016's blocked and bf16-gated oracles and test_027's
      mixed-precision and checkpoint cases (K1 in bf16 and f32 there);
+     and the real-time CC oracles: He/cc-pVDZ under a sine^2 pulse
+     through scipy's vode (test_008's mu_z(1.0), test_013's
+     autocorrelation), the H2O/cc-pVDZ rk4 dipoles of test_008, the
+     (H2)_2/cc-pVDZ electric and magnetic dipoles of test_015, He's
+     checkpoint/restart equality and H2O/STO-3G's DF right-hand side
+     against the dense one (test_025), each right-hand side's K1
+     launches counted;
   6. a real size on full storage: (H2O)_6/cc-pVDZ CCSD(T) (144 basis
      functions, (no, nv) = (24, 114) with the frozen core) through
      run_rhf -> ccwfn -> solve_cc, and one residual timed at the
@@ -72,6 +81,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
      solve_left_mixed for MU_Z (residuals recomputed), a blocked residual
      timed against phase 6's full one, and the blocked ladder in each
      type held to its plain version;
+  6f. [rt] real-time CC at [real]'s size on its wavefunction (no second
+     SCF): a CCSD ccwfn on full storage, its solve and Lambda, then
+     rtcc under a Gaussian pulse and rk4(0.01) for 10 steps (40
+     right-hand sides), y on the card; the field-free right-hand side
+     at the converged state (residuals and the phase's quasienergy), the
+     Lagrangian and dipole at t = 0, one right-hand side through K1
+     against the plain ladder, K1's launches counted for each of the two
+     complex ladders (the T side's stacked tau, the Lambda side's
+     stacked complex W), the right-hand side split by part; after [cc3],
+     two rk4 steps at (H2O)_4/cc-pVDZ on [cc3]'s wavefunction against
+     pycc_tpu's frozen mu_z and Lagrangian;
   7. [df] a real size over Cholesky factors, which full storage cannot
      hold on 80 GB: (H2O)_6/aug-cc-pVDZ DF-CCSD(T) (246 basis functions,
      (24, 216)) through run_rhf(df=True) -> ccwfn(storage="df") ->
@@ -92,6 +112,7 @@ kernel on each path); the last line is {"ok": true, "device": {...}}.
 """
 
 import collections
+import gc
 import json
 import math
 import os
@@ -110,12 +131,13 @@ import pycc_tpu_torch
 from pycc_tpu_torch.ops.kernels import build as kernel_build
 from pycc_tpu_torch.data import moldict
 from pycc_tpu_torch import triples
+from pycc_tpu_torch.cchbar import build_hbar
 from pycc_tpu_torch.cclambda import cc3_extra_fn, lambda_residuals
 from pycc_tpu_torch.ccdensity import build_Moo, build_Mvv
 from pycc_tpu_torch.hamiltonian import build_hamiltonian
 from pycc_tpu_torch.models import cc3, dfccsd
 from pycc_tpu_torch.models.ccsd import (build_tau, residuals_ccsd,
-                                        vvvv_contract)
+                                        vvvv_contract, vvvv_contract_efab)
 from pycc_tpu_torch.models.dfdensity import density_energy_df
 from pycc_tpu_torch.models.dfhbar import hvvvv_x2_df
 from pycc_tpu_torch.ops.kernels import triples as k2
@@ -124,6 +146,8 @@ from pycc_tpu_torch.ops.kernels.triples import (t_energy_row,
                                                 t_energy_row_reference)
 from pycc_tpu_torch.ops.cholesky import cholesky_factor_eri
 from pycc_tpu_torch.ops.kernels.vvvv import vvvv_nt, vvvv_nt_reference
+from pycc_tpu_torch.rt.integrators import rk4
+from pycc_tpu_torch.rt.lasers import gaussian_laser, sine_square_laser
 from pycc_tpu_torch.scf import integrals as ints
 from pycc_tpu_torch.scf import run_rhf
 
@@ -207,6 +231,13 @@ DFPOST_EOM_ROOTS = 6
 # the DF EOM sigma of phase 7b: a block of DFPOST_EOM_ROOTS vectors' rows
 # stacked against one a-block, (k o^2, blk*v, v^2)
 K1_DF_EOM_SHAPE = (DFPOST_EOM_ROOTS * DF_NO ** 2,) + K1_DF_SHAPE[1:]
+# the real-time ladders of phase 6f: the T side's complex tau against the
+# real <ab|ef> is K1_RESP_SHAPE; the Lambda side's complex l2 against the
+# complex HBAR's Hvvvv is one product of the stacked operands, (2 o^2,
+# 2 v^2, v^2), whose library yardstick is one complex128 A @ B.T at
+# (o^2, v^2, v^2)
+K1_RT_SHAPE = (2 * 576, 2 * 12996, 12996)
+K1_COMPLEX_LIBRARY = (K1_RT_SHAPE,)
 # (shape, what, types: "all" or the labels of K1_TYPES timed there)
 K1_SHAPES = [
     ((16, 361, 361), "H2O/cc-pVDZ ladder", "all"),
@@ -217,6 +248,7 @@ K1_SHAPES = [
     (K1_RESP_SHAPE, "(H2O)_6 complex/in_Y1 ladder", ("f64",)),
     (K1_CC3_SHAPE, "(H2O)_4 CC3 ladder", ("f64",)),
     (K1_DF_EOM_SHAPE, "(H2O)_6/aug DF EOM sigma block", ("f64",)),
+    (K1_RT_SHAPE, "(H2O)_6 RT complex-W ladder", ("f64",)),
 ]
 # the H100 SXM data sheet's dense peaks (at its 700 W limit): HBM bytes/s,
 # and flop/s for the arithmetic each kernel does in each type (float64 on
@@ -331,17 +363,29 @@ def phase_kernel(smi):
             torch.cuda.synchronize()
             ms = _median_ms(lambda: vvvv_nt(A, B, bf16=bf16))
             plain_ms = _median_ms(lambda: vvvv_nt_reference(A, B, bf16=bf16))
-            library_ms = _median_ms(lambda: A @ B.T)
+            if (m, n, k) in K1_COMPLEX_LIBRARY:
+                # the same function as one complex product: the stacked
+                # rows' halves as real and imaginary parts
+                Ac = torch.complex(A[:m // 2], A[m // 2:])
+                Bc = torch.complex(B[:n // 2], B[n // 2:])
+                Ac @ Bc.T
+                library_ms = _median_ms(lambda: Ac @ Bc.T)
+                del Ac, Bc
+            else:
+                library_ms = _median_ms(lambda: A @ B.T)
             flops = 2.0 * m * n * k
             elem = 2 if bf16 else A.element_size()
             nbytes = (m + n) * k * elem + m * n * (4 if bf16 else elem)
             bound_ms, bound_by = bound([(flops, label)], nbytes)
             print("[K1] %-22s (M,N,K)=(%d,%d,%d) %-9s max|err|=%.3e rel=%.3e "
                   "(tol %.0e)  kernel %.3f ms (%.2f TFLOP/s)  bound %.3f ms "
-                  "(%s, %.0f%% of it)  plain %.3f ms  A@B.T %.3f ms  | %s"
+                  "(%s, %.0f%% of it)  plain %.3f ms  %s %.3f ms  | %s"
                   % (what, m, n, k, label, err, rel, tol, ms,
                      flops / (ms * 1e-3) / 1e12, bound_ms, bound_by,
-                     100.0 * bound_ms / ms, plain_ms, library_ms, smi))
+                     100.0 * bound_ms / ms, plain_ms,
+                     ("complex128 A@B.T (%d,%d,%d)" % (m // 2, n // 2, k)
+                      if (m, n, k) in K1_COMPLEX_LIBRARY else "A@B.T"),
+                     library_ms, smi))
             cells[(m, n, k), label] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
@@ -541,6 +585,7 @@ def phase_oracles():
     phase_cc3_oracles(wfns["sto-3g", True])
     phase_dfpost_oracles(wfns["sto-3g", True])
     phase_mixed_oracles(wfns)
+    phase_rt_oracles(wfns["sto-3g", True])
 
 
 def _by_mode(fn):
@@ -1343,6 +1388,11 @@ def phase_resp(cc, lam, smi, name=REAL_SIZE):
 
 
 MIXED_CONV = 1e-10
+# [mixed]'s checkpoint cadence: none in the ~22 floor iterations, the
+# floor's own save, and one save every 10 refinement iterations
+# (solve_cc_mixed saves the refinement 4 times as often): the writer and
+# the stage-aware resume still run, on 2 saves instead of 8 (2 s each)
+MIXED_CHK_EVERY = 40
 # the bf16 stage of the mixed CCSD solves: residuals from bf16 operands
 # until the update rms drops below this
 BF16_UNTIL = 1e-3
@@ -1383,7 +1433,7 @@ def phase_mixed(real, post_E, muz, smi, name=REAL_SIZE):
     chk = os.path.join(tmp.name, "mx")
     (ecc, t_mx), modes = _by_mode(lambda: _synced(lambda: cc.solve_cc_mixed(
         MIXED_CONV, MIXED_CONV, sp_kwargs={"bf16_until": BF16_UNTIL},
-        chk=chk, chk_every=10)))
+        chk=chk, chk_every=MIXED_CHK_EVERY)))
     stages = list(cc.stages)
     saves = (cc.timers.count["ccwfn.checkpoint"],
              cc.timers.total["ccwfn.checkpoint"])
@@ -1394,7 +1444,7 @@ def phase_mixed(real, post_E, muz, smi, name=REAL_SIZE):
     e_floor = cc.e_sp_floor
     e_res, t_res = _synced(lambda: cc.solve_cc_mixed(
         MIXED_CONV, MIXED_CONV, sp_kwargs={"bf16_until": BF16_UNTIL},
-        chk=chk, chk_every=10, resume=True))
+        chk=chk, chk_every=MIXED_CHK_EVERY, resume=True))
     res_stages = [st[0] for st in cc.stages]
     tmp.cleanup()
 
@@ -1473,10 +1523,10 @@ def phase_mixed(real, post_E, muz, smi, name=REAL_SIZE):
           % (t_init, real["init"]["seconds"], _gb(init_peak),
              _gb(real["init"]["peak"]), _gb(held), _gb(real["init"]["held"]),
              ", ".join("%s %.1f" % kv for kv in block_mb.items())))
-    print("[mixed] solve_cc_mixed (bf16_until %.0e, chk every 10) %.2f s: %s;"
+    print("[mixed] solve_cc_mixed (bf16_until %.0e, chk every %d) %.2f s: %s;"
           " K1 launches by mode %s; %d checkpoint saves %.2f s (%.2f s "
           "each), files %s bytes; Ecorr = %.12f |dE| from frozen = %.2e"
-          % (BF16_UNTIL, t_mx, "; ".join(
+          % (BF16_UNTIL, MIXED_CHK_EVERY, t_mx, "; ".join(
               "%s %s %d iterations (%d bf16) %.2f s %.4f s/iter"
               % (st, dt, n, n16, sec, sec / n)
               for st, dt, n, sec, n16 in stages), modes, saves[0], saves[1],
@@ -1517,7 +1567,7 @@ def phase_mixed(real, post_E, muz, smi, name=REAL_SIZE):
     checks = [
         ("Ecorr", ok_mixed and abs(ecc - eccsd_ref) < 1e-9),
         ("resume", res_stages == ["refine"] and cc.e_sp_floor == e_floor
-         and abs(e_res - ecc) < 1e-10),
+         and abs(e_res - ecc) < 1e-10 and saves[0] >= 2),
         ("E(T)", abs(et - et_ref) < 1e-9 and k2_launches == cc.no),
         ("Lambda", lam.converged and abs(lemx - le64) < 1e-9),
         ("density", abs(eone + etwo - ecc) < 1e-9),
@@ -1682,7 +1732,7 @@ def phase_cc3(smi, name=CC3_SIZE):
     if not (abs(ecc - ecc3_ref) < 1e-9 and abs(lecc - lcc3_ref) < 1e-9):
         raise AssertionError("E(CC3) or the Lambda pseudo-energy missed the "
                              "frozen value")
-    return {"cc3": cc_launches, "cc3_lambda": lam_launches}
+    return {"cc3": cc_launches, "cc3_lambda": lam_launches}, wfn
 
 
 def _event_ms(fn):
@@ -1802,9 +1852,14 @@ def _factors_of(cc):
     return B, cc.H.F, cc.H.mu, no, cc.eref
 
 
-# the guess of [dfpost]'s EOM: HBAR_SS is a host eig of an (o v)^2 matrix,
-# 5184^2 at (24, 216)
-DFPOST_EOM_GUESS = "HBAR_SS"
+# the guess of [dfpost]'s EOM: CIS, a host eigh of the (o v)^2 = 5184^2
+# CIS matrix (HBAR_SS, a nonsymmetric eig of the same size, took 42.9-48.8
+# s on the host); the roots are held to those the HBAR_SS guess converged
+# to (chip_smoke on the H100, an earlier revision of this script)
+DFPOST_EOM_GUESS = "CIS"
+DFPOST_EOM_ROOTS_HBAR_SS = np.array([0.2858885915, 0.2891793821,
+                                     0.2917545505, 0.2926803958,
+                                     0.2963651533, 0.3016116753])
 
 
 def _dfpost_ladder_checks(cc, hb, lam, resp, A, X, Y):
@@ -1913,12 +1968,14 @@ def phase_dfpost(factors, smi, name=DF_SIZE):
           "Ecorr(CCSD) = %.12f |diff| = %.2e"
           % (t_den, eone + etwo, ecc, abs(eone + etwo - ecc)))
     print("[dfpost] EOM-CCSD %d roots %.1f s (the %s guess on the host %.1f "
-          "s): %s Eh  %d iterations  subspace %d  sigma blocks %d  residual "
-          "norms %s  |Ritz - E| %.2e  peak device memory %.2f GB"
+          "s): %s Eh (|E - HBAR_SS guess's| %.2e)  %d iterations  subspace "
+          "%d  sigma blocks %d  residual norms %s  |Ritz - E| %.2e  peak "
+          "device memory %.2f GB"
           % (DFPOST_EOM_ROOTS, t_eom, DFPOST_EOM_GUESS,
              cc.timers.total["eom.guess"], np.array2string(E, precision=10),
-             eom_iters, subspace, n_sigma, ", ".join("%.2e" % r for r in rn),
-             dw, peak_eom / 1e9))
+             np.abs(E - DFPOST_EOM_ROOTS_HBAR_SS).max(), eom_iters, subspace,
+             n_sigma, ", ".join("%.2e" % r for r in rn), dw,
+             peak_eom / 1e9))
     print("[dfpost] sigma of the %d Ritz vectors: through K1 %.3f s, through "
           "the plain ladder %.3f s" % (DFPOST_EOM_ROOTS, t_k1, t_plain))
     print("[dfpost] ccresponse %.2f s  conditioning probe %.1f s (sigma_min "
@@ -1947,6 +2004,11 @@ def phase_dfpost(factors, smi, name=DF_SIZE):
             and max(rn) <= 1e-6):
         raise AssertionError("[dfpost] EOM-CCSD: converged %s, roots %s, "
                              "residual norms %s" % (eom_ok, E, rn))
+    if not np.abs(E - DFPOST_EOM_ROOTS_HBAR_SS).max() < 1e-6:
+        raise AssertionError("[dfpost] EOM-CCSD roots from the %s guess %s "
+                             "differ from the HBAR_SS guess's %s"
+                             % (DFPOST_EOM_GUESS, E,
+                                DFPOST_EOM_ROOTS_HBAR_SS))
     if not (right[0] and left[0] and max(res_x, res_y) <= 10 * RESP_CONV
             and math.isfinite(alpha) and alpha > 0):
         raise AssertionError("[dfpost] response: right %s left %s, residuals "
@@ -1967,8 +2029,398 @@ def phase_dfpost(factors, smi, name=DF_SIZE):
     return out
 
 
+# ---------------------------------------------------------------------------
+# real-time CC
+# ---------------------------------------------------------------------------
+
+# tests/test_008 (He vode mu_z at t = 1, H2O/cc-pVDZ rk4 mu_z at t = 0 and
+# after the loop to 0.1), test_013 (He autocorrelation), test_015 ((H2)_2
+# electric and magnetic dipoles, the SCF part removed)
+RT_HE_MUZ = 0.008400738202694
+RT_HE_AUTOCORR = -0.967109840555436 + 0.250976568630115j
+RT_H2O_MUZ0, RT_H2O_MUZ = -0.07800691, -0.0780067603267549
+RT_H22_MU = (0.0, 0.0, -0.0007395036977002)
+RT_H22_M = (0.0, 0.0, -2.3037968376087573e-5)
+
+# [rt]: the pulse, rk4's step and steps (10 steps, 40 right-hand sides)
+RT_PULSE = (0.01, 0.0, 0.01, 0.05)
+RT_H, RT_STEPS = 0.01, 10
+RT_CONV = 1e-10
+
+# (H2O)_4/cc-pVDZ, frozen core: mu (all three axes) and the Lagrangian at
+# t = 0.02 after two rk4(0.01) steps under RT_PULSE, from pycc_tpu in
+# float64 on a CPU host:
+#   cc = pycc_tpu.ccwfn(run_rhf(moldict["(H2O)_4"], "cc-pvdz",
+#                               freeze_core=True))
+#   cc.solve_cc(1e-10, 1e-10)
+#   lam = pycc_tpu.cclambda(cc, pycc_tpu.cchbar(cc))
+#   lam.solve_lambda(1e-10, 1e-10)
+#   rt = pycc_tpu.rtcc(cc, lam, None, gaussian_laser(0.01, 0, 0.01,
+#                                                    center=0.05))
+#   y = rt.collect_amps(cc.t1, cc.t2, lam.l1, lam.l2, 0)
+#   y = rk4(0.01)(rt.f, 0.0, y); y = rk4(0.01)(rt.f, 0.01, y)
+#   t1, t2, l1, l2, _ = rt.extract_amps(y)
+#   rt.dipole(t1, t2, l1, l2), rt.lagrangian(0.02, t1, t2, l1, l2)
+# (Ecorr -0.861900803787839, pseudo-E -0.848164239003946 there).  The
+# (H2O)_6 trajectory of [rt] does not fit that host's memory in pycc_tpu.
+FROZEN_RT = {
+    "(H2O)_4": dict(
+        mu=(0.00034136081003775977 - 2.4870558896830995e-10j,
+            0.0011795607779308335 + 9.026436005222197e-11j,
+            -0.0005793820505273618 + 1.5844423687018368e-10j),
+        lagrangian=-163.1318518593916 + 1.6292886698812342e-19j),
+}
+
+
+def _rt_pipeline(wfn, model="CCSD", conv=1e-13):
+    """A converged ccwfn on the card, its Lambda and ccdensity."""
+    cc = pycc_tpu_torch.ccwfn(wfn, model=model, device=DEVICE)
+    cc.solve_cc(conv, conv, 200)
+    lam = pycc_tpu_torch.cclambda(cc, pycc_tpu_torch.cchbar(cc))
+    lam.solve_lambda(conv, conv)
+    return cc, lam, pycc_tpu_torch.ccdensity(cc, lam)
+
+
+def _counted_rhs(rt):
+    """Count rt's right-hand sides and K1's launches in each of its two
+    ladders (the T residuals and the Lambda residuals): rt's methods are
+    wrapped on the instance, and the counts returned as a dict."""
+    counts = {"rhs": 0, "t": 0, "lambda": 0}
+
+    def ladder_side(fn, key):
+        def run(*args):
+            n0 = vvvv_nt.launches
+            out = fn(*args)
+            counts[key] += vvvv_nt.launches - n0
+            return out
+        return run
+
+    f = rt.f
+
+    def rhs(t, y):
+        counts["rhs"] += 1
+        return f(t, y)
+    rt.t_residuals = ladder_side(rt.t_residuals, "t")
+    rt.lambda_residuals = ladder_side(rt.lambda_residuals, "lambda")
+    rt.f = rhs
+    return counts
+
+
+def _eref(cc):
+    """The reference energy of the active space from the Hamiltonian,
+    2 tr F[o,o] - sum_ij L[ijij]: E(SCF) - E_nuc when no core is frozen."""
+    o = cc.o
+    return float(2.0 * torch.trace(cc.H.F[o, o])
+                 - torch.einsum("ijij->", cc.H.L[o, o, o, o]))
+
+
+def phase_rt_oracles(wfn_sto3g):
+    """The reference suite's real-time oracles on device="cuda": He under
+    tests/test_008's sine^2 pulse through scipy's vode (mu_z(1.0), and
+    test_013's autocorrelation of the same trajectory), H2O/cc-pVDZ's rk4
+    dipoles (test_008), (H2)_2/cc-pVDZ's electric and magnetic dipoles
+    (test_015), He's checkpoint/restart equality (test_008) and
+    H2O/STO-3G's DF right-hand side against the dense one (test_025),
+    each with its K1 launches = 2 x right-hand sides held."""
+    from scipy.integrate import complex_ode
+    t0 = time.perf_counter()
+    he = run_rhf(moldict["He"], "cc-pvdz", freeze_core=False)
+    cc, lam, dens = _rt_pipeline(he)
+    eref_gap = abs(_eref(cc) - (he.energy() - he.mol.nuclear_repulsion()))
+    rt = pycc_tpu_torch.rtcc(cc, lam, dens, sine_square_laser(1.0, 2.87, 5.0))
+    counts = _counted_rhs(rt)
+    y0 = rt.collect_amps(cc.t1, cc.t2, lam.l1, lam.l2, 0).cpu().numpy()
+    vvvv_nt.launches = 0
+    ODE = complex_ode(rt.f).set_integrator("vode", atol=1e-13, rtol=1e-13)
+    ODE.set_initial_value(y0, 0)
+    while ODE.successful() and ODE.t < 1.0:
+        y = ODE.integrate(ODE.t + 0.01)
+    he_launches = vvvv_nt.launches
+    muz = rt.dipole(*rt.extract_amps(y)[:4])[2].real
+    A = rt.autocorrelation(y0, y)
+    t_vode = time.perf_counter() - t0
+
+    # checkpoint/restart: a run to 0.05 with checkpoints, restarted to 0.1
+    rt = pycc_tpu_torch.rtcc(cc, lam, dens, gaussian_laser(*RT_PULSE))
+    y0 = rt.collect_amps(cc.t1, cc.t2, lam.l1, lam.l2, 0)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            full = rt.propagate(rk4(0.01), y0.clone(), 0.1)
+            rt.propagate(rk4(0.01), y0.clone(), 0.05, chk=True)
+            import pickle
+            with open("chk.pk", "rb") as fh:
+                chkp = pickle.load(fh)
+            resumed = rt.propagate(rk4(0.01), chkp["y"], 0.1,
+                                   ti=chkp["time"], chk=True)
+        finally:
+            os.chdir(cwd)
+    key = sorted(full)[-1]
+    chk_gap = max(abs(full[key][k] - resumed[key][k]) for k in ("ecc",
+                                                                "mu_z"))
+    del cc, lam, dens, rt
+
+    # H2O/cc-pVDZ, all electrons, rk4 (test_008)
+    cc, lam, dens = _rt_pipeline(run_rhf(moldict["H2O"], "cc-pvdz",
+                                         freeze_core=False))
+    rt = pycc_tpu_torch.rtcc(cc, lam, dens, gaussian_laser(*RT_PULSE))
+    counts_h2o = _counted_rhs(rt)
+    muz0 = rt.dipole(cc.t1, cc.t2, lam.l1, lam.l2)[2].real
+    y = rt.collect_amps(cc.t1, cc.t2, lam.l1, lam.l2, 0)
+    vvvv_nt.launches = 0
+    t = 0.0
+    while t < 0.1:
+        y = rk4(0.01)(rt.f, t, y)
+        t += 0.01
+    h2o_launches = vvvv_nt.launches
+    muz_h2o = rt.dipole(*rt.extract_amps(y)[:4])[2].real
+    del cc, lam, dens, rt, y
+
+    # (H2)_2/cc-pVDZ dipoles (test_015)
+    cc, lam, dens = _rt_pipeline(run_rhf(moldict["(H2)_2"], "cc-pvdz",
+                                         freeze_core=False))
+    rt = pycc_tpu_torch.rtcc(cc, lam, dens, None, magnetic=True)
+    amps = rt.extract_amps(rt.collect_amps(cc.t1, cc.t2, lam.l1, lam.l2,
+                                           cc.cc_energy(cc.t1, cc.t2)))[:4]
+    mu_gap = max(abs(a - b) for a, b in zip(RT_H22_MU, rt.dipole(*amps)))
+    m_gap = max(abs(1j * a - b) for a, b in zip(
+        RT_H22_M, rt.dipole(*amps, magnetic=True)))
+    del cc, lam, dens, rt
+
+    # H2O/STO-3G over exact factors against dense storage (test_025)
+    H = build_hamiltonian(wfn_sto3g, device=DEVICE)
+    B = cholesky_factor_eri(H.ERI, tol=1e-14, device=DEVICE)
+    ccd, lamd, _ = _rt_pipeline(wfn_sto3g, conv=1e-12)
+    ccf = pycc_tpu_torch.ccwfn.from_df_factors(
+        B, H.F, H.no, mu=torch.stack(H.mu), device=DEVICE)
+    ccf.solve_cc(1e-12, 1e-12)
+    lamf = pycc_tpu_torch.cclambda(ccf, pycc_tpu_torch.cchbar(ccf))
+    lamf.solve_lambda(1e-12, 1e-12)
+    V = gaussian_laser(0.05, 0.0, 0.01, 0.05)
+    rtd = pycc_tpu_torch.rtcc(ccd, lamd, None, V)
+    rtf = pycc_tpu_torch.rtcc(ccf, lamf, None, V)
+    y0 = rtd.collect_amps(ccd.t1, ccd.t2, lamd.l1, lamd.l2, 0)
+    vvvv_nt.launches = 0
+    df_gap = (rtd.f(0.02, y0) - rtf.f(0.02, y0)).abs().max().item()
+    df_launches = vvvv_nt.launches
+    del H, B, ccd, lamd, ccf, lamf, rtd, rtf
+
+    print("[oracle] RT He/cc-pVDZ vode to t = 1 (%d right-hand sides, %d K1 "
+          "launches): mu_z = %.15f |d| = %.2e  autocorrelation %s |d| = "
+          "%.2e; 2 tr F_oo - L_ijij - (E(SCF) - E_nuc) = %.1e; checkpoint "
+          "restart |d| = %.1e  %.1f s"
+          % (counts["rhs"], he_launches, muz, abs(muz - RT_HE_MUZ),
+             np.round(A, 12), abs(A - RT_HE_AUTOCORR), eref_gap, chk_gap,
+             t_vode))
+    print("[oracle] RT H2O/cc-pVDZ rk4: mu_z(0) = %.10f |d| = %.1e, mu_z = "
+          "%.13f |d| = %.1e (%d right-hand sides, %d K1 launches) | (H2)_2/"
+          "cc-pVDZ |mu - frozen| %.1e |m - frozen| %.1e | H2O/STO-3G DF "
+          "right-hand side - dense %.1e (%d K1 launches)"
+          % (muz0, abs(muz0 - RT_H2O_MUZ0), muz_h2o,
+             abs(muz_h2o - RT_H2O_MUZ), counts_h2o["rhs"], h2o_launches,
+             mu_gap, m_gap, df_gap, df_launches))
+    checks = [
+        ("He mu_z", abs(muz - RT_HE_MUZ) < 1e-10),
+        ("He autocorrelation", abs(A - RT_HE_AUTOCORR) < 1e-9),
+        ("He reference energy", eref_gap < 1e-10),
+        ("He checkpoint", chk_gap < 1e-12),
+        ("H2O mu_z(0)", abs(muz0 - RT_H2O_MUZ0) < 1e-6),
+        ("H2O mu_z", abs(muz_h2o - RT_H2O_MUZ) < 1e-4),
+        ("(H2)_2 dipoles", mu_gap < 1e-10 and m_gap < 1e-10),
+        ("DF", df_gap < 1e-10),
+        ("K1 launches", he_launches == 2 * counts["rhs"] > 0
+         and counts["t"] == counts["lambda"] == counts["rhs"]
+         and h2o_launches == 2 * counts_h2o["rhs"] == 2 * 44
+         and df_launches == 4),
+    ]
+    bad = [what for what, ok in checks if not ok]
+    if bad:
+        raise AssertionError("[oracle] RT checks failed: %s" % bad)
+    gc.collect()    # _counted_rhs's wrappers hold their rtcc in a cycle
+
+
+def _rel_c(a, b):
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def phase_rt(real, smi, name=REAL_SIZE):
+    """[rt]: real-time CCSD at [real]'s size on its wavefunction (no second
+    SCF): a CCSD ccwfn on full storage, its solve and Lambda to RT_CONV,
+    then rtcc under RT_PULSE and RT_STEPS rk4 steps from t = 0 (y on the
+    card), each timed.  Checked: the field-free right-hand side at the
+    converged state (the T and Lambda parts ~0, the phase's -i times the
+    reference plus correlation energy), the Lagrangian and dipole at
+    t = 0, one right-hand side through K1 against the plain ladder, and
+    K1's launches in each of the two complex ladders = the right-hand
+    sides (counted from 0 over the propagation)."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cc, t_init = _synced(lambda: pycc_tpu_torch.ccwfn(
+        real["wfn"], model="CCSD", device=DEVICE))
+    ecc, t_solve = _synced(lambda: cc.solve_cc(RT_CONV, RT_CONV))
+    lam = pycc_tpu_torch.cclambda(cc, pycc_tpu_torch.cchbar(cc))
+    lecc, t_lam = _synced(lambda: lam.solve_lambda(RT_CONV, RT_CONV))
+    lam.hbar = None
+    no, nv = cc.no, cc.nv
+    eref = _eref(cc)
+    efc = real["wfn"].energy() - real["wfn"].mol.nuclear_repulsion() - eref
+
+    # the field-free right-hand side at the converged state
+    rt0 = pycc_tpu_torch.rtcc(cc, lam, None, gaussian_laser(
+        0.0, *RT_PULSE[1:]))
+    y0 = rt0.collect_amps(cc.t1, cc.t2, lam.l1, lam.l2, 0)
+    f0 = rt0.f(0.0, y0)
+    r1, r2, s1, s2, dphase = rt0.extract_amps(f0)
+    d1 = cc.Dia
+    d2 = cc.Dijab
+    r_free = max((r1 / d1).abs().max().item(), (r2 / d2).abs().max().item(),
+                 (s1 / d1).abs().max().item(), (s2 / d2).abs().max().item())
+    r_abs = max(x.abs().max().item() for x in (r1, r2, s1, s2))
+    phase_gap = abs(complex(dphase) - (-1j) * (eref + ecc))
+    del f0, r1, r2, s1, s2
+
+    # the start values (the pulse's tail at t = 0 moves F by 4e-10 a.u.,
+    # so the Lagrangian is taken field-free)
+    L0 = rt0.lagrangian(0.0, cc.t1, cc.t2, lam.l1, lam.l2)
+    rt = pycc_tpu_torch.rtcc(cc, lam, None, gaussian_laser(*RT_PULSE))
+    mu0 = rt.dipole(cc.t1, cc.t2, lam.l1, lam.l2)
+    opdm = pycc_tpu_torch.ccdensity(cc, lam, onlyone=True).compute_onepdm(
+        cc.t1, cc.t2, lam.l1, lam.l2)
+    mu_dens = [float(torch.sum(m * opdm)) for m in cc.H.mu]
+    dip_gap = max(abs(a - b) for a, b in zip(mu0, mu_dens))
+    del opdm, rt0
+
+    counts = _counted_rhs(rt)
+    vvvv_nt.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ret = rt.propagate(rk4(RT_H), y0, RT_H * RT_STEPS - 1e-12)
+    torch.cuda.synchronize()
+    t_prop = time.perf_counter() - t0
+    launches = vvvv_nt.launches
+    main = dict(counts)
+    peak = torch.cuda.max_memory_allocated()
+    keys = sorted(ret)
+    t_end = float(keys[-1])
+
+    # at the final state: one right-hand side split by part, K1 against
+    # the plain ladder, the observables' time
+    y = rt.y
+    t1, t2, l1, l2, _ = rt.extract_amps(y)
+    F = rt._field(t_end, y.dtype)
+    rhs_s = statistics.median(_synced(lambda: rt.f(t_end, y))[1]
+                              for _ in range(3))
+    t_ms, _ = _event_ms(lambda: rt.t_residuals(F, t1, t2))
+    lam_ms, _ = _event_ms(lambda: rt.lambda_residuals(F, t1, t2, l1, l2))
+    ERI, L = cc.H.ERI, cc.H.L
+    hbar_ms, hb = _event_ms(lambda: build_hbar("CCSD", F, ERI, L, t1, t2, no))
+    stack_ms, _ = _event_ms(lambda: hb.Hvvvv_efab)
+    tau = build_tau(t1, t2)
+    lad_t_ms, _ = _event_ms(lambda: vvvv_contract(tau, cc.vvvv()))
+    lad_l_ms, _ = _event_ms(lambda: vvvv_contract_efab(l2, hb.Hvvvv_efab))
+    del hb, tau
+    obs_s = _synced(lambda: rt._observables(t_end, y))[1]
+    f_k1 = rt.f(t_end, y)
+    f_plain = pycc_tpu_torch.rtcc(cc, lam, None, rt.V,
+                                  ladder=vvvv_nt_reference).f(t_end, y)
+    rel_plain = _rel_c(f_k1, f_plain)
+    finite = bool(torch.isfinite(torch.view_as_real(y)).all())
+    del f_k1, f_plain, F, y, t1, t2, l1, l2
+
+    mz = [ret[k]["mu_z"].real for k in keys]
+    print("[rt] %s/cc-pVDZ real-time CCSD  (no, nv) = (%d, %d), y %d complex"
+          "128 (%.0f MB), gaussian_laser%s, rk4(%g) x %d  | %s"
+          % (name, no, nv, y0.numel(), y0.numel() * 16 / 1e6, RT_PULSE, RT_H,
+             RT_STEPS, smi))
+    print("[rt] ccwfn init %.1f s  CCSD solve %.2f s (%d iterations) Ecorr "
+          "= %.12f  Lambda %.2f s (%d iterations) pseudo-E = %.12f"
+          % (t_init, t_solve, cc.niter, ecc, t_lam, lam.niter, lecc))
+    print("[rt] field-free right-hand side at the converged state: max|r/D| "
+          "%.1e (max|r| %.1e); |dphase/dt + i (E_ref + Ecorr)| = %.1e with "
+          "E_ref = 2 tr F_oo - L_ijij = %.10f (E(SCF) - E_nuc - E_ref = "
+          "%.10f, the frozen core's)"
+          % (r_free, r_abs, phase_gap, eref, efc))
+    print("[rt] t = 0: Lagrangian %.12f (E_ref + Ecorr %.12f, |d| %.1e); "
+          "dipole %s, |d| from the ccdensity one-pdm dipole %.1e"
+          % (L0.real, eref + ecc, abs(L0 - (eref + ecc)),
+             np.round(np.array(mu0).real, 10), dip_gap))
+    print("[rt] propagate %.2f s: %.3f s a step (4 right-hand sides and the "
+          "observables); one right-hand side %.3f s (T residuals %.1f ms, "
+          "Lambda residuals %.1f ms: HBAR rebuild %.1f ms + stacked Hvvvv "
+          "%.1f ms + the rest); observables %.3f s a step; peak device "
+          "memory %.2f GB"
+          % (t_prop, t_prop / RT_STEPS, rhs_s, t_ms, lam_ms, hbar_ms,
+             stack_ms, obs_s, peak / 1e9))
+    print("[rt] K1: %d launches over %d right-hand sides (T ladder %d, "
+          "Lambda ladder %d); one T ladder %.2f ms, one Lambda ladder %.2f "
+          "ms (stacking included); K1 vs the plain ladder, one right-hand "
+          "side at t = %.2f: max|diff|/max|plain| = %.1e"
+          % (launches, main["rhs"], main["t"], main["lambda"],
+             lad_t_ms, lad_l_ms, t_end, rel_plain))
+    print("[rt] mu_z(t): %s  Lagrangian(t_end) %.12f"
+          % (", ".join("%s %.12f" % (k, v) for k, v in zip(keys, mz)),
+             ret[keys[-1]]["ecc"].real))
+    print("[rt] the phase, its checks included: %.1f s  | %s"
+          % (time.perf_counter() - t_phase, smi))
+
+    checks = [
+        ("solve", cc.converged and lam.converged
+         and abs(ecc - FROZEN[name][1]) < 1e-9),
+        ("field-free residuals", r_free <= 10 * RT_CONV),
+        ("phase", phase_gap < 1e-9),
+        ("Lagrangian(0)", abs(L0 - (eref + ecc)) < 1e-9),
+        ("dipole(0)", dip_gap < 1e-10),
+        ("K1 vs plain", rel_plain <= 1e-12),
+        ("K1 launches", main["rhs"] == 4 * RT_STEPS
+         and launches == 2 * main["rhs"]
+         and main["t"] == main["lambda"] == main["rhs"]),
+        ("finite", finite and len(keys) == RT_STEPS + 1
+         and all(np.isfinite(v) for v in mz)),
+    ]
+    bad = [what for what, ok in checks if not ok]
+    if bad:
+        raise AssertionError("[rt] checks failed: %s" % bad)
+    del rt, cc, lam
+    gc.collect()    # _counted_rhs's wrappers hold their rtcc in a cycle
+    return {"rt_t": main["t"], "rt_lambda": main["lambda"]}
+
+
+def phase_rt_frozen(wfn, smi, name=CC3_SIZE):
+    """[rt]'s check against pycc_tpu's frozen trajectory, on [cc3]'s
+    (H2O)_4 wavefunction: CCSD and Lambda to RT_CONV, two rk4(RT_H) steps
+    under RT_PULSE, mu and the Lagrangian at t = 0.02 (1e-8)."""
+    ref = FROZEN_RT[name]
+    t0 = time.perf_counter()
+    cc = pycc_tpu_torch.ccwfn(wfn, model="CCSD", device=DEVICE)
+    cc.solve_cc(RT_CONV, RT_CONV)
+    lam = pycc_tpu_torch.cclambda(cc, pycc_tpu_torch.cchbar(cc))
+    lam.solve_lambda(RT_CONV, RT_CONV)
+    rt = pycc_tpu_torch.rtcc(cc, lam, None, gaussian_laser(*RT_PULSE))
+    y = rt.collect_amps(cc.t1, cc.t2, lam.l1, lam.l2, 0)
+    vvvv_nt.launches = 0
+    y = rk4(RT_H)(rt.f, 0.0, y)
+    y = rk4(RT_H)(rt.f, RT_H, y)
+    launches = vvvv_nt.launches
+    t1, t2, l1, l2, _ = rt.extract_amps(y)
+    mu = rt.dipole(t1, t2, l1, l2)
+    lag = rt.lagrangian(2 * RT_H, t1, t2, l1, l2)
+    mu_gap = max(abs(a - b) for a, b in zip(mu, ref["mu"]))
+    lag_gap = abs(lag - ref["lagrangian"])
+    print("[rt] %s/cc-pVDZ CCSD (no, nv) = (%d, %d), two rk4 steps: mu_z = "
+          "%s |mu - pycc_tpu's frozen| = %.1e, Lagrangian %s |d| = %.1e, K1 "
+          "launches %d; %.1f s with the CCSD and Lambda solves  | %s"
+          % (name, cc.no, cc.nv, mu[2], mu_gap, lag, lag_gap, launches,
+             time.perf_counter() - t0, smi))
+    if not (mu_gap < 1e-8 and lag_gap < 1e-8 and launches == 16):
+        raise AssertionError("[rt] %s missed pycc_tpu's frozen trajectory: "
+                             "|mu| %.2e, |Lagrangian| %.2e, K1 launches %d"
+                             % (name, mu_gap, lag_gap, launches))
+
+
 def _kernel_entries(k1_cells, k2_cells, full, post, resp, cc3_, df, dfpost,
-                    mixed):
+                    mixed, rt):
     """The kernels line: each kernel on each path, with that path's
     launches and the timed cell at the shape the path launches it at."""
     k1 = dict(route="cuda", source="pycc_tpu_torch/csrc/vvvv_nt.cu",
@@ -2019,6 +2471,10 @@ def _kernel_entries(k1_cells, k2_cells, full, post, resp, cc3_, df, dfpost,
              **k1_cells[K1_FULL_SHAPE, "f32"]),
         dict(name="t_row/blocked", **k2, launches=mixed["t_row"],
              **k2_cells[(24, 114), "f64"]),
+        dict(name="vvvv_nt/rt_t", **k1, launches=rt["rt_t"],
+             **k1_cells[K1_RESP_SHAPE, "f64"]),
+        dict(name="vvvv_nt/rt_lambda", **k1, launches=rt["rt_lambda"],
+             **k1_cells[K1_RT_SHAPE, "f64"]),
     ]
 
 
@@ -2034,10 +2490,15 @@ def main():
     resp, muz = phase_resp(cc, lam, smi)
     del cc, lam
     torch.cuda.empty_cache()
+    rt = phase_rt(real, smi)
+    torch.cuda.empty_cache()
     mixed = phase_mixed(real, eom_roots, muz, smi)
     del real
     torch.cuda.empty_cache()
-    cc3_launches = phase_cc3(smi)
+    cc3_launches, wfn_cc3 = phase_cc3(smi)
+    torch.cuda.empty_cache()
+    phase_rt_frozen(wfn_cc3, smi)
+    del wfn_cc3
     torch.cuda.empty_cache()
     df, factors = phase_df(smi)
     torch.cuda.empty_cache()
@@ -2045,7 +2506,7 @@ def main():
     print(smi)
     print(json.dumps({"kernels": _kernel_entries(
         k1_cells, k2_cells, full, post, resp, cc3_launches, df, dfpost,
-        mixed)}))
+        mixed, rt)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

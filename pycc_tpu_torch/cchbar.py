@@ -6,6 +6,8 @@ come from one plain function of (F, ERI, L, t1, t2), term for term, so a
 field-dressed F rebuilds HBAR with no object mutation.  `cchbar(ccwfn)`
 exposes the blocks as attributes, and keeps the pre-laid ladder operand
 the left ('ijef,efab') form of the K1 ladder needs (`HBar.Hvvvv_efab`).
+Complex amplitudes (real-time CC) give a complex HBAR, built by the same
+function.
 For storage='df' the HBAR is models/dfhbar.build_hbar_df's, over the
 Cholesky factors.
 """
@@ -18,6 +20,7 @@ import torch
 from .models.blocked import eri_views
 from .models.ccsd import build_tau, slices
 from .ops.contract import contract
+from .ops.kernels.vvvv import stack_complex
 from .utils.log import logger as log
 
 BLOCKS = ("Hov", "Hvv", "Hoo", "Hoooo", "Hvvvv", "Hvovv", "Hooov", "Hovvo",
@@ -48,9 +51,14 @@ class HBar:
         """Hvvvv laid out as (a, b, e, f), made once on first use: its
         (ab, ef) matrix is B[n=(a,b), k=(e,f)] = Hvvvv[e,f,a,b], so K1's
         A @ B.T computes the left form 'ijef,efab->ijab'
-        (models/ccsd.vvvv_contract_efab)."""
+        (models/ccsd.vvvv_contract_efab).  A complex Hvvvv (the HBAR of
+        real-time CC's complex amplitudes) is laid out as K1's stacked
+        operand instead, [Re; Im] in the same (a, b, e, f) order
+        (`ops/kernels/vvvv.StackedComplex`), in the one copy."""
         if self._efab is None:
-            self._efab = self.Hvvvv.permute(2, 3, 0, 1).contiguous()
+            H = self.Hvvvv.permute(2, 3, 0, 1)
+            self._efab = (stack_complex(H) if H.is_complex()
+                          else H.contiguous())
         return self._efab
 
 

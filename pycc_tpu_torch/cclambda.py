@@ -115,20 +115,54 @@ def cc3_extra_fn(cc):
 
 
 def lambda_residuals_from_F(model, F, ERI, L, t1, t2, l1, l2, no,
-                            real_time=False, F_ref=None):
-    """Rebuild HBAR from F on the fly (the real-time path's residual); CC3
-    takes the CCSD form plus its T3/L3 extras (the slab form past o^3 v^3
-    = 2e8 elements)."""
+                            real_time=False, F_ref=None, ladder=vvvv_nt,
+                            slabs=None):
+    """Rebuild HBAR from F on the fly (the real-time path's residual, F
+    dressed by the field, every operand complex); CC3 takes the CCSD form
+    plus its T3/L3 extras, in the slab form when `slabs` is True, the
+    full-tensor form when False, and for None past o^3 v^3 = 2e8 elements
+    (pycc_tpu's rule).  The Hvvvv ladder goes through `ladder`: under
+    complex amplitudes one K1 launch on the HBAR's stacked complex
+    operand."""
     base = "CCSD" if model == "CC3" else model
     hb = build_hbar(base, F, ERI, L, t1, t2, no)
-    r1, r2 = lambda_residuals(base, hb, F, ERI, L, t1, t2, l1, l2, no)
+    r1, r2 = lambda_residuals(base, hb, F, ERI, L, t1, t2, l1, l2, no,
+                              ladder=ladder)
     if model == "CC3":
-        from .ccwfn import T3_FULL_MAX
-        nv = t2.shape[2]
-        fn = (cc3.cc3_lambda_extra_scan if no ** 3 * nv ** 3 > T3_FULL_MAX
-              else cc3.cc3_lambda_extra)
+        if slabs is None:
+            from .ccwfn import T3_FULL_MAX
+            slabs = no ** 3 * t2.shape[2] ** 3 > T3_FULL_MAX
+        fn = cc3.cc3_lambda_extra_scan if slabs else cc3.cc3_lambda_extra
         Y1, Y2 = fn(F, ERI, L, t1, t2, l1, l2, no, real_time=real_time,
                     F_ref=F_ref)
+        r1 = r1 + Y1
+        r2 = r2 + Y2
+    return r1, r2
+
+
+def lambda_residuals_from_F_df(model, F, dfb, t1, t2, l1, l2, no,
+                               real_time=False, F_ref=None, nblocks=None,
+                               ladder=vvvv_nt):
+    """`lambda_residuals_from_F` over Cholesky/DF factors: the DF-HBAR
+    rebuilt from the (field-dressed) F each call (`build_hbar_df`, the CC2
+    forms for CC2, else the CCSD forms) and `lambda_residuals_df`, whose
+    ladder is one `ladder` call an a-block; no four-index object exists.
+    CCD reduces to the CCSD forms at t1 = l1 = 0, with r1 pinned to zero.
+    CC3 adds the factor-assembled slab extras
+    (`cc3.cc3_lambda_extra_scan_df`)."""
+    from .models.dfhbar import build_hbar_df, lambda_residuals_df
+    if model not in ("CCD", "CC2", "CCSD", "CC3"):
+        raise ValueError("Lambda over factors from F supports CCD, CC2, "
+                         "CCSD and CC3 (got %s)." % model)
+    dfh = build_hbar_df(F, dfb, t1, t2, no,
+                        model="CC2" if model == "CC2" else "CCSD")
+    r1, r2 = lambda_residuals_df(dfh, t1, t2, l1, l2, no, nblocks=nblocks,
+                                 model="CCSD" if model == "CC3" else model,
+                                 F=F, ladder=ladder)
+    if model == "CC3":
+        Y1, Y2 = cc3.cc3_lambda_extra_scan_df(F, dfb, t1, t2, l1, l2, no,
+                                              real_time=real_time,
+                                              F_ref=F_ref)
         r1 = r1 + Y1
         r2 = r2 + Y2
     return r1, r2
@@ -150,13 +184,14 @@ class cclambda:
         self.l2 = 2.0 * (2.0 * ccwfn.t2 - ccwfn.t2.swapaxes(2, 3))
 
     def residuals(self, F, t1, t2, l1, l2):
-        """Standalone residuals rebuilding HBAR from F (for RT-CC)."""
+        """Standalone residuals rebuilding HBAR from F (for RT-CC): over
+        the dense tensors or block views, or over factors
+        (`lambda_residuals_from_F_df`)."""
         cc = self.ccwfn
         if getattr(cc, "storage", "full") == "df":
-            from .ccwfn import _not_ported
-            raise _not_ported("cclambda.residuals over factors "
-                              "(lambda_residuals_from_F_df)",
-                              "Queue 1, item 11 (real-time CC)")
+            return lambda_residuals_from_F_df(
+                cc.model, F, cc.dfb, t1, t2, l1, l2, cc.no,
+                nblocks=getattr(cc, "df_nblocks", None))
         ERI, L = eri_views(cc)
         return lambda_residuals_from_F(cc.model, F, ERI, L, t1, t2, l1, l2,
                                        cc.no)

@@ -54,6 +54,7 @@ from .models import dfccsd as dfq
 from .models.blocked import ERIBlocks, LoovvOnly, blocked_views, eri_views
 from .models.dfhbar import loovv_df
 from .ops.diis import DIIS
+from .ops.kernels.vvvv import vvvv_nt
 from .utils.device import init_device
 from .utils.log import logger as log
 from .utils.timing import Timers
@@ -93,7 +94,6 @@ _NOT_PORTED_INIT_KWARGS = {
     "it2_opt": "Queue 1, item 12 (local correlation)",
     "filter": "Queue 1, item 12 (local correlation)",
     "mesh": "Queue 1, item 13 (multi-device)",
-    "real_time": "Queue 1, item 11 (real-time CC)",
 }
 # what a precision stage derives from the stage's tensors: _cast_stage
 # drops them (the bf16 copies, the (T) Lambda sources and density blocks)
@@ -155,7 +155,7 @@ class ccwfn:
     def __init__(self, scf_wfn, model="CCSD", precision="DP", device="cuda",
                  storage="full", df_tol=1e-8, df_direct=None,
                  df_nblocks=None, make_t3_density=False, t3_scan=None,
-                 **kwargs):
+                 real_time=False, **kwargs):
         time_init = time.time()
         model = _check_model(model)
         storage = storage.lower()
@@ -167,6 +167,7 @@ class ccwfn:
         self.model = model
         self.make_t3_density = bool(make_t3_density)
         self.t3_scan = t3_scan
+        self.real_time = bool(real_time)
         self.storage = storage
         self.precision = precision
         self.device = init_device(device)
@@ -303,6 +304,7 @@ class ccwfn:
         self.storage = "df"
         self.make_t3_density = False
         self.t3_scan = None
+        self.real_time = False
         self.df_direct = True
         self.df_tol = None
         self.df_nblocks = df_nblocks
@@ -347,13 +349,22 @@ class ccwfn:
             return self.blocks.vvvv
         return self.H.vvvv
 
-    def residuals(self, F, t1, t2):
-        """T1/T2 residuals r_mu = <mu|HBAR|0> for the current amplitudes."""
+    def residuals(self, F, t1, t2, ladder=vvvv_nt):
+        """T1/T2 residuals r_mu = <mu|HBAR|0> for the amplitudes (t1, t2)
+        and a Fock matrix F, which real-time CC dresses with the field:
+        the model's function for the storage (`_residual_fn`), its
+        particle-particle ladder through `ladder` (K1 by default; CC2 has
+        none), CC3's with real_time=self.real_time and F_ref=self.H.F, as
+        pycc_tpu binds them."""
+        kw = {} if self.model == "CC2" else {"ladder": ladder}
+        if self.model == "CC3":
+            kw.update(real_time=self.real_time, F_ref=self.H.F)
         if self.storage == "df":
             return self._residual_fn(F, self.dfb, t1, t2, self.no,
-                                     nblocks=self.df_nblocks)
+                                     nblocks=self.df_nblocks, **kw)
         ERI, L = eri_views(self)
-        return self._residual_fn(F, ERI, L, self.vvvv(), t1, t2, self.no)
+        return self._residual_fn(F, ERI, L, self.vvvv(), t1, t2, self.no,
+                                 **kw)
 
     def _integrals_bf16(self):
         """bfloat16 copies of the blocks or the factors, made once a stage

@@ -528,7 +528,7 @@ def residuals_cc3_scan(F, ERI, L, vvvv, t1, t2, no, real_time=False,
 # ---------------------------------------------------------------------------
 
 def cc3_scan_prep_df(F, dfb, t1, t2, no, real_time=False, F_ref=None,
-                     nblocks=None):
+                     nblocks=None, ladder=vvvv_nt):
     """`cc3_scan_prep` from factors: the CCSD part by the DF residuals
     (their ladder through K1, a block at a time) and the dressed W's from
     `cc3_intermediates_df`, already in slab layout."""
@@ -536,7 +536,8 @@ def cc3_scan_prep_df(F, dfb, t1, t2, no, real_time=False, F_ref=None,
 
     o, v = slices(no)
     F_ref = F if F_ref is None else F_ref
-    r1, r2 = residuals_ccsd_df(F, dfb, t1, t2, no, nblocks=nblocks)
+    r1, r2 = residuals_ccsd_df(F, dfb, t1, t2, no, nblocks=nblocks,
+                               ladder=ladder)
     e = _eri_oovv(dfb)
     Lo = 2.0 * e - e.swapaxes(2, 3)
     Fme = F[o, v] + contract("nf,mnef->me", t1, Lo)
@@ -547,13 +548,13 @@ def cc3_scan_prep_df(F, dfb, t1, t2, no, real_time=False, F_ref=None,
 
 
 def residuals_cc3_scan_df(F, dfb, t1, t2, no, real_time=False, F_ref=None,
-                          nblocks=None):
+                          nblocks=None, ladder=vvvv_nt):
     """CC3 T1/T2 residuals over Cholesky/DF factors with O(o v^3) triples
     memory: the storage='df' counterpart of `residuals_cc3_scan`, equal
     to it given exact factors."""
     (r1, r2, *rest) = cc3_scan_prep_df(F, dfb, t1, t2, no,
                                        real_time=real_time, F_ref=F_ref,
-                                       nblocks=nblocks)
+                                       nblocks=nblocks, ladder=ladder)
     return _cc3_xs_rows(r1, r2, *rest, t2, no, real_time)
 
 

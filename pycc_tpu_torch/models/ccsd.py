@@ -9,13 +9,13 @@ Conventions: t1 (o,v), t2 (o,o,v,v); ERI in Dirac <pq|rs>; L = 2<pq|rs> -
 <pq|sr>; `vvvv` is <ab|ef> as one contiguous (v,v,v,v) tensor
 (Hamiltonian.vvvv).  All functions take F explicitly.  `vvvv_contract`
 and `vvvv_contract_efab` (Lambda's left form) run the ladder through K1,
-complex amplitudes as stacked real and imaginary rows.
+complex amplitudes and a complex W as stacked real and imaginary rows.
 """
 
 import torch
 
-from ..ops.contract import contract
-from ..ops.kernels.vvvv import ladder_product, vvvv_nt
+from ..ops.contract import contract, seed
+from ..ops.kernels.vvvv import StackedComplex, complex_product, vvvv_nt
 
 
 def slices(no):
@@ -41,34 +41,31 @@ def vvvv_contract(tau, W, ladder=vvvv_nt):
     default, `vvvv_nt_reference` for the plain product.  W must be
     contiguous, so that its (v^2, v^2) matrix is a view.
 
-    A complex tau (the response amplitudes of the M and P perturbations)
-    against a real W is still one real product: its real and imaginary
-    rows stacked as one (2 o^2, v^2) matrix, recombined after.  A complex
-    W is not reached by the ported modules (real-time CC is).  bfloat16
-    operands take K1's bf16 mode and give a bfloat16 result
+    Complex operands are still one real product
+    (`ops/kernels/vvvv.complex_product`): a complex tau (the response
+    amplitudes of the M and P perturbations, real-time CC's T ladder)
+    against a real W as its real and imaginary rows stacked, (2 o^2, v^2);
+    a complex W (real-time CC's Lambda ladder on the HBAR of complex
+    amplitudes) as [Re W; Im W], (2 v^2, v^2), which W may already be, a
+    `StackedComplex` made once per HBAR (`cchbar.HBar.Hvvvv_efab`).
+    bfloat16 operands take K1's bf16 mode and give a bfloat16 result
     (`ladder_product`)."""
-    if W.is_complex():
-        from ..ccwfn import _not_ported
-        raise _not_ported("vvvv_contract with a complex W",
-                          "Queue 1, item 11 (real-time CC)")
     no1, no2, nv, _ = tau.shape
     na, nb = W.shape[0], W.shape[1]
     A = tau.reshape(no1 * no2, nv * nv)
-    B = W.reshape(na * nb, nv * nv)
-    if A.is_complex():
-        m = A.shape[0]
-        out = ladder_product(ladder, torch.cat([A.real, A.imag]), B)
-        out = torch.complex(out[:m], out[m:])
+    if isinstance(W, StackedComplex):
+        B = StackedComplex(W.ri.reshape(2, na * nb, nv * nv))
     else:
-        out = ladder_product(ladder, A, B)
-    return out.reshape(no1, no2, na, nb)
+        B = W.reshape(na * nb, nv * nv)
+    return complex_product(ladder, A, B).reshape(no1, no2, na, nb)
 
 
 def vvvv_contract_efab(tau, Wt, ladder=vvvv_nt):
     """'ijef,efab->ijab' (the left-Hvvvv form of Lambda and the response
     Y2) through K1, on the pre-laid operand Wt[a,b,e,f] = W[e,f,a,b]
     (cchbar.HBar.Hvvvv_efab), made once per HBAR: its (ab, ef) matrix is
-    K1's B, so nothing is transposed here."""
+    K1's B, so nothing is transposed here; a complex HBAR's is a
+    `StackedComplex`."""
     return vvvv_contract(tau, Wt, ladder)
 
 
@@ -167,7 +164,7 @@ def residuals_ccsd(F, ERI, L, vvvv, t1, t2, no, ladder=vvvv_nt):
 
     r1 = _r_T1(F, ERI, L, t1, t2, Fae, Fme, Fmi, no)
 
-    r2 = 0.5 * ERI[o, o, v, v]
+    r2 = seed(0.5 * ERI[o, o, v, v], t2)
     r2 += contract("ijae,be->ijab", t2, Fae)
     r2 -= 0.5 * contract("ijae,be->ijab", t2, contract("mb,me->be", t1, Fme))
     r2 -= contract("imab,mj->ijab", t2, Fmi)
@@ -191,7 +188,8 @@ def residuals_ccsd(F, ERI, L, vvvv, t1, t2, no, ladder=vvvv_nt):
 # CCD residuals
 # ---------------------------------------------------------------------------
 
-def residuals_ccd(F, ERI, L, vvvv, t1, t2, no):
+def residuals_ccd(F, ERI, L, vvvv, t1, t2, no, ladder=vvvv_nt):
+    """CCD T2 residual (r1 = 0); the ladder goes through `ladder`."""
     o, v = slices(no)
     Fae = F[v, v] - contract("mnaf,mnef->ae", t2, L[o, o, v, v])
     Fmi = F[o, o] + contract("inef,mnef->mi", t2, L[o, o, v, v])
@@ -203,11 +201,11 @@ def residuals_ccd(F, ERI, L, vvvv, t1, t2, no):
              + 0.5 * contract("jnfb,mnfe->mbje", t2, ERI[o, o, v, v]))
 
     r1 = torch.zeros_like(t1)
-    r2 = 0.5 * ERI[o, o, v, v]
+    r2 = seed(0.5 * ERI[o, o, v, v], t2)
     r2 += contract("ijae,be->ijab", t2, Fae)
     r2 -= contract("imab,mj->ijab", t2, Fmi)
     r2 += 0.5 * contract("mnij,mnab->ijab", Wmnij, t2)
-    r2 += 0.5 * vvvv_contract(t2, vvvv)
+    r2 += 0.5 * vvvv_contract(t2, vvvv, ladder)
     r2 += contract("imae,mbej->ijab", t2 - t2.swapaxes(2, 3), Wmbej)
     r2 += contract("imae,mbej->ijab", t2, Wmbej + Wmbje.swapaxes(2, 3))
     r2 += contract("mjae,mbie->ijab", t2, Wmbje)
@@ -234,7 +232,7 @@ def residuals_cc2(F, ERI, L, vvvv, t1, t2, no):
 
     r1 = _r_T1(F, ERI, L, t1, t2, Fae, Fme, Fmi, no)
 
-    r2 = 0.5 * ERI[o, o, v, v]
+    r2 = seed(0.5 * ERI[o, o, v, v], t2)
     fae = F[v, v] - 0.5 * contract("me,ma->ae", F[o, v], t1)
     r2 += contract("ijae,be->ijab", t2, fae)
     r2 -= 0.5 * contract("ijae,be->ijab", t2, contract("mb,me->be", t1, F[o, v]))

@@ -35,7 +35,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.contract import contract
+from ..ops.contract import contract, seed
+from ..ops.kernels.vvvv import vvvv_nt
 
 
 class DFERI(NamedTuple):
@@ -194,16 +195,17 @@ def ladder_W(BL_blk, BR):
                                                            ne * nf)
 
 
-def ladder_df(df, t1, t2, nblocks=None):
+def ladder_df(df, t1, t2, nblocks=None, ladder=vvvv_nt):
     """sum_ef tau[ijef] * W[abef] with
     W[abef] = sum_P (0.5 B[Pae] - sum_m t1[ma] B[Pme]) B[Pbf]:
     the vvvv ladder and the dense equations' `- t1*Zmbij` term in one
     dressed contraction, assembled in a-blocks by `dfhbar.ladder_apply`
     (peak blk*v^3, never v^4; nblocks=None takes `_ladder_blocks`), one
-    K1 launch a block."""
+    `ladder` call (K1 by default) a block."""
     from .dfhbar import ladder_apply
     BL = 0.5 * df.Bvv - contract("ma,Pme->Pae", t1, df.Bov)
-    return ladder_apply(BL, df.Bvv, _tau(t1, t2), nblocks=nblocks)
+    return ladder_apply(BL, df.Bvv, _tau(t1, t2), nblocks=nblocks,
+                        ladder=ladder)
 
 
 # ---------------------------------------------------------------------------
@@ -236,9 +238,10 @@ def _r_T1_df(F, df, eri_oovv, Loovv, eri_ooov, t1, t2, Fae, Fme, Fmi, no):
             - Loovo_term)
 
 
-def residuals_ccsd_df(F, df, t1, t2, no, nblocks=None):
+def residuals_ccsd_df(F, df, t1, t2, no, nblocks=None, ladder=vvvv_nt):
     """DF-CCSD residuals: same fixed point as models/ccsd.residuals_ccsd
-    evaluated on the B-reconstructed ERI (exactly, given exact factors)."""
+    evaluated on the B-reconstructed ERI (exactly, given exact factors);
+    the ladder's blocks go through `ladder` (K1 by default)."""
     eri_oovv = _eri_oovv(df)
     Loovv = 2.0 * eri_oovv - eri_oovv.swapaxes(2, 3)
     eri_ooov = _eri_ooov(df)
@@ -259,14 +262,14 @@ def residuals_ccsd_df(F, df, t1, t2, no, nblocks=None):
     r1 = _r_T1_df(F, df, eri_oovv, Loovv, eri_ooov, t1, t2,
                   Fae, Fme, Fmi, no)
 
-    r2 = 0.5 * eri_oovv
+    r2 = seed(0.5 * eri_oovv, t2)
     r2 += contract("ijae,be->ijab", t2, Fae)
     r2 -= 0.5 * contract("ijae,be->ijab", t2, contract("mb,me->be", t1, Fme))
     r2 -= contract("imab,mj->ijab", t2, Fmi)
     r2 -= 0.5 * contract("imab,jm->ijab", t2, contract("je,me->jm", t1, Fme))
     r2 += 0.5 * contract("mnij,mnab->ijab", Wmnij, tau)
     # dressed ladder == 0.5*vvvv ladder - t1*Zmbij of the dense equations
-    r2 += ladder_df(df, t1, t2, nblocks=nblocks)
+    r2 += ladder_df(df, t1, t2, nblocks=nblocks, ladder=ladder)
     r2 += contract("imae,mbej->ijab", t2 - t2.swapaxes(2, 3), Wmbej)
     r2 += contract("imae,mbej->ijab", t2, Wmbej + Wmbje.swapaxes(2, 3))
     r2 += contract("mjae,mbie->ijab", t2, Wmbje)
@@ -281,7 +284,7 @@ def residuals_ccsd_df(F, df, t1, t2, no, nblocks=None):
     return r1, r2
 
 
-def residuals_ccd_df(F, df, t1, t2, no, nblocks=None):
+def residuals_ccd_df(F, df, t1, t2, no, nblocks=None, ladder=vvvv_nt):
     """DF-CCD: models/ccsd.residuals_ccd with factorized integrals."""
     o, v = slice(0, no), slice(no, None)
     eri_oovv = _eri_oovv(df)
@@ -297,12 +300,14 @@ def residuals_ccd_df(F, df, t1, t2, no, nblocks=None):
     Wmbje = -eri_ovov + 0.5 * contract("jnfb,mnfe->mbje", t2, eri_oovv)
 
     r1 = torch.zeros_like(t1)
-    r2 = 0.5 * eri_oovv
+    r2 = seed(0.5 * eri_oovv, t2)
     r2 += contract("ijae,be->ijab", t2, Fae)
     r2 -= contract("imab,mj->ijab", t2, Fmi)
     r2 += 0.5 * contract("mnij,mnab->ijab", Wmnij, t2)
-    # undressed ladder: t1 = 0 makes BL = 0.5 * Bvv and tau = t2
-    r2 += ladder_df(df, torch.zeros_like(t1), t2, nblocks=nblocks)
+    # undressed ladder: t1 = 0 makes BL = 0.5 * Bvv and tau = t2 (a real
+    # zero, so that BL stays real under real-time CC's complex t2)
+    r2 += ladder_df(df, torch.zeros_like(t1.real), t2, nblocks=nblocks,
+                    ladder=ladder)
     r2 += contract("imae,mbej->ijab", t2 - t2.swapaxes(2, 3), Wmbej)
     r2 += contract("imae,mbej->ijab", t2, Wmbej + Wmbje.swapaxes(2, 3))
     r2 += contract("mjae,mbie->ijab", t2, Wmbje)
@@ -340,7 +345,7 @@ def residuals_cc2_df(F, df, t1, t2, no, nblocks=None):
     r1 = _r_T1_df(F, df, eri_oovv, Loovv, eri_ooov, t1, t2,
                   Fae, Fme, Fmi, no)
 
-    r2 = 0.5 * eri_oovv
+    r2 = seed(0.5 * eri_oovv, t2)
     fae = F[v, v] - 0.5 * contract("me,ma->ae", F[o, v], t1)
     r2 += contract("ijae,be->ijab", t2, fae)
     r2 -= 0.5 * contract("ijae,be->ijab", t2,

@@ -33,7 +33,7 @@ k vectors.
 Not ported (ROADMAP.md "Not ported"): pycc_tpu's five-program split
 Lambda (`lambda_r2_small_a_df` ... `lambda_residuals_df_split`), sized
 for 15.75 GB of TPU HBM, and the CTensor branch of `ladder_apply` (torch
-has complex dtypes).
+has complex dtypes: a complex W is one K1 product a block here).
 """
 
 from typing import NamedTuple
@@ -41,9 +41,11 @@ from typing import NamedTuple
 import torch
 
 from ..ops.contract import contract
-from ..ops.kernels.vvvv import ladder_product, vvvv_nt
-from .dfccsd import (DFERI, _eri_oooo, _eri_ooov, _eri_oovv, _eri_ovoo,
-                     _eri_ovov, _eri_ovvo, _ladder_blocks, _tau, ladder_W)
+from ..ops.kernels.vvvv import (ladder_product, stack_rows,
+                                unstack_product, vvvv_nt)
+from .dfccsd import (DFERI, LADDER_MAX_ELEMS, _eri_oooo, _eri_ooov,
+                     _eri_oovv, _eri_ovoo, _eri_ovov, _eri_ovvo,
+                     _ladder_blocks, _tau, ladder_W)
 
 
 class DFHBar(NamedTuple):
@@ -94,35 +96,48 @@ def ladder_apply(BL, BR, x2, nblocks=None, ladder=vvvv_nt):
     preallocated output, a ragged last block needs no padding.
 
     A complex x2 goes in as one real product, its real and imaginary rows
-    stacked; a complex BL (an X1-dressed factor of the response) is two
-    real ladders.  A complex BR is real-time CC's (item 11).  bfloat16
-    operands take K1's bf16 mode and give a bfloat16 result
-    (`ladder_product`)."""
-    if BR.is_complex():
-        from ..ccwfn import _not_ported
-        raise _not_ported("ladder_apply with a complex right factor",
-                          "Queue 1, item 11 (real-time CC)")
-    if BL.is_complex():
+    stacked.  A complex factor makes W complex (real-time CC's factors,
+    dressed by complex t1): each block's W is assembled complex and goes
+    in as [Re W; Im W], so the block is still ONE product
+    (`ops/kernels/vvvv.complex_product`), on a quarter of the real block
+    budget (W complex and its stacked copy).  A complex BL against a real
+    BR and a real x2 (the response's X1-dressed factor) stays two real
+    ladders.  bfloat16 operands take K1's bf16 mode and give a bfloat16
+    result (`ladder_product`)."""
+    complex_W = BL.is_complex() or BR.is_complex()
+    if complex_W and not BR.is_complex() and not x2.is_complex():
         return (ladder_apply(BL.real, BR, x2, nblocks, ladder)
                 + 1j * ladder_apply(BL.imag, BR, x2, nblocks, ladder))
+    if complex_W:
+        dt = torch.promote_types(BL.dtype, BR.dtype)
+        BL, BR = BL.to(dt), BR.to(dt)
     naux, na, ne = BL.shape
     nb, nf = BR.shape[1], BR.shape[2]
     lead = x2.shape[:-2]
     A = x2.reshape(-1, ne * nf)
     m = A.shape[0]
-    if A.is_complex():
-        A = torch.cat([A.real, A.imag])
-    A = A.contiguous()
+    As = stack_rows(A).contiguous()
     if nblocks is None:
-        nblocks = _ladder_blocks(na, naux)
+        nblocks = (_ladder_blocks(na, naux, LADDER_MAX_ELEMS // 4)
+                   if complex_W else _ladder_blocks(na, naux))
     blk = -(-na // nblocks)
-    z = torch.empty((A.shape[0], na, nb), dtype=A.dtype, device=A.device)
+    if complex_W:
+        z = torch.empty((m, na, nb), dtype=torch.promote_types(A.dtype, dt),
+                        device=A.device)
+    else:
+        z = torch.empty((As.shape[0], na, nb), dtype=As.dtype,
+                        device=A.device)
     for a0 in range(0, na, blk):
         a1 = min(a0 + blk, na)
         W = ladder_W(BL[:, a0:a1], BR)
-        z[:, a0:a1] = ladder_product(ladder, A, W).view(-1, a1 - a0, nb)
-        del W
-    if x2.is_complex():
+        if complex_W:
+            out = unstack_product(ladder_product(ladder, As, stack_rows(W)),
+                                  A.is_complex(), True)
+        else:
+            out = ladder_product(ladder, As, W)
+        z[:, a0:a1] = out.view(-1, a1 - a0, nb)
+        del W, out
+    if x2.is_complex() and not complex_W:
         z = torch.complex(z[:m], z[m:])
     return z.view(*lead, na, nb)
 

@@ -21,3 +21,12 @@ def contract(subscripts, *operands):
         dt = functools.reduce(torch.promote_types, (x.dtype for x in operands))
         operands = [x.to(dt) for x in operands]
     return torch.einsum(subscripts, *operands)
+
+
+def seed(x, like):
+    """x (a fresh tensor an in-place sum starts from) in the dtype that x
+    and `like` promote to: a residual seeded from the real integrals
+    becomes complex under complex amplitudes (real-time CC), so the +=
+    that follow add complex terms; in one dtype x itself, uncopied."""
+    dt = torch.promote_types(x.dtype, like.dtype)
+    return x if dt == x.dtype else x.to(dt)

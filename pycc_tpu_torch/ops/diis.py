@@ -95,7 +95,15 @@ class DIIS:
         Bb[m, :m] = border
         rhs = torch.zeros((m + 1,), dtype=B.dtype, device=dev)
         rhs[m] = -1.0
-        c = torch.linalg.solve(Bb, rhs)[:m]
-        c = torch.where(valid, c, 0.0)
+        # a singular Pulay matrix (error vectors exactly dependent, as a
+        # solve at its floor on the card can give) takes the newest
+        # amplitudes unextrapolated; torch.linalg.solve would raise there
+        # and jnp.linalg.solve returns non-finite coefficients.  No host
+        # read: the choice is made on the device
+        c, info = torch.linalg.solve_ex(Bb, rhs)
+        c = torch.where(valid, c[:m], 0.0)
+        newest = torch.arange(m, device=dev) == (state.count - 1) % m
+        ok = (info == 0) & torch.isfinite(c).all()
+        c = torch.where(ok, c, newest.to(c.dtype))
         new = c.to(state.amps.dtype) @ state.amps
         return _unflatten(new, self.template)

@@ -12,6 +12,7 @@ on first use and bound with ctypes, by `build.py` beside this module.
 """
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -142,3 +143,65 @@ def ladder_product(ladder, A, B):
     if A.dtype == torch.bfloat16:
         return ladder(A, B, bf16=True).to(torch.bfloat16)
     return ladder(A, B)
+
+
+# ---------------------------------------------------------------------------
+# complex operands: one real product on stacked real and imaginary rows
+# ---------------------------------------------------------------------------
+
+class StackedComplex(NamedTuple):
+    """A complex operand laid out for K1 once and reused by every product
+    with it: ri = [Re X; Im X], real, of shape (2, *X.shape).  Its (2n, k)
+    matrix is K1's B operand for the complex X (n, k)."""
+    ri: torch.Tensor
+
+    @property
+    def shape(self):
+        return self.ri.shape[1:]
+
+
+def stack_complex(X):
+    """X as a `StackedComplex` (one copy of X's bytes)."""
+    return StackedComplex(torch.stack([X.real, X.imag]))
+
+
+def stack_rows(X):
+    """The (m, k) matrix X as K1's operand: itself when real, its real and
+    imaginary rows stacked as one real (2m, k) matrix when complex."""
+    if X.is_complex():
+        return torch.cat([X.real, X.imag])
+    return X
+
+
+def unstack_product(out, a_complex, b_complex):
+    """The complex A @ B.T from out = stack_rows(A) @ stack_rows(B).T:
+    with both complex out holds the four real products as a 2 x 2 block
+    matrix, re = ArBr^T - AiBi^T and im = ArBi^T + AiBr^T (the work of a
+    complex GEMM, with the rounding of four real products)."""
+    if a_complex and b_complex:
+        m, n = out.shape[0] // 2, out.shape[1] // 2
+        return torch.complex(out[:m, :n] - out[m:, n:],
+                             out[:m, n:] + out[m:, :n])
+    if a_complex:
+        m = out.shape[0] // 2
+        return torch.complex(out[:m], out[m:])
+    if b_complex:
+        n = out.shape[1] // 2
+        return torch.complex(out[:, :n], out[:, n:])
+    return out
+
+
+def complex_product(ladder, A, B):
+    """A @ B.T for real or complex A (m, k) and B (n, k), or B a
+    `StackedComplex` whose ri is (2, n, k), in ONE `ladder_product` call:
+    complex operands go in as stacked real and imaginary rows
+    (`stack_rows`) and the real product is recombined
+    (`unstack_product`).  bfloat16 never meets a complex operand: a
+    complex64 operand takes K1's f32 mode."""
+    b_complex = isinstance(B, StackedComplex) or B.is_complex()
+    if isinstance(B, StackedComplex):
+        Bs = B.ri.reshape(-1, B.ri.shape[-1])
+    else:
+        Bs = stack_rows(B)
+    out = ladder_product(ladder, stack_rows(A), Bs)
+    return unstack_product(out, A.is_complex(), b_complex)

@@ -207,3 +207,34 @@ def test_davidson_collapse_is_no_stall(seed, coupling, spread, maxM):
     r = torch.linalg.norm(eom.sigma(x) - torch.tensor(E)[:, None] * x).item()
     assert eom.converged and r < 1e-7
     assert abs(E[0] - np.sort(np.linalg.eigvals(A).real)[0]) < 1e-8
+
+
+def test_davidson_does_not_stop_above_the_precision_floor():
+    """(H2O)_2/cc-pVDZ, frozen core, 3 roots from the HBAR_SS guess: at
+    iteration 8 a lower state replaces the third root, and the largest
+    residual norm stays above its best (5.5e-3) for 6 iterations while that
+    root converges.  The best-iterate exit took this for the working
+    precision's floor, and f08c488 stopped at iteration 13 with residual
+    norms near 5.5e-3 and a third root 1e-2 Eh too high.  That exit now
+    takes only a plateau the precision explains, so the solve goes on to
+    r_conv; its roots equal those of a subspace large enough never to
+    collapse (maxM 200)."""
+    from pycc_tpu_torch.data import moldict
+    cc = pycc_tpu_torch.ccwfn(run_rhf(moldict["(H2O)_2"], "cc-pvdz",
+                                      freeze_core=True), device="cpu")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cc.solve_cc(1e-10, 1e-10)
+        hb = pycc_tpu_torch.cchbar(cc)
+        roots = {}
+        for maxM in (None, 200):
+            eom = pycc_tpu_torch.cceom(hb)
+            E, _ = eom.solve_eom(3, 1e-10, 1e-7, maxiter=200,
+                                 guess="HBAR_SS", maxM=maxM)
+            x = eom.ritz
+            r = torch.linalg.norm(eom.sigma(x) - torch.tensor(E)[:, None] * x,
+                                  dim=1)
+            assert eom.converged and eom.residual_floor is None
+            assert float(r.max()) <= 1e-7
+            roots[maxM] = E
+    assert np.abs(roots[None] - roots[200]).max() < 1e-8
+    assert abs(roots[None][2] - 0.37773052) < 1e-6

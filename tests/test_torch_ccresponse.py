@@ -349,9 +349,29 @@ def test_complex_ladder_is_one_stacked_product(efab):
 
 
 def test_complex_W_names_the_real_time_item():
-    tau = torch.zeros((2, 2, 3, 3), dtype=torch.complex128)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        vvvv_contract(tau, torch.zeros((3, 3, 3, 3), dtype=torch.complex128))
+    """A complex W (real-time CC's Lambda ladder; it raised for item 11
+    before) is one ladder call on stacked operands, (2 o^2, v^2) x
+    (2 v^2, v^2), for a complex W or its `StackedComplex` layout, and
+    equals pycc_tpu's vvvv_contract on the same inputs."""
+    from pycc_tpu.models.ccsd import vvvv_contract as jvvvv_contract
+    from pycc_tpu_torch.ops.kernels.vvvv import stack_complex
+    rng = np.random.default_rng(31)
+    tau = (rng.standard_normal((3, 3, 4, 4))
+           + 1j * rng.standard_normal((3, 3, 4, 4)))
+    W = (rng.standard_normal((4, 4, 4, 4))
+         + 1j * rng.standard_normal((4, 4, 4, 4)))
+    ref = np.asarray(jvvvv_contract(jnp.asarray(tau), jnp.asarray(W)))
+    assert np.max(np.abs(ref - np.einsum("ijef,abef->ijab", tau, W))) < 1e-12
+    for tW in (torch.from_numpy(W), stack_complex(torch.from_numpy(W))):
+        calls = []
+
+        def ladder(a, b):
+            calls.append((tuple(a.shape), tuple(b.shape), a.dtype))
+            return vvvv_nt_reference(a, b)
+        out = vvvv_contract(torch.from_numpy(tau), tW, ladder)
+        assert calls == [((18, 16), (32, 16), torch.float64)]
+        assert out.dtype == torch.complex128
+        assert np.max(np.abs(out.numpy() - ref)) < 1e-12
 
 
 # ---------------------------------------------------------------------------

@@ -84,3 +84,24 @@ def test_diis_extrapolation_matches_pycc_tpu():
     tout = td.extrapolate(ts, tuple(map(torch.from_numpy, cur)))
     for a, b in zip(jout, tout):
         assert _gap(a, b) < 1e-12
+
+
+@pytest.mark.parametrize("pushes", [2, 3, 10])
+def test_diis_on_a_singular_pulay_matrix_takes_the_newest_amplitudes(pushes):
+    """Error vectors that are exactly dependent (the same step pushed again,
+    as a solve at its floor can give on the card: He/cc-pVDZ Lambda at
+    1e-13 on an H100) make the Pulay matrix singular.  torch.linalg.solve
+    raised there; the extrapolation now returns the newest amplitudes
+    unextrapolated, its ring untouched, on the device (no host read)."""
+    rng = np.random.default_rng(8)
+    shapes = ((NO, NV), (NO, NO, NV, NV))
+    d = TDIIS(tuple(torch.zeros(s, dtype=torch.float64) for s in shapes),
+              max_diis=4)
+    state = d.init()
+    prev = tuple(torch.from_numpy(rng.standard_normal(s)) for s in shapes)
+    cur = tuple(torch.from_numpy(rng.standard_normal(s)) for s in shapes)
+    for _ in range(pushes):
+        d.push(state, cur, prev)
+    out = d.extrapolate(state, cur)
+    for a, b in zip(out, cur):
+        assert torch.equal(a, b)

@@ -222,10 +222,34 @@ def test_ladder_apply_equals_the_plain_product(case, kind):
 
 
 def test_ladder_apply_with_a_complex_right_factor_names_item_11():
-    BL = torch.zeros((2, 3, 3), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tq.ladder_apply(BL, BL.to(torch.complex128),
-                        torch.zeros((1, 3, 3), dtype=torch.float64))
+    """A complex right factor (real-time CC's dressed factors; it raised
+    for item 11 before) runs: W assembled complex a block at a time and
+    fed to one ladder call a block as [Re W; Im W], against real and
+    complex x2 and a real or complex BL; equal to the einsum and, for a
+    complex x2 (real-time CC's; pycc_tpu casts W's product to a real
+    x2's dtype), to pycc_tpu's ladder_apply."""
+    naux, na, nb, ne, nf = 4, 7, 5, 6, 5
+    for cx_BL in (False, True):
+        for cx_x2 in (False, True):
+            BL = rand(naux, na, ne, seed=20) + (
+                1j * rand(naux, na, ne, seed=21) if cx_BL else 0.0)
+            BR = rand(naux, nb, nf, seed=22) + 1j * rand(naux, nb, nf,
+                                                         seed=23)
+            x2 = rand(3, 3, ne, nf, seed=24) + (
+                1j * rand(3, 3, ne, nf, seed=25) if cx_x2 else 0.0)
+            ladder, calls = _counting()
+            out = tq.ladder_apply(torch.tensor(BL), torch.tensor(BR),
+                                  torch.tensor(x2), nblocks=3, ladder=ladder)
+            ref = np.einsum("ijef,Pae,Pbf->ijab", x2, BL, BR)
+            assert out.dtype == torch.complex128
+            assert np.abs(out.numpy() - ref).max() < 1e-12
+            rows = 2 * 9 if cx_x2 else 9
+            assert calls == [((rows, ne * nf), (2 * 3 * nb, ne * nf))] * 2 \
+                + [((rows, ne * nf), (2 * 1 * nb, ne * nf))]
+            if cx_x2:
+                jref = jq.ladder_apply(jnp.asarray(BL), jnp.asarray(BR),
+                                       jnp.asarray(x2), nblocks=3)
+                assert np.abs(out.numpy() - np.asarray(jref)).max() < 1e-12
 
 
 @pytest.mark.parametrize("model,sources", [

@@ -87,8 +87,11 @@ def test_entry_points_default_to_the_card():
 ])
 def test_options_outside_the_slice_raise(kwargs):
     """Each option outside the slice raises naming its ROADMAP.md item;
-    storage='blocked' (ported with item 10) builds."""
-    item = None if kwargs == {"storage": "blocked"} else "ROADMAP.md"
+    storage='blocked' (ported with item 10) and real_time=True (item 11)
+    build."""
+    ported = ({"storage": "blocked"}, {"model": "CC3", "real_time": True},
+              {"real_time": True})
+    item = None if kwargs in ported else "ROADMAP.md"
     _ran_or_raised(lambda: pycc_tpu_torch.ccwfn(_wfn(), device="cpu",
                                                 **kwargs).t2, item)
 
@@ -192,9 +195,14 @@ def _cc3_lambda_residuals():
 
 def _df_lambda_from_F():
     """The DF-HBAR rebuilt from a field-dressed F each step
-    (lambda_residuals_from_F_df) belongs to real-time CC."""
+    (lambda_residuals_from_F_df), real-time CC's Lambda over factors: at
+    the unperturbed F it is the solver's residual."""
     cc, lam = _df_lambda("CCSD")
-    lam.residuals(cc.H.F, cc.t1, cc.t2, lam.l1, lam.l2)
+    r = lam.residuals(cc.H.F, cc.t1, cc.t2, lam.l1, lam.l2)
+    hb = pycc_tpu_torch.cchbar(cc)
+    solver = lam._residual_fn(hb.hbar, None, None)[0](lam.l1, lam.l2)
+    assert all((a - b).abs().max() < 1e-12 for a, b in zip(r, solver))
+    return r
 
 
 def _ran_or_raised(call, item):
@@ -221,7 +229,7 @@ def _ran_or_raised(call, item):
     (_eom_resume, None),
     (_cc3_onepdm, None),
     (_cc3_lambda_residuals, None),
-    (_df_lambda_from_F, "item 11"),
+    (_df_lambda_from_F, None),
     (_mixed_lambda_df, None),
 ], ids=["hbar-df", "t3-density-df", "hbar-blocked", "hbar-mesh", "lambda-chk", "eom-resume",
         "onepdm-cc3", "lambda-cc3", "lambda-from-F-df", "lambda-mixed-df"])
@@ -235,7 +243,7 @@ def test_post_convergence_options_outside_the_slice_name_their_item(call,
 
 def test_post_convergence_entry_points_are_exported():
     for name in ("cchbar", "cclambda", "ccdensity", "cceom", "ccresponse",
-                 "pertbar"):
+                 "pertbar", "rtcc"):
         assert name in pycc_tpu_torch.__all__
         assert isinstance(getattr(pycc_tpu_torch, name), type)
 

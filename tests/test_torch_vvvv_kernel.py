@@ -289,3 +289,40 @@ def test_in_Y1_stacked_ladder_is_one_launch_on_card(cuda_device, complex_x):
                 ladder=vvvv_nt_reference)
     assert out.is_complex() == complex_x
     assert ((out - ref).abs().max() / ref.abs().max()).item() < 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.complex128, 1e-12),
+                                       (torch.complex64, 1e-5)])
+@pytest.mark.parametrize("a_complex,stacked", [(True, False), (True, True),
+                                               (False, True)])
+def test_complex_W_route_matches_plain_version_on_card(cuda_device, dtype,
+                                                       tol, a_complex,
+                                                       stacked):
+    """Real-time CC's Lambda ladder: a complex W (or its StackedComplex
+    layout, made once per HBAR) against a complex or real A is ONE K1
+    launch on the stacked operands (complex64 in K1's f32 mode), equal to
+    the same route through the plain product; v = 37 is off every tile."""
+    from pycc_tpu_torch.ops.kernels.vvvv import (complex_product,
+                                                 stack_complex)
+    m, n, k = 2 * 25, 37 * 37, 37 * 37
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    real = torch.float64 if dtype == torch.complex128 else torch.float32
+
+    def rand(*shape, cx=True):
+        x = torch.randn(shape, generator=g, device=cuda_device, dtype=real)
+        if not cx:
+            return x
+        return torch.complex(x, torch.randn(shape, generator=g,
+                                            device=cuda_device, dtype=real))
+    A, W = rand(m, k, cx=a_complex), rand(n, k)
+    B = stack_complex(W) if stacked else W
+    launches = vvvv_nt.launches
+    out = complex_product(vvvv_nt, A, B)
+    torch.cuda.synchronize()
+    assert vvvv_nt.launches == launches + 1
+    ref = complex_product(vvvv_nt_reference, A, B)
+    assert out.dtype == dtype and out.shape == (m, n)
+    assert ((out - ref).abs().max() / ref.abs().max()).item() < tol
+    exact = A.to(dtype) @ W.T
+    assert ((out - exact).abs().max() / exact.abs().max()).item() < tol
