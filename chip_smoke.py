@@ -21,8 +21,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      bytes / 3.35 TB/s and flop / peak);
   4. K2 against its plain version (t_energy_row_reference) at (no, nv) =
      (4, 19), (7, 45) and (24, 114), each in float64, float32 and
-     bf16->float32, and at (24, 216) (phase 7's (T)) in float64, with the
-     median of timed runs of one row and its bound;
+     bf16->float32, at (24, 216) (phase 7's (T)) in float64, and at
+     (104, 20), past one chunk of the occupied l, in float64 to 1e-13,
+     with the median of timed runs of one row and its bound; the
+     kernel's shared-memory layout held to its Python mirror;
   5. the frozen oracles on device="cuda" in DP (CCSD, CCD, CC2 and the
      CCSD(T) triples on H2O; Lambda, densities and EOM-CCSD roots of
      tests/test_005, test_011 and test_006; the linear-response
@@ -45,7 +47,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      (H2)_2/cc-pVDZ electric and magnetic dipoles of test_015, He's
      checkpoint/restart equality and H2O/STO-3G's DF right-hand side
      against the dense one (test_025), each right-hand side's K1
-     launches counted;
+     launches counted; and the local-correlation oracles: test_010's
+     filter-path energies and Lambda pseudo-energies (K1 launches =
+     iterations), its native cases (native CCD/CCSD = filter, native CC2
+     = its dense backend, the pair-screened ones), test_028's DLPNO-MP2
+     and test_013's two local real-time trajectories (K1 in both complex
+     ladders of every right-hand side);
   6. a real size on full storage: (H2O)_6/cc-pVDZ CCSD(T) (144 basis
      functions, (no, nv) = (24, 114) with the frozen core) through
      run_rhf -> ccwfn -> solve_cc, and one residual timed at the
@@ -92,6 +99,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
      stacked complex W), the right-hand side split by part; after [cc3],
      two rk4 steps at (H2O)_4/cc-pVDZ on [cc3]'s wavefunction against
      pycc_tpu's frozen mu_z and Lagrangian;
+  6g. [local] local correlation at [real]'s size on its wavefunction:
+     the PNO filter path (localize, H rebuild, pair spaces, CCSD and the
+     filtered Lambda against pycc_tpu's frozen E, Lambda and pair
+     dimensions, K1 launches = iterations, one iteration under
+     torch.profiler) and the native pair-space CCSD through
+     ccwfn(filter=False) on the same spaces (= the filter path); after
+     [cc3], on its (H2O)_4 wavefunction, the same checks of the filter
+     path, the native stacks' bytes reckoned first, then native CCSD
+     unscreened, at pair_cutoff = 0 and at pair_cutoff = 1e-4;
   7. [df] a real size over Cholesky factors, which full storage cannot
      hold on 80 GB: (H2O)_6/aug-cc-pVDZ DF-CCSD(T) (246 basis functions,
      (24, 216)) through run_rhf(df=True) -> ccwfn(storage="df") ->
@@ -150,6 +166,7 @@ from pycc_tpu_torch.rt.integrators import rk4
 from pycc_tpu_torch.rt.lasers import gaussian_laser, sine_square_laser
 from pycc_tpu_torch.scf import integrals as ints
 from pycc_tpu_torch.scf import run_rhf
+from pycc_tpu_torch.utils.timing import trace
 
 DEVICE = "cuda:0"
 
@@ -237,7 +254,12 @@ K1_DF_EOM_SHAPE = (DFPOST_EOM_ROOTS * DF_NO ** 2,) + K1_DF_SHAPE[1:]
 # 2 v^2, v^2), whose library yardstick is one complex128 A @ B.T at
 # (o^2, v^2, v^2)
 K1_RT_SHAPE = (2 * 576, 2 * 12996, 12996)
-K1_COMPLEX_LIBRARY = (K1_RT_SHAPE,)
+# the local real-time ladders of the test_013 oracles (H2O/cc-pVDZ, all
+# electrons, (no, nv) = (5, 19)): the T side's stacked complex tau and the
+# Lambda side's stacked complex W
+K1_LOCAL_RT_SHAPE = (2 * 25, 361, 361)
+K1_LOCAL_RT_LAMBDA_SHAPE = (2 * 25, 2 * 361, 361)
+K1_COMPLEX_LIBRARY = (K1_RT_SHAPE, K1_LOCAL_RT_LAMBDA_SHAPE)
 # (shape, what, types: "all" or the labels of K1_TYPES timed there)
 K1_SHAPES = [
     ((16, 361, 361), "H2O/cc-pVDZ ladder", "all"),
@@ -249,6 +271,8 @@ K1_SHAPES = [
     (K1_CC3_SHAPE, "(H2O)_4 CC3 ladder", ("f64",)),
     (K1_DF_EOM_SHAPE, "(H2O)_6/aug DF EOM sigma block", ("f64",)),
     (K1_RT_SHAPE, "(H2O)_6 RT complex-W ladder", ("f64",)),
+    (K1_LOCAL_RT_SHAPE, "H2O local RT T ladder", ("f64",)),
+    (K1_LOCAL_RT_LAMBDA_SHAPE, "H2O local RT W ladder", ("f64",)),
 ]
 # the H100 SXM data sheet's dense peaks (at its 700 W limit): HBM bytes/s,
 # and flop/s for the arithmetic each kernel does in each type (float64 on
@@ -312,6 +336,21 @@ def phase_build():
         for line in log.splitlines():
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print("[build] %s: %s" % (name, line.strip()))
+    # K2's shared-memory layout against its Python mirror, which the CPU
+    # tests hold to no <= 200, nv <= 900
+    lib = k2._library()
+    for no, nv in ((4, 19), (24, 114), (24, 216), K2_CHUNKED, (200, 900),
+                   (4, 1400)):
+        for acc in (8, 4):
+            got = (lib.t_row_chunk(no, nv, acc),
+                   lib.t_row_smem_bytes(no, nv, acc))
+            want = (k2.t_row_chunk(no, nv, acc),
+                    k2.t_row_smem_bytes(no, nv, acc))
+            if got != want:
+                raise AssertionError("K2 layout at (%d, %d) x %d B: library "
+                                     "%s, mirror %s" % (no, nv, acc, got,
+                                                        want))
+    print("[build] t_row layout = its Python mirror at 6 shapes x 2 types")
     for name, _ in mods:
         mma = _sass_mma(name)
         print("[build] %s SASS tensor-core instructions: %s" % (name, mma))
@@ -395,13 +434,19 @@ def phase_kernel(smi):
     return cells
 
 
+K2_CHUNKED = (104, 20)
 # ((no, nv), what, rows checked (None: every row), types, timed runs)
 K2_SHAPES = [
     ((4, 19), "H2O/cc-pVDZ fzc", None, "all", 5),
     ((7, 45), "ragged", (0, 6), "all", 5),
     ((24, 114), "(H2O)_6/cc-pVDZ fzc", (0, 23), "all", 5),
     ((DF_NO, DF_NV), "(H2O)_6/aug-cc-pVDZ fzc", (0, 23), ("f64",), 3),
+    # past the one-chunk layout (216 no + 16 nv > 22008 before the
+    # occupied l was chunked): two chunks of l, a ragged 8-wide tile
+    (K2_CHUNKED, "two l chunks", (0, K2_CHUNKED[0] - 1), ("f64",), 3),
 ]
+# the f64 tolerance there: the chunked X2l sums are held tighter
+K2_CHUNKED_TOL = 1e-13
 # (label, operand dtype, stream_dtype, tolerance on max|err| / max|ref|)
 K2_TYPES = [
     ("f64", torch.float64, None, 1e-12),
@@ -464,6 +509,8 @@ def phase_k2(smi, shapes=K2_SHAPES):
         for label, dtype, sd, tol in K2_TYPES:
             if types != "all" and label not in types:
                 continue
+            if (no, nv) == K2_CHUNKED:
+                tol = K2_CHUNKED_TOL
             ops = tuple(x.to(dtype) for x in ops64)
             worst = dict.fromkeys(K2_OUTPUTS, 0.0)
             err = 0.0
@@ -504,16 +551,20 @@ def phase_k2(smi, shapes=K2_SHAPES):
             bound_ms, bound_by = bound(
                 k2_work(no, nv, label),
                 k2_row_bytes(no, nv, in_bytes, acc_bytes))
+            lc = k2.t_row_chunk(no, nv, acc_bytes)
             print("[K2] %-20s (no,nv)=(%d,%d) %-9s rows %s  max|err|/max|ref|: "
                   "%s (tol %.0e)  row %d: kernel %.3f ms (%.2f TFLOP/s)  "
-                  "bound %.3f ms (%s, %.0f%% of it)  plain %.3f ms  | %s"
+                  "bound %.3f ms (%s, %.0f%% of it)  plain %.3f ms  l chunk "
+                  "%d (%d B shared a block)  | %s"
                   % (what, no, nv, label, ",".join(map(str, rows))
                      if len(rows) < no else "all", rels, tol, i, ms,
                      k2_row_flops(no, nv) / (ms * 1e-3) / 1e12, bound_ms,
-                     bound_by, 100.0 * bound_ms / ms, plain_ms, smi))
+                     bound_by, 100.0 * bound_ms / ms, plain_ms, lc,
+                     k2.t_row_smem_bytes(no, nv, acc_bytes), smi))
             cells[(no, nv), label] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+                bound_by=bound_by, library_ms=None,
+                layout="occupied l in chunks of %d of %d" % (lc, no))
             del ops
         del ops64
         torch.cuda.empty_cache()
@@ -586,6 +637,7 @@ def phase_oracles():
     phase_dfpost_oracles(wfns["sto-3g", True])
     phase_mixed_oracles(wfns)
     phase_rt_oracles(wfns["sto-3g", True])
+    return phase_local_oracles()
 
 
 def _by_mode(fn):
@@ -2419,8 +2471,474 @@ def phase_rt_frozen(wfn, smi, name=CC3_SIZE):
                              % (name, mu_gap, lag_gap, launches))
 
 
+# ---------------------------------------------------------------------------
+# local correlation
+# ---------------------------------------------------------------------------
+
+# the (H2)_4 chain of tests/test_010 (angstrom)
+H2_4 = """
+H 0.000000 0.000000 0.000000
+H 0.750000 0.000000 0.000000
+H 0.000000 1.500000 0.000000
+H 0.375000 1.500000 -0.649520
+H 0.000000 3.000000 0.000000
+H -0.375000 3.000000 -0.649520
+H 0.000000 4.500000 -0.000000
+H -0.750000 4.500000 -0.000000
+symmetry c1
+noreorient
+nocom
+"""
+
+# tests/test_010's filter-path oracles (all electrons): (molecule, basis,
+# ccwfn keywords, E(CCSD), Lambda pseudo-energy or None), at its 1e-7
+LOCAL_ORACLES = [
+    ("H2O", "cc-pvdz", dict(local="PNO", local_cutoff=1e-5, it2_opt=False),
+     -0.218394869543943, -0.214461441319427),
+    ("H2O", "cc-pvdz", dict(local="PNO", local_cutoff=1e-5),
+     -0.221156413159672, -0.217144045119534),
+    ("H2O", "cc-pvdz", dict(local="PNO++", local_cutoff=1e-7,
+                            it2_opt=False),
+     -0.216064367834782, -0.211938482158711),
+    ("H2O", "cc-pvdz", dict(local="CPNO++", local_cutoff=1e-7,
+                            it2_opt=False),
+     -0.22303320613504354, -0.21890326836263854),
+    ("(H2)_4", "dz", dict(local="PAO", local_cutoff=2e-2),
+     -0.108914240219735, None),
+    ("H2O", "6-31g", dict(local="PAO", local_cutoff=2e-2),
+     -0.149361947815815, None),
+]
+# tests/test_013's local real-time trajectories: H2O/cc-pVDZ, all
+# electrons, 25 rk4(0.02) steps under gaussian_laser(0.001, 0, 0.01,
+# center=0.05), the observables at t = 0.5
+LOCAL_RT = {
+    ("PNO", 1e-5): {"ecc": -84.21331867940133,
+                    "mu_x": -5.106207671158796e-05,
+                    "mu_y": -5.001503722097678e-05,
+                    "mu_z": -0.06905411053873889},
+    ("PAO", 1e-2): {"ecc": -84.21540972040579,
+                    "mu_x": -4.987717148832141e-05,
+                    "mu_y": -4.707786986481166e-05,
+                    "mu_z": -0.0783037960868978},
+}
+
+# [local]: the PNO filter path as test_010's test_pno_ccsd runs it
+LOCAL_KW = dict(local="PNO", local_cutoff=1e-5, it2_opt=False)
+LOCAL_CONV = 1e-10
+LOCAL_PAIR_CUTOFF = 1e-4
+# bytes the native solver's padded stacks may take on the card
+LOCAL_STACK_MAX = 60e9
+# name/cc-pVDZ, frozen core, LOCAL_KW on the filter path: E(PNO-CCSD), the
+# filtered Lambda pseudo-energy and the pair dimensions' mean and maximum,
+# from pycc_tpu in float64 on a CPU host (17 CCSD and 16 Lambda iterations
+# at (H2O)_6, 14 GB of host memory):
+#   cc = pycc_tpu.ccwfn(run_rhf(moldict[name], "cc-pvdz",
+#                               freeze_core=True), local="PNO",
+#                       local_cutoff=1e-5, it2_opt=False, filter=True)
+#   cc.solve_cc(1e-10, 1e-10)
+#   pycc_tpu.cclambda(cc, pycc_tpu.cchbar(cc)).solve_lambda(1e-10, 1e-10)
+FROZEN_LOCAL = {
+    "(H2O)_4": dict(e=-0.852722311287850, lam=-0.839971580869090,
+                    dim_mean=3.921875, dim_max=14),
+    "(H2O)_6": dict(e=-1.280241098608399, lam=-1.261002882638200,
+                    dim_mean=1635 / 576, dim_max=14),
+}
+
+
+def _local_wfn(mol, basis):
+    geom = H2_4 if mol == "(H2)_4" else moldict[mol]
+    return run_rhf(geom, basis, freeze_core=False)
+
+
+def _local_step(cc):
+    """One filter-path iteration at cc's amplitudes: the dense residuals
+    (K1 in the ladder) and the pair-space step."""
+    r1, r2 = cc.residuals(cc.H.F, cc.t1, cc.t2)
+    return cc.Local.filter_amps(r1, r2)
+
+
+def _top_ops(prof, n=3):
+    """The n operations with the most device time in a torch.profiler
+    run, as (name, ms, calls); host time where the trace has no device
+    time."""
+    rows = []
+    for ev in prof.key_averages():
+        dev = getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0))
+        rows.append((dev, ev.self_cpu_time_total, ev.key, ev.count))
+    on_dev = any(r[0] > 0 for r in rows)
+    rows.sort(key=lambda r: r[0] if on_dev else r[1], reverse=True)
+    return on_dev, [(k, (d if on_dev else c) / 1e3, m)
+                    for d, c, k, m in rows[:n]]
+
+
+def phase_local_oracles():
+    """tests/test_010's filter-path oracles (K1 launches = iterations in
+    CCSD and in Lambda), its native cases (native CCD/CCSD = the filter
+    path, native CC2 = its dense backend, pair_cutoff = 0 = unscreened,
+    a real cutoff freezing the weak pairs at MP2), test_028's DLPNO-MP2
+    oracles and test_013's two local real-time trajectories (K1 launches
+    in each complex ladder = right-hand sides), all on device="cuda"."""
+    t0 = time.perf_counter()
+    wfns = {}
+
+    def wfn(mol, basis):
+        if (mol, basis) not in wfns:
+            wfns[mol, basis] = _local_wfn(mol, basis)
+        return wfns[mol, basis]
+
+    bad = []
+    for mol, basis, kw, e_ref, l_ref in LOCAL_ORACLES:
+        cc = pycc_tpu_torch.ccwfn(wfn(mol, basis), filter=True,
+                                  device=DEVICE, **kw)
+        vvvv_nt.launches = 0
+        e = cc.solve_cc(1e-12, 1e-12, maxiter=100)
+        k1 = vvvv_nt.launches
+        line = ("[oracle] local %s %s/%s filter: E = %.12f |d| %.1e, %d "
+                "iterations, %d K1 launches"
+                % (kw["local"], mol, basis, e, abs(e - e_ref), cc.niter, k1))
+        ok = cc.converged and abs(e - e_ref) < 1e-7 and k1 == cc.niter
+        if l_ref is not None:
+            lam = pycc_tpu_torch.cclambda(cc, pycc_tpu_torch.cchbar(cc))
+            vvvv_nt.launches = 0
+            le = lam.solve_lambda(1e-12, 1e-12, maxiter=100)
+            k1l = vvvv_nt.launches
+            line += ("; Lambda %.12f |d| %.1e, %d iterations, %d K1 launches"
+                     % (le, abs(le - l_ref), lam.niter, k1l))
+            ok = ok and abs(le - l_ref) < 1e-7 and k1l == lam.niter
+        print(line)
+        if not ok:
+            bad.append("%s %s/%s" % (kw["local"], mol, basis))
+
+    # the native solvers (test_010)
+    w = wfn("H2O", "cc-pvdz")
+    kw = LOCAL_KW
+
+    def native(model, **extra):
+        cc = pycc_tpu_torch.ccwfn(w, model=model, device=DEVICE, **kw,
+                                  **extra)
+        return cc.lccwfn, cc.lccwfn.solve_lcc(1e-12, 1e-12, maxiter=100)
+
+    gaps = {}
+    for model in ("CCD", "CCSD"):
+        sim = pycc_tpu_torch.ccwfn(w, model=model, filter=True, device=DEVICE,
+                                   **kw)
+        e_sim = sim.solve_cc(1e-12, 1e-12, maxiter=100)
+        lw, e_n = native(model)
+        gaps[model + " native - filter"] = (abs(e_n - e_sim), 1e-12)
+        l0, e0 = native(model, pair_cutoff=0.0)
+        gaps[model + " pair_cutoff=0 - unscreened"] = (
+            abs(e0 - e_n), 1e-14 if model == "CCD" else 1e-12)
+        if l0._pre["P"] != l0.no ** 2:
+            bad.append("%s pair_cutoff=0 dropped pairs" % model)
+        l3, e3 = native(model, pair_cutoff=1e-3)
+        no, nv = l3.no, l3.nv
+        weak = l3._pre["pidx"].reshape(-1) < 0
+        QLp = l3.Local.QLp
+        t2_mp2 = -(QLp.mT @ l3.H.ERI[l3.o, l3.o, l3.v, l3.v].reshape(
+            no * no, nv, nv) @ QLp) / l3._Dloc
+        frozen = (l3.t2[weak] - t2_mp2[weak]).abs().max().item()
+        gaps[model + " weak pairs - MP2"] = (frozen, 1e-13)
+        if not (l3._pre["P"] < no ** 2 and 0 < abs(e3 - e_n) < 2e-2):
+            bad.append("%s pair_cutoff=1e-3: P %d, dE %.1e"
+                       % (model, l3._pre["P"], e3 - e_n))
+    cc = pycc_tpu_torch.ccwfn(run_rhf(moldict["H2O"], "cc-pvdz",
+                                      freeze_core=True), model="CC2",
+                              device=DEVICE, local="PNO", local_cutoff=1e-5)
+    e_n = cc.lccwfn.solve_lcc(1e-10, 1e-10)
+    cc = pycc_tpu_torch.ccwfn(cc.ref, model="CC2", device=DEVICE,
+                              local="PNO", local_cutoff=1e-5)
+    cc.lccwfn._use_local_eqs = False
+    e_d = cc.lccwfn.solve_lcc(1e-10, 1e-10)
+    gaps["CC2 native - dense backend"] = (abs(e_n - e_d), 1e-12)
+    print("[oracle] local native (test_010): %s" % ", ".join(
+        "%s %.1e (< %.0e)" % (k, v, t) for k, (v, t) in gaps.items()))
+    bad += [k for k, (v, t) in gaps.items() if not v < t]
+
+    # DLPNO-MP2 (test_028)
+    sto = wfn("H2O", "sto-3g")
+
+    def lo(cutoff, kind="PNO"):
+        return pycc_tpu_torch.ccwfn(sto, local=kind, local_cutoff=cutoff,
+                                    it2_opt=False, filter=True,
+                                    device=DEVICE).Local
+
+    def mp2(l):
+        return (l.local_mp2(e_conv=1e-12, r_conv=1e-10),
+                l.sim_mp2(e_conv=1e-12, r_conv=1e-10)[0])
+
+    l0 = lo(0.0)
+    l0.it2_opt = True
+    t2h = l0._mp2_t2()
+    no, nv = l0.no, l0.nv
+    Lh = l0.H.L[:no, :no, no:, no:].cpu().numpy()
+    (e0, ep0, _), _ = mp2(l0)
+    e_hyl = float(np.einsum("ijab,ijab->", t2h, Lh))
+    ep_hyl = np.einsum("ijab,ijab->ij", t2h, Lh)
+    (e6, ep6, _), s6 = mp2(lo(1e-6))
+    (ea, _, _), sa = mp2(lo(0.02, "PAO"))
+    (epp, eppp, _), spp = mp2(lo(1e-7, "PNO++"))
+    (efull, _, _), _ = mp2(lo(0.0, "PNO++"))
+    mp2_checks = {
+        "complete space = Hylleraas": abs(e0 - e_hyl) < 1e-10
+        and abs(float(ep0.sum()) - e0) < 1e-12,
+        "pair energies = Hylleraas": np.abs(ep0 - ep_hyl).max() < 1e-10,
+        "PNO local = sim": abs(e6 - s6) < 1e-10
+        and np.abs(ep6 - ep6.T).max() < 1e-10,
+        "PAO local = sim": abs(ea - sa) < 1e-10,
+        "PNO++ local = sim, recovery": abs(epp - spp) < 1e-10
+        and abs(epp) < abs(efull) + 1e-12
+        and abs(epp - efull) < 0.02 * abs(efull),
+    }
+    print("[oracle] local MP2 (test_028): E(complete) %.12f - Hylleraas "
+          "%.1e; PNO 1e-6 local - sim %.1e; PAO %.1e; PNO++ %.1e; %s"
+          % (e0, e0 - e_hyl, e6 - s6, ea - sa, epp - spp,
+             "all hold" if all(mp2_checks.values()) else mp2_checks))
+    bad += [k for k, ok in mp2_checks.items() if not ok]
+
+    # local real-time CC (test_013)
+    rt_counts = {"rhs": 0, "t": 0, "lambda": 0}
+    for (local, cutoff), ref in LOCAL_RT.items():
+        cc, lam, dens = _rt_pipeline_local(w, local, cutoff)
+        rt = pycc_tpu_torch.rtcc(cc, lam, dens, gaussian_laser(
+            0.001, 0, 0.01, center=0.05))
+        counts = _counted_rhs(rt)
+        y0 = rt.collect_amps(cc.t1, cc.t2, lam.l1, lam.l2, 0)
+        vvvv_nt.launches = 0
+        ret = rt.propagate(rk4(0.02), y0, 0.5, ti=0)
+        k1 = vvvv_nt.launches
+        r = ret["0.50"]
+        gap = max(abs(complex(r[k]).real - v) for k, v in ref.items())
+        print("[oracle] local RT %s (test_013): 25 rk4 steps, %d right-hand "
+              "sides, K1 %d launches (T %d, Lambda %d); |observables - "
+              "frozen| %.1e" % (local, counts["rhs"], k1, counts["t"],
+                                counts["lambda"], gap))
+        if not (gap < 1e-8 and counts["rhs"] == 100 and k1 == 200
+                and counts["t"] == counts["lambda"] == 100):
+            bad.append("RT %s" % local)
+        for key in rt_counts:
+            rt_counts[key] += counts[key]
+        del rt
+        gc.collect()    # _counted_rhs's wrappers hold their rtcc in a cycle
+    print("[oracle] local correlation oracles %.1f s" % (time.perf_counter()
+                                                       - t0))
+    if bad:
+        raise AssertionError("[oracle] local checks failed: %s" % bad)
+    return {"local_rt_t": rt_counts["t"],
+            "local_rt_lambda": rt_counts["lambda"]}
+
+
+def _rt_pipeline_local(wfn, local, cutoff, conv=1e-13):
+    """A converged local (filter path) ccwfn on the card, its Lambda and
+    ccdensity, as tests/test_013 builds them."""
+    cc = pycc_tpu_torch.ccwfn(wfn, local=local, local_cutoff=cutoff,
+                              filter=True, device=DEVICE)
+    cc.solve_cc(conv, conv, 200)
+    lam = pycc_tpu_torch.cclambda(cc, pycc_tpu_torch.cchbar(cc))
+    lam.solve_lambda(conv, conv)
+    return cc, lam, pycc_tpu_torch.ccdensity(cc, lam)
+
+
+def _local_stack_bytes(no, D):
+    """Bytes of lccwfn_local.precompute_ccsd's stacks in float64, reckoned
+    from the pair dimension D (Local.D2) before any is made: the o^4 D^2
+    pair-pair ones (Sp and its kin: TL, BE, XE, XL, XE2, XE3, TLnn, TE2,
+    XEjj, XE5, XE6), the o^3 D^3 ones (TLm, EovvvP, Eovvv_iijj, TE_mbe,
+    TE_bFe, TE_bFe_mj) and the o^2 D^4 ladders (VV, VV2)."""
+    return 8 * (12 * no ** 4 * D ** 2 + 6 * no ** 3 * D ** 3
+                + 2 * no ** 2 * D ** 4)
+
+
+def _native_local(wfn, dim, pair_cutoff=None):
+    """The native pair-space CCSD through the entry point a user calls,
+    ccwfn(..., filter=False, pair_cutoff=) -> .lccwfn, its set-up timed
+    (localization, H, pair spaces and the solver's precompute); its pair
+    dimensions held equal to the filter run's (dim), so that both solve
+    in the same spaces."""
+    nat, t_pre = _synced(lambda: pycc_tpu_torch.ccwfn(
+        wfn, model="CCSD", filter=False, pair_cutoff=pair_cutoff,
+        device=DEVICE, **LOCAL_KW))
+    if not np.array_equal(np.asarray(nat.Local.dim), dim):
+        raise AssertionError("[local] the native run's pair dimensions "
+                             "differ from the filter run's")
+    return nat.lccwfn, t_pre
+
+
+def phase_local(real, smi, name=REAL_SIZE):
+    """[local] at [real]'s size on its wavefunction (no second SCF): the
+    PNO filter path (LOCAL_KW) through ccwfn -> solve_cc -> cchbar ->
+    cclambda, each step timed, E(PNO-CCSD), the Lambda pseudo-energy and
+    the pair dimensions held to pycc_tpu's frozen values, K1 launches =
+    iterations in CCSD and in Lambda, one filter iteration traced; then
+    the native pair-space CCSD through ccwfn(filter=False) in the same
+    pair spaces, its energy held to the filter path's."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cc, t_init = _synced(lambda: pycc_tpu_torch.ccwfn(
+        real["wfn"], model="CCSD", filter=True, device=DEVICE, **LOCAL_KW))
+    tm = cc.timers.total
+    vvvv_nt.launches = 0
+    ecc, t_solve = _synced(lambda: cc.solve_cc(LOCAL_CONV, LOCAL_CONV))
+    k1_cc = vvvv_nt.launches
+    s_iter = tm["ccwfn.iteration"] / cc.niter
+    hb, t_hbar = _synced(lambda: pycc_tpu_torch.cchbar(cc))
+    lam = pycc_tpu_torch.cclambda(cc, hb)
+    vvvv_nt.launches = 0
+    lecc, t_lam = _synced(lambda: lam.solve_lambda(LOCAL_CONV, LOCAL_CONV))
+    k1_lam = vvvv_nt.launches
+    l_niter = lam.niter
+    l_iter = tm["lambda.iteration"] / l_niter
+    peak = torch.cuda.max_memory_allocated()
+    del hb, lam
+    lo = cc.Local
+    dim = np.asarray(lo.dim)
+
+    # one filter iteration under torch.profiler
+    _local_step(cc)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp) as prof:
+            _local_step(cc)
+            torch.cuda.synchronize()
+        on_dev, top = _top_ops(prof)
+    step_ms, _ = _event_ms(lambda: _local_step(cc))
+
+    # the native pair-space CCSD through ccwfn(filter=False) on the same
+    # wavefunction and pair spaces
+    no, nv, D1, D2 = cc.no, cc.nv, lo.D1, lo.D2
+    niter, converged = cc.niter, cc.converged
+    del cc, lo
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lw, t_pre = _native_local(real["wfn"], dim)
+    e_nat, t_nat = _synced(lambda: lw.solve_lcc(LOCAL_CONV, LOCAL_CONV))
+    n_nat = lw.niter
+    peak_nat = torch.cuda.max_memory_allocated()
+    reckoned = _local_stack_bytes(no, D2)
+    del lw
+
+    print("[local] %s/cc-pVDZ PNO-CCSD filter path  (no, nv) = (%d, %d), "
+          "%s  | %s" % (name, no, nv, LOCAL_KW, smi))
+    print("[local] ccwfn init %.1f s: localize (Pipek-Mezey, host) %.2f s, "
+          "H rebuild %.2f s, Local (PNO spaces, host eigh) %.2f s; pair "
+          "dimension mean %.4f max %d (D1, D2) = (%d, %d)"
+          % (t_init, tm["ccwfn.localize"], tm["ccwfn.hamiltonian"],
+             tm["ccwfn.local"], dim.mean(), dim.max(), D1, D2))
+    print("[local] CCSD %.2f s, %d iterations, %.4f s/iter, K1 %d launches;"
+          " HBAR %.2f s; Lambda %.2f s, %d iterations, %.4f s/iter, K1 %d "
+          "launches; peak device memory %.2f GB"
+          % (t_solve, niter, s_iter, k1_cc, t_hbar, t_lam, l_niter,
+             l_iter, k1_lam, peak / 1e9))
+    ref = FROZEN_LOCAL[name]
+    print("[local] E(PNO-CCSD) = %.12f |d| from pycc_tpu's frozen %.1e; "
+          "Lambda pseudo-E = %.12f |d| %.1e; pair dimension mean %.10f max "
+          "%d (frozen %.10f, %d)"
+          % (ecc, abs(ecc - ref["e"]), lecc, abs(lecc - ref["lam"]),
+             dim.mean(), dim.max(), ref["dim_mean"], ref["dim_max"]))
+    print("[local] one filter iteration %.2f ms (residual + filter); its "
+          "torch.profiler trace, the three longest operations by %s time: "
+          "%s" % (step_ms, "device" if on_dev else "host",
+                  "; ".join("%s %.2f ms x%d" % t for t in top)))
+    print("[local] native pair-space CCSD on the same spaces, through "
+          "ccwfn(filter=False): set-up %.2f s (stacks reckoned %.3f GB), "
+          "solve %.2f s (%d iterations, %.4f s/iter), peak %.2f GB; "
+          "E = %.12f, |native - filter| = %.1e"
+          % (t_pre, reckoned / 1e9, t_nat, n_nat, t_nat / n_nat,
+             peak_nat / 1e9, e_nat, abs(e_nat - ecc)))
+    print("[local] the phase, its checks included: %.1f s  | %s"
+          % (time.perf_counter() - t_phase, smi))
+    checks = [
+        ("converged", converged),
+        ("K1 launches", k1_cc == niter and k1_lam == l_niter),
+        ("native = filter", abs(e_nat - ecc) < 1e-9),
+        ("frozen E", abs(ecc - ref["e"]) < 1e-9),
+        ("frozen Lambda", abs(lecc - ref["lam"]) < 1e-9),
+        ("dimensions", abs(dim.mean() - ref["dim_mean"]) < 1e-12
+         and dim.max() == ref["dim_max"]),
+    ]
+    bad = [what for what, ok in checks if not ok]
+    if bad:
+        raise AssertionError("[local] checks failed: %s" % bad)
+    return {"local_ccsd": k1_cc, "local_lambda": k1_lam}
+
+
+def phase_local_native(wfn, smi, name=CC3_SIZE):
+    """[local] on [cc3]'s wavefunction (no second SCF): the filter path
+    against pycc_tpu's frozen E(PNO-CCSD), Lambda pseudo-energy and pair
+    dimensions; the padded stacks' bytes reckoned from D2 before the
+    native solver makes them; then the native pair-space CCSD (= the
+    filter path), pair_cutoff = 0 (= unscreened, every pair strong) and
+    pair_cutoff = LOCAL_PAIR_CUTOFF (fewer pairs, E within 1e-3)."""
+    ref = FROZEN_LOCAL[name]
+    t_phase = time.perf_counter()
+    cc, t_init = _synced(lambda: pycc_tpu_torch.ccwfn(
+        wfn, model="CCSD", filter=True, device=DEVICE, **LOCAL_KW))
+    vvvv_nt.launches = 0
+    ecc, t_solve = _synced(lambda: cc.solve_cc(LOCAL_CONV, LOCAL_CONV))
+    k1 = vvvv_nt.launches
+    lam = pycc_tpu_torch.cclambda(cc, pycc_tpu_torch.cchbar(cc))
+    lecc = lam.solve_lambda(LOCAL_CONV, LOCAL_CONV)
+    del lam
+    lo = cc.Local
+    dim = np.asarray(lo.dim)
+    no, D = cc.no, lo.D2
+    reckoned = _local_stack_bytes(no, D)
+    if not reckoned < LOCAL_STACK_MAX:
+        raise AssertionError("[local] the native stacks at %s would take "
+                             "%.1f GB" % (name, reckoned / 1e9))
+    runs = {}
+    for cut in (None, 0.0, LOCAL_PAIR_CUTOFF):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lw, t_pre = _native_local(wfn, dim, cut)
+        e, t = _synced(lambda: lw.solve_lcc(LOCAL_CONV, LOCAL_CONV))
+        P = no * no if cut is None else lw._pre["P"]
+        runs[cut] = dict(e=e, pre=t_pre, s_iter=t / lw.niter, niter=lw.niter,
+                         P=P, peak=torch.cuda.max_memory_allocated())
+        del lw
+    print("[local] %s/cc-pVDZ PNO (no, nv) = (%d, %d): filter path init "
+          "%.1f s, CCSD %.2f s (%d iterations, K1 %d launches) E = %.12f "
+          "|d| from pycc_tpu's frozen %.1e; Lambda pseudo-E = %.12f |d| "
+          "%.1e; pair dimension mean %.6f max %d (frozen %.6f, %d); (D1, D2)"
+          " = (%d, %d)" % (name, no, cc.nv, t_init, t_solve, cc.niter, k1,
+                           ecc, abs(ecc - ref["e"]), lecc,
+                           abs(lecc - ref["lam"]), dim.mean(), dim.max(),
+                           ref["dim_mean"], ref["dim_max"], lo.D1, D))
+    print("[local] native stacks reckoned from D2 = %d: %.3f GB (o^4 D^2 "
+          "%.3f, o^3 D^3 %.3f, o^2 D^4 %.3f GB each; limit %.0f GB)"
+          % (D, reckoned / 1e9, 8 * no ** 4 * D ** 2 / 1e9,
+             8 * no ** 3 * D ** 3 / 1e9, 8 * no ** 2 * D ** 4 / 1e9,
+             LOCAL_STACK_MAX / 1e9))
+    for cut, r in runs.items():
+        print("[local] native CCSD pair_cutoff=%s: P = %d of %d pairs, "
+              "set-up %.2f s, %d iterations, %.4f s/iter, peak %.3f GB, "
+              "E = %.12f, |E - filter| = %.1e"
+              % (cut, r["P"], no * no, r["pre"], r["niter"], r["s_iter"],
+                 r["peak"] / 1e9, r["e"], abs(r["e"] - ecc)))
+    print("[local] %s, its checks included: %.1f s  | %s"
+          % (name, time.perf_counter() - t_phase, smi))
+    e0, e_pc = runs[None]["e"], runs[LOCAL_PAIR_CUTOFF]["e"]
+    checks = [
+        ("frozen E", cc.converged and abs(ecc - ref["e"]) < 1e-9),
+        ("frozen Lambda", abs(lecc - ref["lam"]) < 1e-9),
+        ("dimensions", abs(dim.mean() - ref["dim_mean"]) < 1e-12
+         and dim.max() == ref["dim_max"]),
+        ("K1 launches", k1 == cc.niter),
+        ("native = filter", abs(e0 - ecc) < 1e-9),
+        ("pair_cutoff=0", runs[0.0]["P"] == no * no
+         and abs(runs[0.0]["e"] - e0) < 1e-12),
+        ("pair_cutoff", runs[LOCAL_PAIR_CUTOFF]["P"] < no * no
+         and abs(e_pc - e0) < 1e-3),
+    ]
+    bad = [what for what, ok in checks if not ok]
+    if bad:
+        raise AssertionError("[local] %s checks failed: %s" % (name, bad))
+
+
 def _kernel_entries(k1_cells, k2_cells, full, post, resp, cc3_, df, dfpost,
-                    mixed, rt):
+                    mixed, rt, local):
     """The kernels line: each kernel on each path, with that path's
     launches and the timed cell at the shape the path launches it at."""
     k1 = dict(route="cuda", source="pycc_tpu_torch/csrc/vvvv_nt.cu",
@@ -2475,6 +2993,16 @@ def _kernel_entries(k1_cells, k2_cells, full, post, resp, cc3_, df, dfpost,
              **k1_cells[K1_RESP_SHAPE, "f64"]),
         dict(name="vvvv_nt/rt_lambda", **k1, launches=rt["rt_lambda"],
              **k1_cells[K1_RT_SHAPE, "f64"]),
+        dict(name="vvvv_nt/local_ccsd", **k1, launches=local["local_ccsd"],
+             **k1_cells[K1_FULL_SHAPE, "f64"]),
+        dict(name="vvvv_nt/local_lambda", **k1,
+             launches=local["local_lambda"],
+             **k1_cells[K1_FULL_SHAPE, "f64"]),
+        dict(name="vvvv_nt/local_rt", **k1, launches=local["local_rt_t"],
+             **k1_cells[K1_LOCAL_RT_SHAPE, "f64"]),
+        dict(name="vvvv_nt/local_rt_lambda", **k1,
+             launches=local["local_rt_lambda"],
+             **k1_cells[K1_LOCAL_RT_LAMBDA_SHAPE, "f64"]),
     ]
 
 
@@ -2484,7 +3012,7 @@ def main():
     phase_build()
     k1_cells = phase_kernel(smi)
     k2_cells = phase_k2(smi)
-    phase_oracles()
+    local = phase_oracles()
     full, cc, eccsd, et, real = phase_real_size(smi)
     post, lam, eom_roots = phase_post(cc, eccsd, et, smi)
     resp, muz = phase_resp(cc, lam, smi)
@@ -2492,12 +3020,16 @@ def main():
     torch.cuda.empty_cache()
     rt = phase_rt(real, smi)
     torch.cuda.empty_cache()
+    local.update(phase_local(real, smi))
+    torch.cuda.empty_cache()
     mixed = phase_mixed(real, eom_roots, muz, smi)
     del real
     torch.cuda.empty_cache()
     cc3_launches, wfn_cc3 = phase_cc3(smi)
     torch.cuda.empty_cache()
     phase_rt_frozen(wfn_cc3, smi)
+    torch.cuda.empty_cache()
+    phase_local_native(wfn_cc3, smi)
     del wfn_cc3
     torch.cuda.empty_cache()
     df, factors = phase_df(smi)
@@ -2506,7 +3038,7 @@ def main():
     print(smi)
     print(json.dumps({"kernels": _kernel_entries(
         k1_cells, k2_cells, full, post, resp, cc3_launches, df, dfpost,
-        mixed, rt)}))
+        mixed, rt, local)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

@@ -15,7 +15,9 @@ one slab at a time (`ccwfn.t3_slabs`), over factors always the slab form
 (`cc3.cc3_lambda_extra_scan_df`).  `solve_lambda(chk=..., resume=...)`
 checkpoints l1/l2 and the DIIS ring as solve_cc does;
 `solve_lambda_mixed` converges a float32 HBAR and Lambda first, then
-refines in float64.
+refines in float64.  For a local ccwfn (filter=True, or the filter
+simulation of a native one) each step is projected through the pair
+spaces (`Local.filter_amps`), as pycc_tpu's is; the ladder stays K1's.
 """
 
 import os
@@ -210,6 +212,9 @@ class cclambda:
         the floor's pseudo-energy.  Needs a precision='DP' ccwfn."""
         from .cchbar import cchbar
         cc = self.ccwfn
+        if getattr(cc, "local", None) is not None:
+            raise ValueError("solve_lambda_mixed supports canonical "
+                             "storage modes only.")
         if cc.precision != "DP":
             raise ValueError("solve_lambda_mixed needs a precision='DP' "
                              "ccwfn construction (the f64 masters are the "
@@ -289,6 +294,8 @@ class cclambda:
             from .triples import t3_lambda_sources
             S1, S2 = t3_lambda_sources(cc)
         residuals, eri_oovv = self._residual_fn(hb, S1, S2)
+        local = (cc.Local if getattr(cc, "local", None) is not None
+                 else None)
 
         eps = torch.diagonal(H.F).to(self.l1.dtype)
         D1 = eps[:no, None] - eps[None, no:]
@@ -325,8 +332,12 @@ class cclambda:
             with cc.timers.time("lambda.iteration"):
                 lecc_last = lecc
                 r1, r2 = residuals(l1, l2)
-                inc1 = r1 / D1
-                inc2 = r2 / D2
+                if local is not None:
+                    # the step in each pair's truncated space
+                    inc1, inc2 = local.filter_amps(r1, r2)
+                else:
+                    inc1 = r1 / D1
+                    inc2 = r2 / D2
                 l1n = l1 + inc1
                 l2n = l2 + inc2
                 rms_t = torch.sqrt(torch.sum(inc1 * inc1)

@@ -649,6 +649,9 @@ class ccresponse:
                              "precision='DP' ccwfn construction (the f64 "
                              "masters are the refinement-stage "
                              "Hamiltonian).")
+        if getattr(cc, "local", None) is not None:
+            raise ValueError("mixed-precision response supports canonical "
+                             "storage modes only.")
         cc._ensure_mixed_masters()
         t1_64, t2_64 = cc.t1, cc.t2
         l1_64, l2_64 = self.cclambda.l1, self.cclambda.l2

@@ -36,6 +36,14 @@ residuals from bfloat16 operands, K1 in its bf16 mode;
 `solve_cc_mixed` pre-converges in float32 and refines in float64 from
 float64 host masters; `solve_cc(chk=..., resume=...)` checkpoints the
 iterate and the DIIS ring (utils/checkpoint.py, pycc_tpu's format).
+
+local='PNO'|'PNO++'|'CPNO++'|'PAO' (local_cutoff, local_mos, it2_opt)
+localizes the occupied orbitals (scf/localize.py), rebuilds H in that
+basis and builds the pair spaces (local.Local).  filter=True is the
+simulation path: the dense residuals (K1 in the ladder), each Jacobi
+step projected through the pair spaces (`Local.filter_amps`).
+filter=False also builds the native pair-space solver, `self.lccwfn`
+(lccwfn.py; pair_cutoff= screens its pairs, lccwfn_screened.py).
 """
 
 import dataclasses
@@ -47,7 +55,8 @@ import numpy as np
 import torch
 
 from . import triples
-from .hamiltonian import Hamiltonian, build_hamiltonian, mo_eri_blocks
+from .hamiltonian import (Hamiltonian, ao_properties, build_hamiltonian,
+                          mo_eri_blocks)
 from .models import cc3
 from .models import ccsd as eqs
 from .models import dfccsd as dfq
@@ -87,14 +96,9 @@ _DF_RESIDUALS = {
 T3_FULL_MAX = 2e8
 
 _NOT_PORTED_INIT_KWARGS = {
-    "local": "Queue 1, item 12 (local correlation)",
-    "local_cutoff": "Queue 1, item 12 (local correlation)",
-    "pair_cutoff": "Queue 1, item 12 (local correlation)",
-    "local_mos": "Queue 1, item 12 (local correlation)",
-    "it2_opt": "Queue 1, item 12 (local correlation)",
-    "filter": "Queue 1, item 12 (local correlation)",
     "mesh": "Queue 1, item 13 (multi-device)",
 }
+_VALID_LOCAL = (None, "PNO", "PAO", "CPNO++", "PNO++")
 # what a precision stage derives from the stage's tensors: _cast_stage
 # drops them (the bf16 copies, the (T) Lambda sources and density blocks)
 _STAGE_CACHES = ("_bf16", "S1", "S2", "Doo_t3", "Dvv_t3", "Dov_t3",
@@ -155,7 +159,9 @@ class ccwfn:
     def __init__(self, scf_wfn, model="CCSD", precision="DP", device="cuda",
                  storage="full", df_tol=1e-8, df_direct=None,
                  df_nblocks=None, make_t3_density=False, t3_scan=None,
-                 real_time=False, **kwargs):
+                 real_time=False, local=None, local_cutoff=1e-5,
+                 pair_cutoff=None, local_mos="PIPEK_MEZEY", it2_opt=True,
+                 filter=False, **kwargs):
         time_init = time.time()
         model = _check_model(model)
         storage = storage.lower()
@@ -163,6 +169,14 @@ class ccwfn:
             raise ValueError("%s is not an allowed storage mode." % storage)
         precision = _check_precision(precision)
         _reject(kwargs, _NOT_PORTED_INIT_KWARGS, "ccwfn")
+        self._check_local(local, local_mos, pair_cutoff, model, filter,
+                          storage, df_direct, scf_wfn)
+        self.local = local
+        self.local_cutoff = local_cutoff
+        self.pair_cutoff = pair_cutoff
+        self.local_mos = local_mos
+        self.it2_opt = it2_opt
+        self.filter = filter
 
         self.model = model
         self.make_t3_density = bool(make_t3_density)
@@ -182,7 +196,9 @@ class ccwfn:
         self.nv = self.nmo - self.no - self.nfzc
         self.nact = self.no + self.nv
 
-        if storage == "full":
+        if local is not None:
+            self._init_local(scf_wfn)
+        elif storage == "full":
             self.H = build_hamiltonian(scf_wfn, device=self.device,
                                        dtype=self.dtype)
             self._set_amplitudes(self.H.ERI[self.o, self.o, self.v, self.v])
@@ -220,6 +236,77 @@ class ccwfn:
             self._set_df(B)
         log.info("CCWFN object initialized in %.3f seconds."
                  % (time.time() - time_init))
+
+    @staticmethod
+    def _check_local(local, local_mos, pair_cutoff, model, filter, storage,
+                     df_direct, scf_wfn):
+        """The local keywords' checks and refusals, pycc_tpu's, made
+        before anything is built."""
+        if local not in _VALID_LOCAL:
+            raise ValueError("%s is not an allowed local-CC model." % local)
+        if local_mos not in ("PIPEK_MEZEY", "BOYS"):
+            raise ValueError("%s is not an allowed MO localization method."
+                             % local_mos)
+        if pair_cutoff is not None and (local is None
+                                        or model not in ("CCD", "CCSD")
+                                        or filter):
+            raise ValueError("pair_cutoff requires a native local CCD/CCSD "
+                             "run (local=..., model='CCD'|'CCSD', "
+                             "filter=False).")
+        if local is not None and storage == "df":
+            if df_direct or (df_direct is None
+                             and getattr(scf_wfn, "B_ao", None) is not None):
+                raise ValueError("df_direct supports canonical models only "
+                                 "(no dense ERI exists for local=%s)."
+                                 % local)
+            raise ValueError("storage='df' supports canonical models only "
+                             "(local correlation uses the pair-space "
+                             "solver).")
+
+    def _init_local(self, scf_wfn):
+        """pycc_tpu's local flow: localize the active occupied orbitals on
+        the host, rebuild H in that basis, build the pair spaces (`Local`)
+        and filter the MP2 guess through them; with filter=False also the
+        native pair-space solver (`self.lccwfn`).  storage='blocked' cuts
+        its blocks from the localized ERI, which H keeps: the pair spaces
+        and the native solver read it."""
+        from .local import Local
+        from .models.blocked import blocks_from_full
+        from .scf.localize import boys, pipek_mezey
+
+        no = self.no
+        C = np.array(scf_wfn.Ca_subset("AO", "ACTIVE"))
+        with self.timers.time("ccwfn.localize"):
+            if self.local_mos == "PIPEK_MEZEY":
+                C[:, :no] = pipek_mezey(C[:, :no], np.asarray(scf_wfn.S_ao),
+                                        scf_wfn.basisset())
+            else:
+                C[:, :no] = boys(C[:, :no], ao_properties(scf_wfn)[0])
+        self.C = C
+        with self.timers.time("ccwfn.hamiltonian"):
+            self.H = build_hamiltonian(scf_wfn, C=C, device=self.device,
+                                       dtype=self.dtype)
+        if self.storage == "blocked":
+            self.blocks = blocks_from_full(self.H.ERI, no)
+        o, v = self.o, self.v
+        self._set_amplitudes(self.H.ERI[o, o, v, v])
+        with self.timers.time("ccwfn.local"):
+            self.Local = Local(self.local, C, self.nfzc, no, self.nv, self.H,
+                               self.local_cutoff, self.it2_opt, wfn=scf_wfn)
+        self.t1, self.t2 = self.Local.filter_amps(self.t1,
+                                                  self.H.ERI[o, o, v, v])
+        if not self.filter:
+            from .lccwfn import lccwfn
+            with self.timers.time("ccwfn.lccwfn"):
+                self.Local.trans_integrals(o, v)
+                if self.pair_cutoff is None:
+                    # the no^4 D^2 pair-pair overlaps: only the unscreened
+                    # equations read them; the screened ones build their
+                    # strong-pair block themselves
+                    self.Local.overlaps()
+                self.lccwfn = lccwfn(o, v, no, self.nv, self.H, self.local,
+                                     self.model, self.eref, self.Local,
+                                     pair_cutoff=self.pair_cutoff)
 
     @property
     def o(self):
@@ -302,6 +389,8 @@ class ccwfn:
         self.model = _check_model(model)
         self.precision = _check_precision(precision)
         self.storage = "df"
+        self.local = None
+        self.filter = False
         self.make_t3_density = False
         self.t3_scan = None
         self.real_time = False
@@ -444,7 +533,7 @@ class ccwfn:
         tstart = time.time()
         F = self.H.F
         use_bf16 = (bf16_until > 0 and self.storage in ("blocked", "df")
-                    and self.model != "CC3")
+                    and self.local is None and self.model != "CC3")
         if bf16_until > 0 and not use_bf16:
             raise ValueError("bf16_until requires storage='blocked' or 'df' "
                              "and a canonical (non-local, non-CC3) model.")
@@ -493,8 +582,12 @@ class ccwfn:
                     self.niter_bf16 += 1
                 else:
                     r1, r2 = self.residuals(F, t1, t2)
-                inc1 = r1 / self.Dia
-                inc2 = r2 / self.Dijab
+                if self.local is not None:
+                    # the Jacobi step in each pair's truncated space
+                    inc1, inc2 = self.Local.filter_amps(r1, r2)
+                else:
+                    inc1 = r1 / self.Dia
+                    inc2 = r2 / self.Dijab
                 t1n = t1 + inc1
                 t2n = t2 + inc2
                 rms_t = torch.sqrt(torch.sum(inc1 * inc1)
@@ -681,6 +774,10 @@ class ccwfn:
         (stage, dtype, iterations, seconds, bf16 iterations).  Needs a
         precision='DP' construction (the float64 masters are the
         refinement's Hamiltonian)."""
+        if self.local is not None:
+            raise ValueError("solve_cc_mixed supports canonical storage "
+                             "modes (the local filters hold their own "
+                             "f64 stacks).")
         if self.precision != "DP":
             raise ValueError("solve_cc_mixed needs a precision='DP' "
                              "construction (the f64 masters are the "

@@ -63,7 +63,13 @@
 //     next stage overlap the products of this one; when no and nv are
 //     even a copy moves two elements (16 bytes in float64, past L1).
 //     Shared memory (the ring, the tile and the block's sums over k)
-//     allows two blocks an SM;
+//     allows two blocks an SM at (24, 114);
+//   - the occupied index l of Eo and of the X2l sums is staged in chunks
+//     of lc: all no when 8 (7048 + 216 no + 16 nv) bytes (float64) fit in
+//     what a block may take, else as many as fit, so no occupied size is
+//     refused.  A later chunk rebuilds the t3 tiles of every k for its
+//     own X2l sums and runs nothing else, so past one chunk a row costs
+//     about no / lc builds;
 //   - blocks run j fastest, so the blocks resident together share their
 //     k-dependent operands in L2;
 //   - float32 has no tensor-core path at its tolerance (TF32 keeps ~3
@@ -274,17 +280,18 @@ __device__ __forceinline__ void mma_k16_bf16(float (&c)[4], const float* a,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// Shared-memory layout, in elements of the tile type.  The host computes
-// the same size through t_row_smem_bytes.
+// Shared-memory layout, in elements of the tile type, for chunks of lc
+// occupied indices l of Eo and of the X2l sums.  The host computes the
+// same size through t_row_smem_bytes.
 struct Layout {
   int ps, st, red, eo, fo, lbc, lba, x1a, x1m, z2a, z2m, z1, z1m, x2a, x2b,
       x2c, total;
-  __host__ __device__ Layout(int no, int nv) {
+  __host__ __device__ Layout(int lc, int nv) {
     int o = 0;
     ps = o;  o += T * PS;          // the t3 tile, [a][b * T + c], pitch PS
     st = o;  o += NSTAGE * STAGE;  // the operand ring
     red = o; o += THREADS * 4 * MT;  // the warps' Z1 partial sums
-    eo = o;  o += 3 * no * T;      // Eo[j,k,l,x] for x on the a, b, c ranges
+    eo = o;  o += 3 * lc * T;      // Eo[j,k,l,x], x on the a, b, c ranges
     fo = o;  o += 3 * T;           // Fov[k, x] on the a, b, c ranges
     lbc = o; o += T2;              // L[j,k,b,c]
     lba = o; o += T2;              // L[j,k,b,a]
@@ -294,12 +301,28 @@ struct Layout {
     z2m = o; o += T2;
     z1 = o;  o += T * nv;          // Z1[a][d]
     z1m = o; o += T * nv;          // Z1m[c][d]
-    x2a = o; o += no * T2;         // X2l[j,l,a,b] +=
-    x2b = o; o += no * T2;         // X2l[j,l,a,c] +=
-    x2c = o; o += no * T2;         // X2l[j,l,c,b] +=
+    x2a = o; o += lc * T2;         // X2l[j,l,a,b] +=
+    x2b = o; o += lc * T2;         // X2l[j,l,a,c] +=
+    x2c = o; o += lc * T2;         // X2l[j,l,c,b] +=
     total = o;
   }
 };
+
+// Dynamic shared memory a block may take: the card's 232448 bytes less
+// the kernel's static arrays (seg_p, seg_q, seg_n: 480 bytes) and room
+// to spare.
+constexpr long long SMEM_BUDGET = 232448 - 1024;
+
+// The chunk of occupied l a block stages: all no when they fit, else the
+// most that fit, so that the X2l sums of a chunk stay on chip; 0 when
+// not even one fits (nv too large).
+__host__ __device__ inline int chunk_of(int no, int nv, int acc_bytes) {
+  for (int lc = no; lc > 0; --lc)
+    if (static_cast<long long>(Layout(lc, nv).total) * acc_bytes <=
+        SMEM_BUDGET)
+      return lc;
+  return 0;
+}
 
 template <typename Tin, typename Tacc, int VEC>
 __global__ void __launch_bounds__(THREADS) t_row_kernel(
@@ -311,10 +334,10 @@ __global__ void __launch_bounds__(THREADS) t_row_kernel(
     const Tin* __restrict__ t2, Tacc* __restrict__ X1a,
     Tacc* __restrict__ X1m, Tacc* __restrict__ Z1, Tacc* __restrict__ Z1m,
     Tacc* __restrict__ Z2a, Tacc* __restrict__ Z2m, Tacc* __restrict__ X2l,
-    int no, int nv) {
+    int no, int nv, int lc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Tacc* sm = reinterpret_cast<Tacc*>(smem_raw);
-  const Layout lay(no, nv);
+  const Layout lay(lc, nv);
   Tacc* Ps = sm + lay.ps;
   Tacc* St = sm + lay.st;
   Tacc* Red = sm + lay.red;
@@ -354,7 +377,6 @@ __global__ void __launch_bounds__(THREADS) t_row_kernel(
   const int NXC = (X + XC - 1) / XC;      // build stages a group
   const int NZ = (nv + DC - 1) / DC;      // stages of each Z1 product
   const int NB = 3 * NXC;
-  const int NQ = NB + 2 * NZ;             // stages a k
   const Tacc eij = eps[i] + eps[j];
   const Tin* Wi = Wv + int64_t(i) * V2 * V;
   const Tin* Wj = Wv + int64_t(j) * V2 * V;
@@ -370,353 +392,379 @@ __global__ void __launch_bounds__(THREADS) t_row_kernel(
   __shared__ const Tin* seg_q[12];
   __shared__ int seg_n[12][6];
 
-  for (int k = 0; k < no; ++k) {
-    if (tid < 12) {
-      const Tin* Wk = Wv + int64_t(k) * V2 * V;
-      auto t2p = [&](int x, int y) { return t2 + (int64_t(x) * O + y) * V2; };
-      auto t2n = [&](int x) { return t2m + int64_t(x) * V2 * O; };
-      auto Op = [&](int x, int y) { return Otm + (int64_t(x) * O + y) * VO; };
-      const int grp = tid / 4;
-      const Tin *p, *sg;
-      int sr1, sr2, ss;
-      // v-terms pair Wv[n][p1][p2][e] with t2[n1][n2][s][e], o-terms
-      // t2m[n][p1][p2][m] with Otm[n1][n2][s][m]
-      // (pycc_tpu/triples.py::_t3c_slab_ij)
-      switch (tid) {
-        // c: Wi[b,a,e] t2[k,j,c,e]; Wj[a,b,e] t2[k,i,c,e];
-        //    O[j,k,m,c] t2[i,m,a,b]; O[i,k,m,c] t2[j,m,b,a]
-        case 0: p = Wi; sr1 = V; sr2 = V2; sg = t2p(k, j); ss = V; break;
-        case 1: p = Wj; sr1 = V2; sr2 = V; sg = t2p(k, i); ss = V; break;
-        case 2: p = t2n(i); sr1 = VO; sr2 = O; sg = Op(j, k); ss = O; break;
-        case 3: p = t2n(j); sr1 = O; sr2 = VO; sg = Op(i, k); ss = O; break;
-        // b: Wi[c,a,e] t2[j,k,b,e]; Wk[a,c,e] t2[j,i,b,e];
-        //    O[k,j,m,b] t2[i,m,a,c]; O[i,j,m,b] t2[k,m,c,a]
-        case 4: p = Wi; sr1 = V; sr2 = V2; sg = t2p(j, k); ss = V; break;
-        case 5: p = Wk; sr1 = V2; sr2 = V; sg = t2p(j, i); ss = V; break;
-        case 6: p = t2n(i); sr1 = VO; sr2 = O; sg = Op(k, j); ss = O; break;
-        case 7: p = t2n(k); sr1 = O; sr2 = VO; sg = Op(i, j); ss = O; break;
-        // a: Wk[b,c,e] t2[i,j,a,e]; Wj[c,b,e] t2[i,k,a,e];
-        //    O[j,i,m,a] t2[k,m,c,b]; O[k,i,m,a] t2[j,m,b,c]
-        case 8: p = Wk; sr1 = V2; sr2 = V; sg = t2p(i, j); ss = V; break;
-        case 9: p = Wj; sr1 = V; sr2 = V2; sg = t2p(i, k); ss = V; break;
-        case 10: p = t2n(k); sr1 = O; sr2 = VO; sg = Op(j, i); ss = O; break;
-        default: p = t2n(j); sr1 = VO; sr2 = O; sg = Op(k, i); ss = O; break;
-      }
-      // tile origins of the pair axes and the single axis of the group
-      const int o1 = grp == 2 ? b0 : a0;
-      const int o2 = grp == 0 ? b0 : c0;
-      const int os = grp == 0 ? c0 : grp == 1 ? b0 : a0;
-      seg_p[tid] = p + int64_t(o1) * sr1 + int64_t(o2) * sr2;
-      seg_q[tid] = sg + int64_t(os) * ss;
-      seg_n[tid][0] = sr1;
-      seg_n[tid][1] = sr2;
-      seg_n[tid][2] = ss;
-      seg_n[tid][3] = nv - o1;
-      seg_n[tid][4] = nv - o2;
-      seg_n[tid][5] = nv - os;
-    }
-    __syncthreads();
-    const Tin* Evk = Ev + int64_t(k) * V2;
-    const Tacc eijk = eij + eps[k];
-    const Tin* Gk = G + int64_t(k) * V2;
-
-    // the small operands of the projections, masked to the tile: with the
-    // first stage of k when they can be copied as they are, else (bf16)
-    // widened at the end of the build
-    auto small_operands = [&](bool async) {
-      const Tin* Eojk = Eo + (int64_t(j) * O + k) * VO;
-      const Tin* Ljk = L + (int64_t(j) * O + k) * V2;
-      auto put = [&](Tacc* d, const auto* src, bool valid) {
-        if constexpr (St_t::ASYNC) {
-          if (async) {
-            asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
-                             smem_u32(d)),
-                         "l"(valid ? src : Fov), "n"(int(sizeof(Tacc))),
-                         "r"(valid ? int(sizeof(Tacc)) : 0));
-            return;
-          }
+  // The occupied l of Eo and the X2l sums come in chunks of lc, one k loop
+  // each.  The first chunk also runs the Z1 products and the other
+  // projections; a later one rebuilds the t3 tiles for its X2l alone.
+  for (int l0 = 0; l0 < no; l0 += lc) {
+    const int nl = min(lc, no - l0);
+    const bool first = l0 == 0;
+    const int NQ = first ? NB + 2 * NZ : NB;  // stages a k
+    for (int k = 0; k < no; ++k) {
+      if (tid < 12) {
+        const Tin* Wk = Wv + int64_t(k) * V2 * V;
+        auto t2p = [&](int x, int y) { return t2 + (int64_t(x) * O + y) * V2; };
+        auto t2n = [&](int x) { return t2m + int64_t(x) * V2 * O; };
+        auto Op = [&](int x, int y) { return Otm + (int64_t(x) * O + y) * VO; };
+        const int grp = tid / 4;
+        const Tin *p, *sg;
+        int sr1, sr2, ss;
+        // v-terms pair Wv[n][p1][p2][e] with t2[n1][n2][s][e], o-terms
+        // t2m[n][p1][p2][m] with Otm[n1][n2][s][m]
+        // (pycc_tpu/triples.py::_t3c_slab_ij)
+        switch (tid) {
+          // c: Wi[b,a,e] t2[k,j,c,e]; Wj[a,b,e] t2[k,i,c,e];
+          //    O[j,k,m,c] t2[i,m,a,b]; O[i,k,m,c] t2[j,m,b,a]
+          case 0: p = Wi; sr1 = V; sr2 = V2; sg = t2p(k, j); ss = V; break;
+          case 1: p = Wj; sr1 = V2; sr2 = V; sg = t2p(k, i); ss = V; break;
+          case 2: p = t2n(i); sr1 = VO; sr2 = O; sg = Op(j, k); ss = O; break;
+          case 3: p = t2n(j); sr1 = O; sr2 = VO; sg = Op(i, k); ss = O; break;
+          // b: Wi[c,a,e] t2[j,k,b,e]; Wk[a,c,e] t2[j,i,b,e];
+          //    O[k,j,m,b] t2[i,m,a,c]; O[i,j,m,b] t2[k,m,c,a]
+          case 4: p = Wi; sr1 = V; sr2 = V2; sg = t2p(j, k); ss = V; break;
+          case 5: p = Wk; sr1 = V2; sr2 = V; sg = t2p(j, i); ss = V; break;
+          case 6: p = t2n(i); sr1 = VO; sr2 = O; sg = Op(k, j); ss = O; break;
+          case 7: p = t2n(k); sr1 = O; sr2 = VO; sg = Op(i, j); ss = O; break;
+          // a: Wk[b,c,e] t2[i,j,a,e]; Wj[c,b,e] t2[i,k,a,e];
+          //    O[j,i,m,a] t2[k,m,c,b]; O[k,i,m,a] t2[j,m,b,c]
+          case 8: p = Wk; sr1 = V2; sr2 = V; sg = t2p(i, j); ss = V; break;
+          case 9: p = Wj; sr1 = V; sr2 = V2; sg = t2p(i, k); ss = V; break;
+          case 10: p = t2n(k); sr1 = O; sr2 = VO; sg = Op(j, i); ss = O; break;
+          default: p = t2n(j); sr1 = VO; sr2 = O; sg = Op(k, i); ss = O; break;
         }
-        *d = valid ? Tacc(*src) : Tacc(0);
+        // tile origins of the pair axes and the single axis of the group
+        const int o1 = grp == 2 ? b0 : a0;
+        const int o2 = grp == 0 ? b0 : c0;
+        const int os = grp == 0 ? c0 : grp == 1 ? b0 : a0;
+        seg_p[tid] = p + int64_t(o1) * sr1 + int64_t(o2) * sr2;
+        seg_q[tid] = sg + int64_t(os) * ss;
+        seg_n[tid][0] = sr1;
+        seg_n[tid][1] = sr2;
+        seg_n[tid][2] = ss;
+        seg_n[tid][3] = nv - o1;
+        seg_n[tid][4] = nv - o2;
+        seg_n[tid][5] = nv - os;
+      }
+      __syncthreads();
+      const Tin* Evk = Ev + int64_t(k) * V2;
+      const Tacc eijk = eij + eps[k];
+      const Tin* Gk = G + int64_t(k) * V2;
+
+      // the small operands of the projections, masked to the tile: with the
+      // first stage of k when they can be copied as they are, else (bf16)
+      // widened at the end of the build
+      auto small_operands = [&](bool async) {
+        const Tin* Eojk = Eo + (int64_t(j) * O + k) * VO;
+        const Tin* Ljk = L + (int64_t(j) * O + k) * V2;
+        auto put = [&](Tacc* d, const auto* src, bool valid) {
+          if constexpr (St_t::ASYNC) {
+            if (async) {
+              asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                               smem_u32(d)),
+                           "l"(valid ? src : Fov), "n"(int(sizeof(Tacc))),
+                           "r"(valid ? int(sizeof(Tacc)) : 0));
+              return;
+            }
+          }
+          *d = valid ? Tacc(*src) : Tacc(0);
+        };
+        for (int x = tid; x < 3 * lc * T; x += THREADS) {
+          const int ax = x / (lc * T);
+          const int l = (x / T) % lc;
+          const int gx = (ax == 0 ? a0 : (ax == 1 ? b0 : c0)) + x % T;
+          put(EoS + x, Eojk + (l0 + l) * V + gx, gx < nv && l < nl);
+        }
+        for (int x = tid; x < 3 * T; x += THREADS) {
+          const int ax = x / T;
+          const int gx = (ax == 0 ? a0 : (ax == 1 ? b0 : c0)) + x % T;
+          put(FoS + x, Fov + int64_t(k) * V + gx, gx < nv);
+        }
+        for (int x = tid; x < T2; x += THREADS) {
+          const int bb = b0 + x / T, cc = c0 + x % T, aa = a0 + x % T;
+          put(Lbc + x, Ljk + bb * V + cc, bb < nv && cc < nv);
+          put(Lba + x, Ljk + bb * V + aa, bb < nv && aa < nv);
+        }
       };
-      for (int x = tid; x < 3 * no * T; x += THREADS) {
-        const int ax = x / (no * T);
-        const int l = (x / T) % no;
-        const int gx = (ax == 0 ? a0 : (ax == 1 ? b0 : c0)) + x % T;
-        put(EoS + x, Eojk + l * V + gx, gx < nv);
-      }
-      for (int x = tid; x < 3 * T; x += THREADS) {
-        const int ax = x / T;
-        const int gx = (ax == 0 ? a0 : (ax == 1 ? b0 : c0)) + x % T;
-        put(FoS + x, Fov + int64_t(k) * V + gx, gx < nv);
-      }
-      for (int x = tid; x < T2; x += THREADS) {
-        const int bb = b0 + x / T, cc = c0 + x % T, aa = a0 + x % T;
-        put(Lbc + x, Ljk + bb * V + cc, bb < nv && cc < nv);
-        put(Lba + x, Ljk + bb * V + aa, bb < nv && aa < nv);
-      }
-    };
 
-    // stage at cursor c into ring slot `slot`
-    auto issue = [&](Cursor c, int slot, St_t& s) {
-      Tacc* buf = St + slot * STAGE;
-      if constexpr (St_t::ASYNC) {
-        if (c.part == 0 && c.idx == 0) small_operands(true);
-      }
-      if (c.part < 3) {
-        // group c.part, steps x of its 2v + 2o: e of two v-terms, then m
-        // of two o-terms
-        const int x = c.idx * XC + xl;
-        const int seg = x < nv ? 0 : x < 2 * nv ? 1 : x < 2 * nv + no ? 2 : 3;
-        const int e = x - (seg == 0 ? 0 : seg == 1 ? nv
-                           : seg == 2 ? 2 * nv : 2 * nv + no);
-        const int id = c.part * 4 + seg;
-        const int sr1 = seg_n[id][0];
-        const bool xin = x < X;
-        const int n1 = seg_n[id][3];
-        s.count = C::BUILD;
-#pragma unroll
-        for (int h = 0; h < T / C::RP; ++h) {
-          const int r2 = r2b + C::RP * h;
-          const bool in = xin && r2 < seg_n[id][4];
-          const Tin* row = seg_p[id] + r2 * seg_n[id][1] + e;
-#pragma unroll
-          for (int r1 = 0; r1 < T; ++r1) {
-            const bool valid = in && r1 < n1;
-            s.copy(h * T + r1, buf + (r1 * T + r2) * PX + xl,
-                   row + r1 * sr1, valid);
+      // stage at cursor c into ring slot `slot`
+      auto issue = [&](Cursor c, int slot, St_t& s) {
+        Tacc* buf = St + slot * STAGE;
+        if constexpr (St_t::ASYNC) {
+          if (c.part == 0 && c.idx == 0) small_operands(true);
+        }
+        if (c.part < 3) {
+          // group c.part, steps x of its 2v + 2o: e of two v-terms, then m
+          // of two o-terms
+          const int x = c.idx * XC + xl;
+          const int seg = x < nv ? 0 : x < 2 * nv ? 1 : x < 2 * nv + no ? 2 : 3;
+          const int e = x - (seg == 0 ? 0 : seg == 1 ? nv
+                             : seg == 2 ? 2 * nv : 2 * nv + no);
+          const int id = c.part * 4 + seg;
+          const int sr1 = seg_n[id][0];
+          const bool xin = x < X;
+          const int n1 = seg_n[id][3];
+          s.count = C::BUILD;
+  #pragma unroll
+          for (int h = 0; h < T / C::RP; ++h) {
+            const int r2 = r2b + C::RP * h;
+            const bool in = xin && r2 < seg_n[id][4];
+            const Tin* row = seg_p[id] + r2 * seg_n[id][1] + e;
+  #pragma unroll
+            for (int r1 = 0; r1 < T; ++r1) {
+              const bool valid = in && r1 < n1;
+              s.copy(h * T + r1, buf + (r1 * T + r2) * PX + xl,
+                     row + r1 * sr1, valid);
+            }
+            const bool valid = xin && r2 < seg_n[id][5];
+            s.copy(T * (T / C::RP) + h, buf + (T2 + r2) * PX + xl,
+                   seg_q[id] + r2 * seg_n[id][2] + e, valid);
           }
-          const bool valid = xin && r2 < seg_n[id][5];
-          s.copy(T * (T / C::RP) + h, buf + (T2 + r2) * PX + xl,
-                 seg_q[id] + r2 * seg_n[id][2] + e, valid);
+        } else {
+          // G (Z1) or Ev (Z1m) at [d, k, b0 + xx, Y0 + yy] for DC d into
+          // buf[d][xx * T + yy]: the consecutive threads of a d run along yy,
+          // then xx
+          constexpr int TD = T2 / VEC;      // threads to a d
+          constexpr int DP = THREADS / TD;  // d a pass of the threads
+          const bool z1 = c.part == 3;      // else Z1m
+          const int Y0 = z1 ? c0 : a0;
+          const int inner = (tid % TD) * VEC;
+          const int xx = b0 + inner / T, yy = Y0 + inner % T;
+          const bool in = xx < nv && yy < nv;
+          const int dl = tid / TD;
+          const int d0 = c.idx * DC + dl;
+          const Tin* src = (z1 ? Gk : Evk) + int64_t(d0) * VO * V + xx * V + yy;
+          const int64_t step = int64_t(DP) * VO * V;
+          s.count = C::EV;
+  #pragma unroll
+          for (int n = 0; n < C::EV; ++n) {
+            const bool valid = in && d0 + n * DP < nv;
+            s.copy(n, buf + (dl + n * DP) * PE + inner,
+                   src + n * step, valid);
+          }
         }
-      } else {
-        // G (Z1) or Ev (Z1m) at [d, k, b0 + xx, Y0 + yy] for DC d into
-        // buf[d][xx * T + yy]: the consecutive threads of a d run along yy,
-        // then xx
-        constexpr int TD = T2 / VEC;      // threads to a d
-        constexpr int DP = THREADS / TD;  // d a pass of the threads
-        const bool z1 = c.part == 3;      // else Z1m
-        const int Y0 = z1 ? c0 : a0;
-        const int inner = (tid % TD) * VEC;
-        const int xx = b0 + inner / T, yy = Y0 + inner % T;
-        const bool in = xx < nv && yy < nv;
-        const int dl = tid / TD;
-        const int d0 = c.idx * DC + dl;
-        const Tin* src = (z1 ? Gk : Evk) + int64_t(d0) * VO * V + xx * V + yy;
-        const int64_t step = int64_t(DP) * VO * V;
-        s.count = C::EV;
-#pragma unroll
-        for (int n = 0; n < C::EV; ++n) {
-          const bool valid = in && d0 + n * DP < nv;
-          s.copy(n, buf + (dl + n * DP) * PE + inner,
-                 src + n * step, valid);
-        }
-      }
-    };
+      };
 
-    Tacc acc[2][4];
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[h][r] = Tacc(0);
-    St_t s;
-    Cursor ci{0, 0}, cc{0, 0};     // the next stage to issue, to compute
-    if constexpr (St_t::ASYNC) {
-#pragma unroll
-      for (int q = 0; q < NSTAGE - 1; ++q) {
-        if (q < NQ) {
-          issue(ci, q, s);
-          ci.next(NXC, NZ);
-        }
-        cp_commit();
-      }
-    } else {
-      issue(ci, 0, s);
-      ci.next(NXC, NZ);
-      s.store();
-    }
-    for (int q = 0; q < NQ; ++q, cc.next(NXC, NZ)) {
+      Tacc acc[2][4];
+  #pragma unroll
+      for (int h = 0; h < 2; ++h)
+  #pragma unroll
+        for (int r = 0; r < 4; ++r) acc[h][r] = Tacc(0);
+      St_t s;
+      Cursor ci{0, 0}, cc{0, 0};     // the next stage to issue, to compute
       if constexpr (St_t::ASYNC) {
-        cp_wait<NSTAGE - 2>();
-        __syncthreads();
-        // the slot filled here was read in step q - 1, before the barrier
-        if (q + NSTAGE - 1 < NQ) {
-          issue(ci, (q + NSTAGE - 1) % NSTAGE, s);
-          ci.next(NXC, NZ);
+  #pragma unroll
+        for (int q = 0; q < NSTAGE - 1; ++q) {
+          if (q < NQ) {
+            issue(ci, q, s);
+            ci.next(NXC, NZ);
+          }
+          cp_commit();
         }
-        cp_commit();
       } else {
-        if (q + 1 < NQ) {                  // into registers
-          issue(ci, (q + 1) % NSTAGE, s);
-          ci.next(NXC, NZ);
-        }
-        __syncthreads();
+        issue(ci, 0, s);
+        ci.next(NXC, NZ);
+        s.store();
       }
-      const Tacc* buf = St + (q % NSTAGE) * STAGE;
-      if constexpr (!St_t::ASYNC) {
-        if (cc.part == 3 && cc.idx == 0) {
-          small_operands(false);
+      for (int q = 0; q < NQ; ++q, cc.next(NXC, NZ)) {
+        if constexpr (St_t::ASYNC) {
+          cp_wait<NSTAGE - 2>();
+          __syncthreads();
+          // the slot filled here was read in step q - 1, before the barrier
+          if (q + NSTAGE - 1 < NQ) {
+            issue(ci, (q + NSTAGE - 1) % NSTAGE, s);
+            ci.next(NXC, NZ);
+          }
+          cp_commit();
+        } else {
+          if (q + 1 < NQ) {                  // into registers
+            issue(ci, (q + 1) % NSTAGE, s);
+            ci.next(NXC, NZ);
+          }
           __syncthreads();
         }
-      }
-      if (cc.part < 3) {
-        // ---- the build: warp w's 16 pair rows of group cc.part ----
-        const int grp = cc.part;
-        const Tacc* Pr = buf + warp * 16 * PX;
-        const Tacc* Sg = buf + T2 * PX;
-        if constexpr (std::is_same_v<Tin, __nv_bfloat16>) {
-#pragma unroll
-          for (int kk = 0; kk < XC; kk += 16)
-            mma_k16_bf16(acc[(kk / 16) % 2], Pr + g * PX + kk + 2 * t,
-                         Sg + g * PX + kk + 2 * t);
-        } else {
-#pragma unroll
-          for (int kk = 0; kk < XC; kk += 4) {
-            mma_k4(acc[(kk / 4) % 2], g, t,
-                   [&](int r, int kq) { return Pr[r * PX + kk + kq]; },
-                   [&](int kq, int n) { return Sg[n * PX + kk + kq]; });
-          }
-        }
-        if (cc.idx == NXC - 1) {
-          // the lane's rows are pairs (2w, g) and (2w + 1, g), its columns
-          // 2t and 2t + 1 along the single axis
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int r1 = 2 * warp + r / 2, s2 = 2 * t + r % 2;
-            const Tacc val = acc[0][r] + acc[1][r];
-            if (grp == 0) {
-              ps(r1, g, s2) = val;                      // (a,b) x c
-            } else if (grp == 1) {
-              ps(r1, s2, g) += val;                     // (a,c) x b
-            } else {
-              // (b,c) x a completes the element: divide by its denominator
-              const int a = a0 + s2, b = b0 + r1, c = c0 + g;
-              Tacc& p = ps(s2, r1, g);
-              p = (a < nv && b < nv && c < nv)
-                      ? (p + val) / (eijk - eps[no + a] - eps[no + b] -
-                                     eps[no + c])
-                      : Tacc(0);
+        const Tacc* buf = St + (q % NSTAGE) * STAGE;
+        if (cc.part < 3) {
+          // ---- the build: warp w's 16 pair rows of group cc.part ----
+          const int grp = cc.part;
+          const Tacc* Pr = buf + warp * 16 * PX;
+          const Tacc* Sg = buf + T2 * PX;
+          if constexpr (std::is_same_v<Tin, __nv_bfloat16>) {
+  #pragma unroll
+            for (int kk = 0; kk < XC; kk += 16)
+              mma_k16_bf16(acc[(kk / 16) % 2], Pr + g * PX + kk + 2 * t,
+                           Sg + g * PX + kk + 2 * t);
+          } else {
+  #pragma unroll
+            for (int kk = 0; kk < XC; kk += 4) {
+              mma_k4(acc[(kk / 4) % 2], g, t,
+                     [&](int r, int kq) { return Pr[r * PX + kk + kq]; },
+                     [&](int kq, int n) { return Sg[n * PX + kk + kq]; });
             }
-            acc[0][r] = acc[1][r] = Tacc(0);
+          }
+          if (cc.idx == NXC - 1) {
+            // the lane's rows are pairs (2w, g) and (2w + 1, g), its columns
+            // 2t and 2t + 1 along the single axis
+  #pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const int r1 = 2 * warp + r / 2, s2 = 2 * t + r % 2;
+              const Tacc val = acc[0][r] + acc[1][r];
+              if (grp == 0) {
+                ps(r1, g, s2) = val;                      // (a,b) x c
+              } else if (grp == 1) {
+                ps(r1, s2, g) += val;                     // (a,c) x b
+              } else {
+                // (b,c) x a completes the element: divide by its denominator
+                const int a = a0 + s2, b = b0 + r1, c = c0 + g;
+                Tacc& p = ps(s2, r1, g);
+                p = (a < nv && b < nv && c < nv)
+                        ? (p + val) / (eijk - eps[no + a] - eps[no + b] -
+                                       eps[no + c])
+                        : Tacc(0);
+              }
+              acc[0][r] = acc[1][r] = Tacc(0);
+            }
+          }
+        } else {
+          // ---- Z1 and Z1m, DC d a stage, a quarter of the 64 tile pairs
+          // to each warp:
+          //   Z1[a, d]  += sum_bc t3[a,b,c] G[d,k,b,c]
+          //   Z1m[c, d] += sum_ab t3[a,b,c] Ev[d,k,b,a]
+          const int z = cc.idx;
+          const bool z1 = cc.part == 3;
+          // one accumulator chain for each of the two d tiles
+          Tacc zz[MT][4];
+  #pragma unroll
+          for (int h = 0; h < MT; ++h)
+  #pragma unroll
+            for (int r = 0; r < 4; ++r) zz[h][r] = Tacc(0);
+  #pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            const Tacc* E = buf + mt * 16 * PE;
+  #pragma unroll
+            for (int m = 0; m < 4; ++m) {
+              const int kk = warp * 16 + 4 * m;
+              auto& c = zz[mt];
+              if (z1)                  // p = b T + c
+                mma_k4(c, g, t,
+                       [&](int r, int kq) { return E[r * PE + kk + kq]; },
+                       [&](int kq, int n) { return Ps[n * PS + kk + kq]; });
+              else                     // p = a T + b, staged as [b T + a]
+                mma_k4(c, g, t,
+                       [&](int r, int kq) {
+                         const int p = kk + kq;
+                         return E[r * PE + (p % T) * T + p / T];
+                       },
+                       [&](int kq, int n) {
+                         const int p = kk + kq;
+                         return Ps[(p / T) * PS + (p % T) * T + n];
+                       });
+            }
+          }
+  #pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+  #pragma unroll
+            for (int r = 0; r < 4; ++r)
+              Red[(warp * MT + mt) * THREADS + r * 32 + lane] = zz[mt][r];
+          __syncthreads();
+  #pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            // thread (r, lane) sums the four warps' (d, col) of that place
+            const int r = tid / 32, gg = (tid % 32) / 4, tt = tid % 4;
+            const int d = z * DC + mt * 16 + gg + 8 * (r / 2);
+            const int col = 2 * tt + r % 2;
+            Tacc sum = Tacc(0);
+  #pragma unroll
+            for (int ww = 0; ww < 4; ++ww)
+              sum += Red[(ww * MT + mt) * THREADS + tid];
+            if (d < nv) (z1 ? sZ1 : sZ1m)[col * nv + d] += sum;
           }
         }
-      } else {
-        // ---- Z1 and Z1m, DC d a stage, a quarter of the 64 tile pairs
-        // to each warp:
-        //   Z1[a, d]  += sum_bc t3[a,b,c] G[d,k,b,c]
-        //   Z1m[c, d] += sum_ab t3[a,b,c] Ev[d,k,b,a]
-        const int z = cc.idx;
-        const bool z1 = cc.part == 3;
-        // one accumulator chain for each of the two d tiles
-        Tacc zz[MT][4];
-#pragma unroll
-        for (int h = 0; h < MT; ++h)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) zz[h][r] = Tacc(0);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const Tacc* E = buf + mt * 16 * PE;
-#pragma unroll
-          for (int m = 0; m < 4; ++m) {
-            const int kk = warp * 16 + 4 * m;
-            auto& c = zz[mt];
-            if (z1)                  // p = b T + c
-              mma_k4(c, g, t,
-                     [&](int r, int kq) { return E[r * PE + kk + kq]; },
-                     [&](int kq, int n) { return Ps[n * PS + kk + kq]; });
-            else                     // p = a T + b, staged as [b T + a]
-              mma_k4(c, g, t,
-                     [&](int r, int kq) {
-                       const int p = kk + kq;
-                       return E[r * PE + (p % T) * T + p / T];
-                     },
-                     [&](int kq, int n) {
-                       const int p = kk + kq;
-                       return Ps[(p / T) * PS + (p % T) * T + n];
-                     });
-          }
-        }
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-            Red[(warp * MT + mt) * THREADS + r * 32 + lane] = zz[mt][r];
-        __syncthreads();
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          // thread (r, lane) sums the four warps' (d, col) of that place
-          const int r = tid / 32, gg = (tid % 32) / 4, tt = tid % 4;
-          const int d = z * DC + mt * 16 + gg + 8 * (r / 2);
-          const int col = 2 * tt + r % 2;
-          Tacc sum = Tacc(0);
-#pragma unroll
-          for (int ww = 0; ww < 4; ++ww)
-            sum += Red[(ww * MT + mt) * THREADS + tid];
-          if (d < nv) (z1 ? sZ1 : sZ1m)[col * nv + d] += sum;
+        if constexpr (!St_t::ASYNC) {
+          // the slot of stage q + 1 was last read in step q + 1 - NSTAGE
+          if (q + 1 < NQ) s.store();
         }
       }
+      __syncthreads();
       if constexpr (!St_t::ASYNC) {
-        // the slot of stage q + 1 was last read in step q + 1 - NSTAGE
-        if (q + 1 < NQ) s.store();
+        // the bf16 small operands, widened once the build is done
+        small_operands(false);
+        __syncthreads();
       }
-    }
-    __syncthreads();
 
-    // ---- the small projections of the tile, summed over k ----
-    // X2l: the direct term and the (bc) and (ac) images, by relabelling.
-    // A thread owns one (u, w) and every other l: it reads its eight t3
-    // values of a term once and sweeps l against Eo (one row a warp)
-    {
-      const int uw = tid % T2, u = uw / T, w = uw % T;
-#pragma unroll
-      for (int term = 0; term < 3; ++term) {
-        Tacc p[T];
-#pragma unroll
-        for (int y = 0; y < T; ++y)
-          p[y] = term == 0 ? ps(u, w, y)     // (a,b)=(u,w), sum c
-               : term == 1 ? ps(u, y, w)     // (a,c)=(u,w), sum b
-                           : ps(y, w, u);    // (c,b)=(u,w), sum a
-        const int ax = 2 - term;             // Eo on the c, b, a range
-        Tacc* sX = term == 0 ? sXa : term == 1 ? sXb : sXc;
-        const Tacc f = term == 0 ? Tacc(2) : Tacc(-1);
-        for (int l = tid / T2; l < no; l += THREADS / T2) {
-          Tacc eo[T];
-          load_row(eo, EoS + (ax * no + l) * T);
-          Tacc acc2 = Tacc(0);
-#pragma unroll
-          for (int y = 0; y < T; ++y) acc2 = fma(p[y], eo[y], acc2);
-          sX[l * T2 + uw] += f * acc2;
+      // ---- the small projections of the tile, summed over k ----
+      // X2l: the direct term and the (bc) and (ac) images, by relabelling.
+      // A thread owns one (u, w) and every other l: it reads its eight t3
+      // values of a term once and sweeps l against Eo (one row a warp)
+      {
+        const int uw = tid % T2, u = uw / T, w = uw % T;
+  #pragma unroll
+        for (int term = 0; term < 3; ++term) {
+          Tacc p[T];
+  #pragma unroll
+          for (int y = 0; y < T; ++y)
+            p[y] = term == 0 ? ps(u, w, y)     // (a,b)=(u,w), sum c
+                 : term == 1 ? ps(u, y, w)     // (a,c)=(u,w), sum b
+                             : ps(y, w, u);    // (c,b)=(u,w), sum a
+          const int ax = 2 - term;             // Eo on the c, b, a range
+          Tacc* sX = term == 0 ? sXa : term == 1 ? sXb : sXc;
+          const Tacc f = term == 0 ? Tacc(2) : Tacc(-1);
+          for (int l = tid / T2; l < nl; l += THREADS / T2) {
+            Tacc eo[T];
+            load_row(eo, EoS + (ax * lc + l) * T);
+            Tacc acc2 = Tacc(0);
+  #pragma unroll
+            for (int y = 0; y < T; ++y) acc2 = fma(p[y], eo[y], acc2);
+            sX[l * T2 + uw] += f * acc2;
+          }
         }
       }
+      // Z2a[a,b], Z2m[b,c], X1a[a], X1m[c]: one Z2 element and one X1
+      // partial (over the eight c, or the eight a) a thread, the X1 partials
+      // summed over b across the eight lanes that share a (or c); the first
+      // chunk's only
+      if (first) {
+        const int u = (tid % T2) / T, w = tid % T;
+        Tacc z = Tacc(0), x1 = Tacc(0);
+        if (tid < T2) {            // (a, b) = (u, w)
+  #pragma unroll
+          for (int y = 0; y < T; ++y) {
+            z = fma(ps(u, w, y), FoS[2 * T + y], z);        // sum_c P Fov[k,c]
+            x1 = fma(ps(u, w, y), Lbc[w * T + y], x1);      // sum_c P L[j,k,b,c]
+          }
+        } else {                   // (b, c) = (u, w) for Z2m; (c, b) = (u, w)
+  #pragma unroll
+          for (int y = 0; y < T; ++y) {
+            z = fma(ps(y, u, w), FoS[y], z);                // sum_a P Fov[k,a]
+            x1 = fma(ps(y, w, u), Lba[w * T + y], x1);      // sum_a P L[j,k,b,a]
+          }
+        }
+  #pragma unroll
+        for (int o = T / 2; o > 0; o /= 2) x1 += __shfl_xor_sync(~0u, x1, o);
+        (tid < T2 ? sZ2a : sZ2m)[u * T + w] += z;
+        if (w == 0) (tid < T2 ? sX1a : sX1m)[u] += x1;
+      }
+      __syncthreads();
     }
-    // Z2a[a,b], Z2m[b,c], X1a[a], X1m[c]: one Z2 element and one X1
-    // partial (over the eight c, or the eight a) a thread, the X1 partials
-    // summed over b across the eight lanes that share a (or c)
-    {
-      const int u = (tid % T2) / T, w = tid % T;
-      Tacc z = Tacc(0), x1 = Tacc(0);
-      if (tid < T2) {            // (a, b) = (u, w)
-#pragma unroll
-        for (int y = 0; y < T; ++y) {
-          z = fma(ps(u, w, y), FoS[2 * T + y], z);        // sum_c P Fov[k,c]
-          x1 = fma(ps(u, w, y), Lbc[w * T + y], x1);      // sum_c P L[j,k,b,c]
-        }
-      } else {                   // (b, c) = (u, w) for Z2m; (c, b) = (u, w)
-#pragma unroll
-        for (int y = 0; y < T; ++y) {
-          z = fma(ps(y, u, w), FoS[y], z);                // sum_a P Fov[k,a]
-          x1 = fma(ps(y, w, u), Lba[w * T + y], x1);      // sum_a P L[j,k,b,a]
-        }
-      }
-#pragma unroll
-      for (int o = T / 2; o > 0; o /= 2) x1 += __shfl_xor_sync(~0u, x1, o);
-      (tid < T2 ? sZ2a : sZ2m)[u * T + w] += z;
-      if (w == 0) (tid < T2 ? sX1a : sX1m)[u] += x1;
+
+    // ---- the chunk's X2l totals, added once into the row's X2l and
+    // zeroed for the next chunk (each thread its own elements) ----
+    const int64_t jvv = int64_t(j) * V2;
+    Tacc* X2j = X2l + jvv * O;
+    for (int x = tid; x < nl * T2; x += THREADS) {
+      const int64_t l = l0 + x / T2;
+      const int u = (x % T2) / T, w = x % T;
+      Tacc* X2jl = X2j + l * V2;
+      if (a0 + u < nv && b0 + w < nv)
+        atomicAdd(&X2jl[(a0 + u) * V + b0 + w], sXa[x]);
+      if (a0 + u < nv && c0 + w < nv)
+        atomicAdd(&X2jl[(a0 + u) * V + c0 + w], sXb[x]);
+      if (c0 + u < nv && b0 + w < nv)
+        atomicAdd(&X2jl[(c0 + u) * V + b0 + w], sXc[x]);
+      sXa[x] = sXb[x] = sXc[x] = Tacc(0);
     }
     __syncthreads();
   }
 
-  // ---- the block's totals, added once into the row's outputs ----
+  // ---- the block's other totals, added once into the row's outputs ----
   const int64_t jv = int64_t(j) * V;
   const int64_t jvv = int64_t(j) * V2;
   for (int x = tid; x < T; x += THREADS) {
@@ -735,18 +783,6 @@ __global__ void __launch_bounds__(THREADS) t_row_kernel(
     if (a0 + u < nv) atomicAdd(&Z1[jvv + (a0 + u) * V + d], sZ1[x]);
     if (c0 + u < nv) atomicAdd(&Z1m[jvv + (c0 + u) * V + d], sZ1m[x]);
   }
-  Tacc* X2j = X2l + jvv * O;
-  for (int x = tid; x < no * T2; x += THREADS) {
-    const int64_t l = x / T2;
-    const int u = (x % T2) / T, w = x % T;
-    Tacc* X2jl = X2j + l * V2;
-    if (a0 + u < nv && b0 + w < nv)
-      atomicAdd(&X2jl[(a0 + u) * V + b0 + w], sXa[x]);
-    if (a0 + u < nv && c0 + w < nv)
-      atomicAdd(&X2jl[(a0 + u) * V + c0 + w], sXb[x]);
-    if (c0 + u < nv && b0 + w < nv)
-      atomicAdd(&X2jl[(c0 + u) * V + b0 + w], sXc[x]);
-  }
 }
 
 template <typename Tin, typename Tacc, int VEC>
@@ -755,7 +791,9 @@ int launch(int i, const void* Wv, const void* t2m, const void* Otm,
            const void* Fov, const void* eps, const void* t2, void* X1a,
            void* X1m, void* Z1, void* Z1m, void* Z2a, void* Z2m, void* X2l,
            int no, int nv, void* stream) {
-  const size_t smem = size_t(Layout(no, nv).total) * sizeof(Tacc);
+  const int lc = chunk_of(no, nv, int(sizeof(Tacc)));
+  if (lc < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = size_t(Layout(lc, nv).total) * sizeof(Tacc);
   cudaError_t err = cudaFuncSetAttribute(
       t_row_kernel<Tin, Tacc, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -772,7 +810,7 @@ int launch(int i, const void* Wv, const void* t2m, const void* Otm,
       static_cast<const Tin*>(t2), static_cast<Tacc*>(X1a),
       static_cast<Tacc*>(X1m), static_cast<Tacc*>(Z1),
       static_cast<Tacc*>(Z1m), static_cast<Tacc*>(Z2a),
-      static_cast<Tacc*>(Z2m), static_cast<Tacc*>(X2l), no, nv);
+      static_cast<Tacc*>(Z2m), static_cast<Tacc*>(X2l), no, nv, lc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -807,9 +845,16 @@ T_ROW_ENTRY(t_row_bf16, __nv_bfloat16, float)
 #undef T_ROW_ENTRY
 
 // bytes of dynamic shared memory one block takes, for a tile type of
-// acc_bytes bytes
+// acc_bytes bytes (past SMEM_BUDGET when not even one l fits)
 long long t_row_smem_bytes(int no, int nv, int acc_bytes) {
-  return static_cast<long long>(Layout(no, nv).total) * acc_bytes;
+  const int lc = chunk_of(no, nv, acc_bytes);
+  return static_cast<long long>(Layout(lc > 0 ? lc : 1, nv).total) *
+         acc_bytes;
+}
+
+// the occupied indices l a block stages at once (0 when none fits)
+int t_row_chunk(int no, int nv, int acc_bytes) {
+  return chunk_of(no, nv, acc_bytes);
 }
 
 const char* t_row_error_string(int code) {

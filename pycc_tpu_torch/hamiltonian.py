@@ -119,10 +119,33 @@ def mo_eri_blocks(wfn, device="cuda", dtype=torch.float64):
     return ERIBlocks(*blocks)
 
 
-def build_hamiltonian(wfn, device="cuda", dtype=torch.float64, eri=True):
+def ao_properties(wfn):
+    """(dipole, angular momentum, nabla, traceless quadrupole) AO integral
+    matrices of wfn's basis, computed on the host once and kept on the
+    wavefunction (`wfn.ao_props`), as run_rhf keeps the AO ERI: every
+    Hamiltonian built from one wavefunction (another storage, a localized
+    basis) transforms the same matrices, and at 144 basis functions they
+    take seconds of host time each build."""
+    from .scf import integrals as ints
+
+    props = getattr(wfn, "ao_props", None)
+    if props is None:
+        basis = wfn.basisset()
+        props = (ints.dipole(basis), ints.angular_momentum(basis),
+                 ints.nabla(basis), ints.traceless_quadrupole(basis))
+        wfn.ao_props = props
+    return props
+
+
+def build_hamiltonian(wfn, C=None, device="cuda", dtype=torch.float64,
+                      eri=True):
     """Build the active-space Hamiltonian from an SCF wavefunction.
 
-    `wfn` is a pycc_tpu_torch.scf.RHFWavefunction.  The AO integrals come
+    `wfn` is a pycc_tpu_torch.scf.RHFWavefunction.  `C` (AO x active,
+    numpy) overrides its active MO coefficients, e.g. with localized
+    occupied orbitals: F, ERI, L and every property integral are then in
+    that basis, as in pycc_tpu's build_hamiltonian(wfn, C=).  The AO
+    property integrals are `ao_properties(wfn)`.  The AO integrals come
     from the host engine; the four-index MO transform runs in float64 on
     `device`, and F/ERI/L are then cast to `dtype`, as are the real
     property integrals (mu, Q); the complex ones (m, p) stay complex128,
@@ -139,7 +162,7 @@ def build_hamiltonian(wfn, device="cuda", dtype=torch.float64, eri=True):
 
     dev = init_device(device)
     f64 = torch.float64
-    C_np = np.asarray(wfn.Ca_subset("AO", "ACTIVE"))
+    C_np = np.asarray(wfn.Ca_subset("AO", "ACTIVE") if C is None else C)
     C = torch.as_tensor(C_np, dtype=f64, device=dev)
     F = C.T @ torch.as_tensor(np.asarray(wfn.Fa()), dtype=f64, device=dev) @ C
 
@@ -157,10 +180,11 @@ def build_hamiltonian(wfn, device="cuda", dtype=torch.float64, eri=True):
     def mo(M):
         return C_np.T @ M @ C_np
 
-    mu = tuple(mo(M) for M in ints.dipole(basis))
-    m = tuple(mo(M * -0.5) * 1.0j for M in ints.angular_momentum(basis))
-    p = tuple(mo(M) * 1.0j for M in ints.nabla(basis))
-    Q = tuple(mo(M) for M in ints.traceless_quadrupole(basis))
+    dip, ang, nab, quad = ao_properties(wfn)
+    mu = tuple(mo(M) for M in dip)
+    m = tuple(mo(M * -0.5) * 1.0j for M in ang)
+    p = tuple(mo(M) * 1.0j for M in nab)
+    Q = tuple(mo(M) for M in quad)
     no = wfn.doccpi()[0] - wfn.frzcpi()[0]
     return Hamiltonian(F=F.to(dtype), ERI=ERI, L=L, no=no,
                        **_properties(mu, m, p, Q, dtype, dev))

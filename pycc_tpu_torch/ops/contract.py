@@ -1,8 +1,9 @@
 """Tensor-contraction layer: einsum over torch tensors.
 
 The counterpart of pycc_tpu/ops/contract.py.  torch.einsum lowers each
-contraction to batched matrix products (pairwise, in the order opt_einsum
-picks when it is installed, for three or more operands).  Operands of
+contraction to batched matrix products (pairwise, for three or more
+operands in the order opt_einsum picks when it is installed, else left to
+right: callers list such operands in the order they should go).  Operands of
 mixed dtypes are promoted first, as jnp.einsum promotes them: (complex128,
 float64) -> complex128 for the complex response perturbations against real
 amplitudes, (float64, float32) -> float64.  Operands of one dtype are

@@ -26,6 +26,8 @@ _LIB = None
 _ENTRIES = {torch.float64: "t_row_f64", torch.float32: "t_row_f32",
             torch.bfloat16: "t_row_bf16"}
 _SMEM_MAX = 232448          # bytes of shared memory a Hopper block can use
+# what the dynamic layout may take: less the kernel's static arrays
+_SMEM_BUDGET = _SMEM_MAX - 1024
 
 
 def build():
@@ -43,7 +45,33 @@ def _library():
                            + [ctypes.c_int] * 3 + [p])
         _LIB.t_row_smem_bytes.argtypes = [ctypes.c_int] * 3
         _LIB.t_row_smem_bytes.restype = ctypes.c_longlong
+        _LIB.t_row_chunk.argtypes = [ctypes.c_int] * 3
+        _LIB.t_row_chunk.restype = ctypes.c_int
     return _LIB
+
+
+def t_row_layout_bytes(lc, nv, acc_bytes):
+    """Bytes of the kernel's shared-memory layout (csrc/t_row.cu `Layout`)
+    for chunks of lc occupied indices: the t3 tile, the operand ring and
+    the fixed sums (7048 elements), Eo and the three X2l sums of the chunk
+    (216 lc), and Z1/Z1m (16 nv)."""
+    return (7048 + 216 * lc + 16 * nv) * acc_bytes
+
+
+def t_row_chunk(no, nv, acc_bytes):
+    """The occupied indices l that one block stages at once: all no when
+    they fit in `_SMEM_BUDGET`, else the most that fit; 0 when not even
+    one does (the mirror of csrc/t_row.cu `chunk_of`)."""
+    room = _SMEM_BUDGET // acc_bytes - 7048 - 16 * nv
+    return max(0, min(no, room // 216))
+
+
+def t_row_smem_bytes(no, nv, acc_bytes):
+    """Bytes of dynamic shared memory one block takes (the mirror of the
+    library's t_row_smem_bytes): past `_SMEM_BUDGET` only when
+    t_row_chunk is 0."""
+    return t_row_layout_bytes(max(t_row_chunk(no, nv, acc_bytes), 1), nv,
+                              acc_bytes)
 
 
 def _types(dtype, stream_dtype):
@@ -134,10 +162,10 @@ def t_energy_row(i, Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps, t2, no,
     sd, acc = _types(Wvvvo_o.dtype, stream_dtype)
     lib = _library()
     smem = lib.t_row_smem_bytes(no, nv, torch.finfo(acc).bits // 8)
-    if smem > _SMEM_MAX:
-        raise ValueError("t_energy_row: (no, nv) = (%d, %d) needs %d bytes of "
-                         "shared memory a block (the card has %d)"
-                         % (no, nv, smem, _SMEM_MAX))
+    if smem > _SMEM_BUDGET:
+        raise ValueError("t_energy_row: nv = %d needs %d bytes of shared "
+                         "memory a block for one occupied index (the "
+                         "kernel has %d)" % (nv, smem, _SMEM_BUDGET))
     if derived is None:
         derived = t_row_derived(Wovoo_t, Evovv, t2, stream_dtype)
     want = ((no, nv, nv, no), (no, no, nv, no), (nv, no, nv, nv))

@@ -22,6 +22,10 @@ pycc_tpu's pickle checkpoints (chk.pk, output.pk, t_out.pk; y as a host
 numpy array), so a trajectory started in either package resumes in the
 other.
 
+A local ccwfn (filter=True) projects the T and Lambda residuals onto
+its pair spaces (`Local.filter_res`, on the complex tensors by their
+real and imaginary parts), as pycc_tpu's right-hand side does.
+
 Storage: 'full' reads H.ERI and H.L, 'blocked' the block views
 (`models/blocked.eri_views`), 'df' the fused factor forms (the DF
 residual, `cclambda.lambda_residuals_from_F_df`, and the precomputed
@@ -180,6 +184,12 @@ class rtcc:
         F = self._field(t, y.dtype)
         rt1, rt2 = self.t_residuals(F, t1, t2)
         rl1, rl2 = self.lambda_residuals(F, t1, t2, l1, l2)
+        if getattr(self.ccwfn, "local", None) is not None:
+            # the pair-space projection is real-linear: it commutes with
+            # the -i and +i below
+            filter_res = self.ccwfn.Local.filter_res
+            rt1, rt2 = filter_res(rt1, rt2)
+            rl1, rl2 = filter_res(rl1, rl2)
         out = torch.cat([(rt1 * (-1.0j)).reshape(-1),
                          (rt2 * (-1.0j)).reshape(-1),
                          (rl1 * 1.0j).reshape(-1),

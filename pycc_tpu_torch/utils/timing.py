@@ -1,11 +1,15 @@
-"""Named wall-clock timers with call counts.
+"""Named wall-clock timers with call counts, and a profiler trace.
 
 Each solver owns its own `Timers`; `report()` logs an aggregate table.
 A timer around device work measures what the host waited for: the solver
 loop synchronises once per iteration when it reads the energy.
+`trace(logdir)` profiles a block with torch.profiler, the counterpart of
+pycc_tpu's jax.profiler trace.
 """
 
 import contextlib
+import os
+import tempfile
 import time
 from collections import defaultdict
 
@@ -34,3 +38,24 @@ class Timers:
         out = "\n".join(lines)
         log.info(out)
         return out
+
+
+@contextlib.contextmanager
+def trace(logdir=None):
+    """Profile the enclosed block with torch.profiler: host activity and,
+    when a card is present, its kernels.  Yields the profiler (its
+    `key_averages()` sums the time by operation); on exit the Chrome trace
+    is written to <logdir>/trace.json (logdir None: a new temporary
+    directory), which chrome://tracing or Perfetto reads."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if logdir is None:
+        logdir = tempfile.mkdtemp(prefix="pycc_tpu_torch_trace_")
+    os.makedirs(logdir, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts, acc_events=True) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

@@ -223,7 +223,7 @@ def test_from_df_factors_round_trip():
 
 
 def test_df_refuses_what_pycc_tpu_refuses():
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="canonical models only"):
         pycc_tpu_torch.ccwfn(_wfn("sto-3g"), storage="df", local="PNO",
                              device="cpu")
     with pytest.raises(ValueError, match="CCSDT"):

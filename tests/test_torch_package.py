@@ -34,7 +34,10 @@ def test_import_loads_no_jax_or_triton():
     code = ("import sys, pycc_tpu_torch, pycc_tpu_torch.ops.kernels, "
             "pycc_tpu_torch.ops.kernels.triples, pycc_tpu_torch.triples, "
             "pycc_tpu_torch.utils.synth, pycc_tpu_torch.cceom, "
-            "pycc_tpu_torch.ccresponse; "
+            "pycc_tpu_torch.ccresponse, pycc_tpu_torch.local, "
+            "pycc_tpu_torch.lccwfn, pycc_tpu_torch.lccwfn_local, "
+            "pycc_tpu_torch.lccwfn_screened, pycc_tpu_torch.scf.localize, "
+            "pycc_tpu_torch.utils.timing; "
             "print(sorted(m for m in ('jax', 'triton') if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True)
@@ -87,13 +90,48 @@ def test_entry_points_default_to_the_card():
 ])
 def test_options_outside_the_slice_raise(kwargs):
     """Each option outside the slice raises naming its ROADMAP.md item;
-    storage='blocked' (ported with item 10) and real_time=True (item 11)
-    build."""
+    storage='blocked' (ported with item 10), real_time=True (item 11) and
+    local='PNO' (item 12) build."""
     ported = ({"storage": "blocked"}, {"model": "CC3", "real_time": True},
-              {"real_time": True})
+              {"real_time": True}, {"local": "PNO"})
     item = None if kwargs in ported else "ROADMAP.md"
     _ran_or_raised(lambda: pycc_tpu_torch.ccwfn(_wfn(), device="cpu",
                                                 **kwargs).t2, item)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(local="PNO", filter=True),
+    dict(local="PNO++", local_cutoff=1e-7, it2_opt=False, filter=True),
+    dict(local="CPNO++", local_cutoff=1e-7, filter=True),
+    dict(local="PAO", local_cutoff=2e-2, local_mos="BOYS", filter=True),
+    dict(local="PNO", model="CCD", pair_cutoff=0.0),
+    dict(local="PNO", model="CCSD", storage="blocked", filter=True),
+])
+def test_ccwfn_accepts_every_local_keyword(kwargs):
+    """The local keywords (item 12) build on the CPU, as pycc_tpu's do;
+    the initial amplitudes are the filtered MP2 guess."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        cc = pycc_tpu_torch.ccwfn(_wfn(), device="cpu", **kwargs)
+    assert cc.local == kwargs["local"] and cc.Local.dim.shape == (cc.no ** 2,)
+    assert bool(torch.isfinite(cc.t2).all()) and cc.t2.abs().max() > 0
+    assert hasattr(cc, "lccwfn") == (not kwargs.get("filter", False))
+
+
+def test_mesh_names_item_13():
+    with pytest.raises(NotImplementedError, match="item 13"):
+        pycc_tpu_torch.ccwfn(_wfn(), device="cpu", local="PNO",
+                             mesh=object())
+
+
+def test_trace_writes_a_profile(tmp_path):
+    from pycc_tpu_torch.utils.timing import trace
+    cc = pycc_tpu_torch.ccwfn(_wfn(), device="cpu")
+    with trace(str(tmp_path)) as prof, \
+            contextlib.redirect_stdout(io.StringIO()):
+        cc.solve_cc(e_conv=1e-6, r_conv=1e-6)
+    path = tmp_path / "trace.json"
+    assert path.exists() and path.stat().st_size > 0
+    assert len(prof.key_averages()) > 0
 
 
 def test_t3_scan_names_the_cc3_item():

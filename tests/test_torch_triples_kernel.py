@@ -12,6 +12,7 @@ import torch
 torch.set_num_threads(1)
 
 from pycc_tpu_torch import triples
+from pycc_tpu_torch.ops.kernels import triples as k2
 from pycc_tpu_torch.ops.kernels.triples import (t_energy_row,
                                                 t_energy_row_reference,
                                                 t_row_derived,
@@ -217,5 +218,63 @@ def test_kernel_with_derived_operands_on_card(cuda_device, stream_dtype):
                            derived=derived)
         ref = t_energy_row(i, *args, no, stream_dtype=stream_dtype)
         torch.cuda.synchronize()
+        for x, r in zip(out, ref):
+            assert ((x - r).abs().max() / r.abs().max()).item() < tol
+
+
+def test_layout_fits_every_shape_up_to_200_occupied_and_900_virtual():
+    """The occupied index l is staged in chunks (csrc/t_row.cu): every
+    (no, nv) with no <= 200 and nv <= 900 fits a block's shared memory,
+    in float64 and float32 tiles, with at least one l a chunk."""
+    for acc in (8, 4):
+        for no in range(1, 201):
+            for nv in range(1, 901):
+                assert k2.t_row_chunk(no, nv, acc) >= 1
+                assert (k2.t_row_smem_bytes(no, nv, acc)
+                        <= k2._SMEM_BUDGET < k2._SMEM_MAX)
+
+
+def test_layout_stages_every_occupied_index_where_it_fits():
+    """One chunk (the unchunked layout) wherever the whole occupied range
+    fits: (24, 114) and (24, 216) keep their 112448 and 125504 bytes;
+    past the old ceiling (104, 20) takes two chunks, as large as fit."""
+    assert k2.t_row_chunk(24, 114, 8) == 24
+    assert k2.t_row_smem_bytes(24, 114, 8) == 112448
+    assert k2.t_row_chunk(24, 216, 8) == 24
+    assert k2.t_row_smem_bytes(24, 216, 8) == 125504
+    lc = k2.t_row_chunk(104, 20, 8)
+    assert 52 <= lc < 104
+    assert k2.t_row_layout_bytes(lc, 20, 8) <= k2._SMEM_BUDGET
+    assert k2.t_row_layout_bytes(lc + 1, 20, 8) > k2._SMEM_BUDGET
+    # an nv with no room for even one l is refused, not mis-sized
+    assert k2.t_row_chunk(4, 1400, 8) == 0
+    assert k2.t_row_smem_bytes(4, 1400, 8) > k2._SMEM_BUDGET
+
+
+@pytest.mark.cuda
+def test_layout_mirror_matches_the_library_on_card(cuda_device):
+    lib = k2._library()
+    for no, nv in ((4, 19), (24, 114), (24, 216), (104, 20), (200, 900),
+                   (4, 1400)):
+        for acc in (8, 4):
+            assert lib.t_row_chunk(no, nv, acc) == k2.t_row_chunk(no, nv, acc)
+            assert (lib.t_row_smem_bytes(no, nv, acc)
+                    == k2.t_row_smem_bytes(no, nv, acc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,stream_dtype,tol", [
+    (torch.float64, None, 1e-13), (torch.float32, None, 1e-5),
+    (torch.float32, torch.bfloat16, 2e-2)])
+def test_kernel_past_one_chunk_on_card(cuda_device, dtype, stream_dtype,
+                                       tol):
+    """(no, nv) = (104, 20), past what one chunk holds (a ragged
+    second chunk, a ragged 8-wide tile), rows 0 and 103."""
+    no, nv = 104, 20
+    args = _row_args(_operands(no, nv, cuda_device, dtype, seed=9))
+    for i in (0, no - 1):
+        out = t_energy_row(i, *args, no, stream_dtype=stream_dtype)
+        torch.cuda.synchronize()
+        ref = t_energy_row_reference(i, *args, no, stream_dtype=stream_dtype)
         for x, r in zip(out, ref):
             assert ((x - r).abs().max() / r.abs().max()).item() < tol
