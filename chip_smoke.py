@@ -123,6 +123,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
      and that polarizability element (residuals recomputed), each K1
      caller (Lambda, EOM, densities, response) counted and held to its
      plain ladder.
+  8. [mesh] the sharded paths at full width, on [real]'s wavefunction
+     and [df]'s factors (no new SCF), over a 2 x 2 mesh of cuda:(i % n)
+     for n cards (on one card the four shards share cuda:0): (H2O)_6
+     CCSD(T) through ccwfn(mesh=) (E held to [real]'s at 1e-11, K1 one
+     launch a shard an iteration, K2 on slices assembled from the shards),
+     the (T) density, HBAR, Lambda (held to [post]'s pseudo-energy at
+     1e-10) and 3 EOM roots from the CIS guess (held to [post]'s at 1e-7),
+     one sharded ladder timed against one launch on the whole W; and
+     DF-CCSD at (24, 216) through from_df_factors(mesh=) (held to [df]'s
+     at 1e-10, K1 one launch an a-block a shard).  Each init's rise of the
+     home card's peak is checked against what the card then holds (the
+     integrals are cut into pieces from host memory).  K1 at the
+     per-shard shapes is in phase 3's table.
 The line before the last is the kernels' JSON summary (one entry for each
 kernel on each path); the last line is {"ok": true, "device": {...}}.
 """
@@ -260,6 +273,18 @@ K1_RT_SHAPE = (2 * 576, 2 * 12996, 12996)
 K1_LOCAL_RT_SHAPE = (2 * 25, 361, 361)
 K1_LOCAL_RT_LAMBDA_SHAPE = (2 * 25, 2 * 361, 361)
 K1_COMPLEX_LIBRARY = (K1_RT_SHAPE, K1_LOCAL_RT_LAMBDA_SHAPE)
+# [mesh]: a 2 x 2 mesh; each shard's ladder is one K1 launch against its
+# (a, b) columns of W, (o^2, (v/2)^2, v^2) at [real]'s (24, 114), the EOM
+# sigma batch's rows against the same columns, and over [df]'s factors
+# one launch an a-block of a shard's (v/2) a, sized to the ladder budget
+MESH_SHAPE = (2, 2)
+K1_MESH_SHAPE = (576, 57 * 57, 12996)
+K1_MESH_EOM_SHAPE = (EOM_ROOTS * 576, 57 * 57, 12996)
+MESH_DF_BLOCKS = dfccsd._block_count(DF_NV // 2, DF_NV // 2 * DF_NV ** 2,
+                                     dfccsd.LADDER_MAX_ELEMS)
+K1_MESH_DF_SHAPE = (DF_NO ** 2,
+                    -(-(DF_NV // 2) // MESH_DF_BLOCKS) * (DF_NV // 2),
+                    DF_NV ** 2)
 # (shape, what, types: "all" or the labels of K1_TYPES timed there)
 K1_SHAPES = [
     ((16, 361, 361), "H2O/cc-pVDZ ladder", "all"),
@@ -273,6 +298,9 @@ K1_SHAPES = [
     (K1_RT_SHAPE, "(H2O)_6 RT complex-W ladder", ("f64",)),
     (K1_LOCAL_RT_SHAPE, "H2O local RT T ladder", ("f64",)),
     (K1_LOCAL_RT_LAMBDA_SHAPE, "H2O local RT W ladder", ("f64",)),
+    (K1_MESH_SHAPE, "(H2O)_6 2x2 mesh shard", ("f64",)),
+    (K1_MESH_EOM_SHAPE, "(H2O)_6 mesh EOM shard", ("f64",)),
+    (K1_MESH_DF_SHAPE, "(H2O)_6/aug mesh DF block", ("f64",)),
 ]
 # the H100 SXM data sheet's dense peaks (at its 700 W limit): HBM bytes/s,
 # and flop/s for the arithmetic each kernel does in each type (float64 on
@@ -1261,7 +1289,8 @@ def phase_post(cc, eccsd, et_k2, smi, name=REAL_SIZE):
                              % (rn, rel))
     if eom_launches < 1:
         raise AssertionError("EOM-CCSD launched K1 no time")
-    return {"lambda": lam_launches, "eom": eom_launches}, lam, E
+    return ({"lambda": lam_launches, "eom": eom_launches, "pseudo_e": lecc},
+            lam, E)
 
 
 RESP_OMEGA = 0.0656
@@ -1886,7 +1915,7 @@ def phase_df(smi, name=DF_SIZE):
                              "blocks, %d K2 launches for no = %d"
                              % (launches["vvvv_nt"], cc.niter, nblocks,
                                 launches["t_row"], cc.no))
-    return launches, _factors_of(cc)
+    return launches, _factors_of(cc), dict(eccsd=eccsd, s_iter=s_iter)
 
 
 def _factors_of(cc):
@@ -2937,8 +2966,197 @@ def phase_local_native(wfn, smi, name=CC3_SIZE):
         raise AssertionError("[local] %s checks failed: %s" % (name, bad))
 
 
+def _mesh_devices():
+    """The [mesh] grid's devices: cuda:(i % n) for the four cells over the
+    n visible cards, so on one card the four shards share cuda:0."""
+    n = torch.cuda.device_count()
+    return ["cuda:%d" % (i % n) for i in range(MESH_SHAPE[0] * MESH_SHAPE[1])]
+
+
+def _check_init_peak(what, grew, stored, largest):
+    """A mesh solver's integrals are cut into their pieces from host
+    memory: what its init adds to the home card's peak is what the card
+    then holds (every piece, on one card) and a few o^2 v^2 transients of
+    the MP2 guess, never the largest sharded operand whole on top of its
+    pieces (`largest`: that operand's bytes)."""
+    held = stored.get(str(torch.device(DEVICE)), 0)
+    print("[mesh] %s init: the home card's peak rose %.3f GB; it holds %.3f "
+          "GB of storage (the largest sharded operand whole: %.3f GB)"
+          % (what, grew / 1e9, held / 1e9, largest / 1e9))
+    if grew > held + largest:
+        raise AssertionError("[mesh] %s init peaked %.3f GB above the %.3f "
+                             "GB it keeps" % (what, grew / 1e9, held / 1e9))
+
+
+def phase_mesh(wfn, real_e, post_ref, factors, df_ref, smi, name=REAL_SIZE):
+    """[mesh]: the sharded paths at full width on [real]'s wavefunction and
+    [df]'s factors (no new SCF).  (H2O)_6/cc-pVDZ CCSD(T) through
+    ccwfn(mesh=) on full storage (E(CCSD) and E(T) held to [real]'s at
+    1e-11, K1 one launch a shard an iteration, K2 on slices assembled from
+    the shards), the (T) density, HBAR and Lambda (held to [post]'s
+    pseudo-energy at 1e-10) and 3 EOM roots from the CIS guess (held to
+    [post]'s at 1e-7); one sharded ladder timed against one launch on the
+    whole W and held to the plain ladder; then DF-CCSD at (24, 216) through
+    from_df_factors(mesh=) (held to [df]'s E(CCSD) at 1e-10, K1 one launch
+    an a-block a shard); each init's peak through `_check_init_peak`.
+    Each caller's K1 launches are counted from 0."""
+    from pycc_tpu_torch.parallel import device_bytes, make_mesh
+    devices = _mesh_devices()
+    mesh = make_mesh(devices=devices, shape=MESH_SHAPE)
+    print("[mesh] devices %s  distinct %d  shape %s%s  | %s"
+          % (devices, len(mesh.distinct), mesh.shape,
+             "  (one card: the four shards share cuda:0)"
+             if len(mesh.distinct) == 1 else "", smi))
+    eccsd_ref, et_ref = real_e
+    lecc_ref, roots_ref = post_ref
+    t_phase = time.perf_counter()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cc, t_init = _synced(lambda: pycc_tpu_torch.ccwfn(
+        wfn, model="CCSD(T)", device=DEVICE, mesh=mesh))
+    init_grew = torch.cuda.max_memory_allocated() - base
+    no = cc.no
+    stored = device_bytes(cc.H)
+    _check_init_peak("full storage", init_grew, stored,
+                     cc.H.ERI.numel() * cc.H.ERI.element_size())
+    shard_bytes = [sum(s.cell_bytes()[c] for s in (cc.H.ERI, cc.H.L,
+                                                   cc.vvvv()))
+                   for c in sorted(cc.H.ERI.pieces)]
+    vvvv_nt.launches = 0
+    t_energy_row.launches = 0
+    mesh.gathered_bytes = 0
+    e, t_solve = _solve(cc, 1e-10, 1e-10)
+    launches = {"vvvv_nt": vvvv_nt.launches, "t_row": t_energy_row.launches}
+    niter, converged = cc.niter, cc.converged
+    gathered = mesh.gathered_bytes
+    t_t = cc.timers.total["ccwfn.triples"]
+    eccsd = float(cc.cc_energy(cc.t1, cc.t2))
+    et = e - eccsd
+    peak_cc = torch.cuda.max_memory_allocated()
+
+    # one sharded ladder against one launch on the whole W, and the plain
+    tau = build_tau(cc.t1, cc.t2)
+    W = cc.vvvv()
+    Wfull = W.full()
+    lad = vvvv_contract(tau, W)
+    rel_lad = ((lad - vvvv_contract(tau, W, vvvv_nt_reference)).abs().max()
+               / lad.abs().max()).item()
+    same = (lad - vvvv_contract(tau, Wfull)).abs().max().item()
+    shard_ms = _median_ms(lambda: vvvv_contract(tau, W))
+    one_ms = _median_ms(lambda: vvvv_contract(tau, Wfull))
+    del Wfull, lad, tau, W
+
+    et_d, t_dens = _synced(lambda: float(cc.t3_density()))
+    hb, t_hbar = _synced(lambda: pycc_tpu_torch.cchbar(cc))
+    lam = pycc_tpu_torch.cclambda(cc, hb)
+    (lecc, t_lam), lam_launches = _launched(lambda: _synced(
+        lambda: lam.solve_lambda(1e-10, 1e-10)))
+    lam_ok, lam_iters = lam.converged, lam.niter
+    eom = pycc_tpu_torch.cceom(hb)
+    n_sigma0 = cc.timers.count["eom.sigma"]
+    ((E, C), t_eom), eom_launches = _launched(lambda: _synced(
+        lambda: eom.solve_eom(N=EOM_ROOTS, e_conv=1e-8, r_conv=1e-6,
+                              guess="CIS")))
+    eom_ok, eom_iters = eom.converged, eom.niter
+    n_sigma = cc.timers.count["eom.sigma"] - n_sigma0
+    peak = torch.cuda.max_memory_allocated()
+    del eom, C, lam, hb, cc
+    torch.cuda.empty_cache()
+    droots = float(np.abs(np.asarray(E) - np.asarray(roots_ref)).max())
+
+    print("[mesh] %s/cc-pVDZ CCSD(T) on the mesh: init %.1f s (stored %s "
+          "GB; a shard's ERI + L + W %s GB)  CCSD %.1f s  %d iterations  "
+          "%.3f s/iter  (T) %.1f s  K1 launches %d (%.2f a shard an "
+          "iteration)  K2 launches %d  gathered onto the home device %.2f "
+          "GB an iteration  peak %.2f GB"
+          % (name, t_init, {d: round(b / 1e9, 3) for d, b in stored.items()},
+             [round(b / 1e9, 3) for b in shard_bytes], t_solve - t_t, niter,
+             (t_solve - t_t) / niter, t_t, launches["vvvv_nt"],
+             launches["vvvv_nt"] / (mesh.size * niter), launches["t_row"],
+             gathered / (niter + 1) / 1e9, peak_cc / 1e9))
+    print("[mesh] Ecorr(CCSD) = %.12f  |d[real]| = %.2e  E(T) = %.12f  "
+          "|d[real]| = %.2e" % (eccsd, abs(eccsd - eccsd_ref), et,
+                                abs(et - et_ref)))
+    print("[mesh] one ladder: %d shards %.3f ms vs one K1 launch on the whole "
+          "W %.3f ms; max|sharded - whole| = %.2e, vs the plain ladder rel "
+          "%.2e  | %s" % (mesh.size, shard_ms, one_ms, same, rel_lad, smi))
+    print("[mesh] (T) density %.1f s (E(T) |d K2's| = %.2e)  HBAR %.2f s  "
+          "Lambda %.2f s %d iterations pseudo-E = %.12f |d[post]| = %.2e  K1 "
+          "launches %d  EOM %d roots (CIS guess) %.1f s %d iterations, %d "
+          "sigma blocks, K1 launches %d, |d[post]| = %.2e  peak %.2f GB  "
+          "full-storage part %.1f s"
+          % (t_dens, abs(et_d - et), t_hbar, t_lam, lam_iters, lecc,
+             abs(lecc - lecc_ref), lam_launches, EOM_ROOTS, t_eom, eom_iters,
+             n_sigma, eom_launches, droots, peak / 1e9,
+             time.perf_counter() - t_phase))
+
+    if not (converged and abs(eccsd - eccsd_ref) < 1e-11
+            and abs(et - et_ref) < 1e-11):
+        raise AssertionError("[mesh] CCSD(T) missed [real]'s")
+    if (launches["vvvv_nt"] != mesh.size * niter
+            or launches["t_row"] != no):
+        raise AssertionError("[mesh] %d K1 launches in %d iterations of %d "
+                             "shards, %d K2 launches"
+                             % (launches["vvvv_nt"], niter, mesh.size,
+                                launches["t_row"]))
+    if not (same == 0.0 and rel_lad < 1e-12):
+        raise AssertionError("[mesh] the sharded ladder differs from one "
+                             "launch (%.2e) or the plain one (%.2e)"
+                             % (same, rel_lad))
+    if not (abs(et_d - et) < 1e-10 and lam_ok
+            and abs(lecc - lecc_ref) < 1e-10
+            and lam_launches == mesh.size * lam_iters):
+        raise AssertionError("[mesh] the (T) density or Lambda missed, or %d "
+                             "K1 launches in %d Lambda iterations"
+                             % (lam_launches, lam_iters))
+    if not (eom_ok and droots < 1e-7
+            and eom_launches == mesh.size * n_sigma):
+        raise AssertionError("[mesh] EOM roots %s vs [post]'s %s, %d K1 "
+                             "launches for %d sigma blocks"
+                             % (E, roots_ref, eom_launches, n_sigma))
+
+    # DF-CCSD at (24, 216) on [df]'s factors, Bvv over the mesh
+    B, F, _, no, escf = factors
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    dmesh = make_mesh(devices=devices, shape=MESH_SHAPE)
+    base = torch.cuda.memory_allocated()
+    dcc, t_dinit = _synced(lambda: pycc_tpu_torch.ccwfn.from_df_factors(
+        B, F, no, escf=escf, model="CCSD", device=DEVICE, mesh=dmesh))
+    _check_init_peak("DF", torch.cuda.max_memory_allocated() - base,
+                     device_bytes(dcc.dfb, dcc.H, dcc.t2, dcc.Dijab),
+                     dcc.dfb.Bvv.numel() * dcc.dfb.Bvv.element_size())
+    bvv = dcc.dfb.Bvv.cell_bytes()
+    vvvv_nt.launches = 0
+    de, t_dsolve = _solve(dcc, 1e-10, 1e-10)
+    df_launches = vvvv_nt.launches
+    dn, d_ok = dcc.niter, dcc.converged
+    per_iter = dmesh.size * MESH_DF_BLOCKS
+    d_peak = torch.cuda.max_memory_allocated()
+    del dcc
+    torch.cuda.empty_cache()
+    print("[mesh] %s/aug-cc-pVDZ DF-CCSD on the mesh (from_df_factors): init "
+          "%.1f s (Bvv a shard %s GB)  solve %.1f s  %d iterations  %.3f "
+          "s/iter (the unsharded [df]: %.3f)  K1 launches %d (%d an "
+          "iteration: %d a-blocks a shard)  Ecorr = %.12f  |d[df]| = %.2e  "
+          "peak %.2f GB  DF part %.1f s  | %s"
+          % (name, t_dinit, [round(b / 1e9, 3) for b in bvv.values()],
+             t_dsolve, dn, t_dsolve / dn, df_ref["s_iter"], df_launches,
+             per_iter, MESH_DF_BLOCKS, de, abs(de - df_ref["eccsd"]),
+             d_peak / 1e9, time.perf_counter() - t0, smi))
+    if not (d_ok and abs(de - df_ref["eccsd"]) < 1e-10):
+        raise AssertionError("[mesh] DF-CCSD missed [df]'s")
+    if df_launches != per_iter * dn:
+        raise AssertionError("[mesh] DF: %d K1 launches in %d iterations of "
+                             "%d" % (df_launches, dn, per_iter))
+    print("[mesh] phase %.1f s" % (time.perf_counter() - t_phase))
+    return {"mesh": launches["vvvv_nt"], "mesh_t_row": launches["t_row"],
+            "mesh_lambda": lam_launches, "mesh_eom": eom_launches,
+            "mesh_df": df_launches}
+
+
 def _kernel_entries(k1_cells, k2_cells, full, post, resp, cc3_, df, dfpost,
-                    mixed, rt, local):
+                    mixed, rt, local, mesh):
     """The kernels line: each kernel on each path, with that path's
     launches and the timed cell at the shape the path launches it at."""
     k1 = dict(route="cuda", source="pycc_tpu_torch/csrc/vvvv_nt.cu",
@@ -3003,6 +3221,16 @@ def _kernel_entries(k1_cells, k2_cells, full, post, resp, cc3_, df, dfpost,
         dict(name="vvvv_nt/local_rt_lambda", **k1,
              launches=local["local_rt_lambda"],
              **k1_cells[K1_LOCAL_RT_LAMBDA_SHAPE, "f64"]),
+        dict(name="vvvv_nt/mesh", **k1, launches=mesh["mesh"],
+             **k1_cells[K1_MESH_SHAPE, "f64"]),
+        dict(name="t_row/mesh", **k2, launches=mesh["mesh_t_row"],
+             **k2_cells[(24, 114), "f64"]),
+        dict(name="vvvv_nt/mesh_lambda", **k1, launches=mesh["mesh_lambda"],
+             **k1_cells[K1_MESH_SHAPE, "f64"]),
+        dict(name="vvvv_nt/mesh_eom", **k1, launches=mesh["mesh_eom"],
+             **k1_cells[K1_MESH_EOM_SHAPE, "f64"]),
+        dict(name="vvvv_nt/mesh_df", **k1, launches=mesh["mesh_df"],
+             **k1_cells[K1_MESH_DF_SHAPE, "f64"]),
     ]
 
 
@@ -3023,6 +3251,7 @@ def main():
     local.update(phase_local(real, smi))
     torch.cuda.empty_cache()
     mixed = phase_mixed(real, eom_roots, muz, smi)
+    wfn_real = real["wfn"]
     del real
     torch.cuda.empty_cache()
     cc3_launches, wfn_cc3 = phase_cc3(smi)
@@ -3032,13 +3261,16 @@ def main():
     phase_local_native(wfn_cc3, smi)
     del wfn_cc3
     torch.cuda.empty_cache()
-    df, factors = phase_df(smi)
+    df, factors, df_ref = phase_df(smi)
     torch.cuda.empty_cache()
     dfpost = phase_dfpost(factors, smi)
+    torch.cuda.empty_cache()
+    mesh = phase_mesh(wfn_real, (eccsd, et), (post["pseudo_e"], eom_roots),
+                      factors, df_ref, smi)
     print(smi)
     print(json.dumps({"kernels": _kernel_entries(
         k1_cells, k2_cells, full, post, resp, cc3_launches, df, dfpost,
-        mixed, rt, local)}))
+        mixed, rt, local, mesh)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

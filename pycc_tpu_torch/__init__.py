@@ -1,7 +1,8 @@
 """pycc_tpu_torch: the PyTorch/CUDA port of pycc_tpu.
 
 RHF (host numpy and the native C++ ERI engine) -> MO Hamiltonian (torch)
--> CCD / CC2 / CCSD / CCSD(T) / CC3 on one torch device, then HBAR,
+-> CCD / CC2 / CCSD / CCSD(T) / CC3 on one torch device (or with the v^4
+storage and its ladders over a device mesh, parallel/mesh.py), then HBAR,
 Lambda, densities, EOM-CCSD, linear response and real-time CC, on full
 or blocked storage or over Cholesky/DF factors, with the
 particle-particle ladders and the (T) rows through hand-written CUDA

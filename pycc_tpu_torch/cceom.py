@@ -29,20 +29,23 @@ from .models.ccsd import pair_symmetric, slices, vvvv_contract
 from .models.dfhbar import DFHBar, loovv_df, sigma1_df, sigma2_df
 from .ops.contract import contract
 from .ops.kernels.vvvv import vvvv_nt
+from .parallel.mesh import dense
 from .utils.log import logger as log
 
 HARTREE2EV = 27.211386245988
 
 def _sigma1(hb, C1, C2, Loovv):
     """Singles sigma of a block: C1 (k, o, v), C2 (k, o, o, v, v)."""
+    # read whole: on a mesh assembled once a call (parallel/mesh.dense)
+    Hvovv = dense(hb.Hvovv)
     s1 = contract("Kie,ae->Kia", C1, hb.Hvv)
     s1 -= contract("mi,Kma->Kia", hb.Hoo, C1)
     s1 += 2.0 * contract("maei,Kme->Kia", hb.Hovvo, C1)
     s1 -= contract("maie,Kme->Kia", hb.Hovov, C1)
     s1 += 2.0 * contract("Kmiea,me->Kia", C2, hb.Hov)
     s1 -= contract("Kimea,me->Kia", C2, hb.Hov)
-    s1 += 2.0 * contract("Kimef,amef->Kia", C2, hb.Hvovv)
-    s1 -= contract("Kimef,amfe->Kia", C2, hb.Hvovv)
+    s1 += 2.0 * contract("Kimef,amef->Kia", C2, Hvovv)
+    s1 -= contract("Kimef,amfe->Kia", C2, Hvovv)
     s1 -= 2.0 * contract("mnie,Kmnae->Kia", hb.Hooov, C2)
     s1 += contract("nmie,Kmnae->Kia", hb.Hooov, C2)
     return s1
@@ -51,15 +54,17 @@ def _sigma1(hb, C1, C2, Loovv):
 def _sigma2_rest(hb, C1, C2, Loovv, t2):
     """Doubles sigma of a block without the Hvvvv ladder, before the pair
     symmetrisation."""
-    Zvv = 2.0 * contract("amef,Kmf->Kae", hb.Hvovv, C1)
-    Zvv -= contract("amfe,Kmf->Kae", hb.Hvovv, C1)
+    # read whole: on a mesh assembled once a call (parallel/mesh.dense)
+    Hvovv, Hvvvo = dense(hb.Hvovv), dense(hb.Hvvvo)
+    Zvv = 2.0 * contract("amef,Kmf->Kae", Hvovv, C1)
+    Zvv -= contract("amfe,Kmf->Kae", Hvovv, C1)
     Zvv -= contract("Knmaf,nmef->Kae", C2, Loovv)
 
     Zoo = -2.0 * contract("mnie,Kne->Kmi", hb.Hooov, C1)
     Zoo += contract("nmie,Kne->Kmi", hb.Hooov, C1)
     Zoo -= contract("mnef,Kinef->Kmi", Loovv, C2)
 
-    s2 = contract("Kie,abej->Kijab", C1, hb.Hvvvo)
+    s2 = contract("Kie,abej->Kijab", C1, Hvvvo)
     s2 -= contract("mbij,Kma->Kijab", hb.Hovoo, C1)
     s2 += contract("ijeb,Kae->Kijab", t2, Zvv)
     s2 += contract("Kmi,mjab->Kijab", Zoo, t2)
@@ -91,7 +96,8 @@ def sigma_block(hb, C, L, t2, no, ladder=vvvv_nt):
     """sigma = HBAR C for a (k, dim) block of vectors [C1 | C2] (rows).
     The ladder 'ijef,abef->ijab' of all k vectors is one call of
     `ladder(A, B)` = A @ B.T: K1 by default; the plain `vvvv_nt_reference`
-    gives the same sigma without the kernel."""
+    gives the same sigma without the kernel.  On a mesh it is one call a
+    shard of hb.Hvvvv (`models/ccsd.vvvv_contract`)."""
     k, nv = C.shape[0], t2.shape[2]
     n1 = no * nv
     o, v = slices(no)
@@ -100,8 +106,8 @@ def sigma_block(hb, C, L, t2, no, ladder=vvvv_nt):
     C2 = C[:, n1:].reshape(k, no, no, nv, nv)
     s1 = _sigma1(hb, C1, C2, Loovv)
     s2 = _sigma2_rest(hb, C1, C2, Loovv, t2)
-    lad = ladder(C[:, n1:].reshape(k * no * no, nv * nv),
-                 hb.Hvvvv.reshape(nv * nv, nv * nv))
+    lad = vvvv_contract(C[:, n1:].reshape(k * no, no, nv, nv), hb.Hvvvv,
+                        ladder)
     s2 += 0.5 * lad.reshape(k, no, no, nv, nv)
     s2 = s2 + s2.permute(0, 2, 1, 4, 3)
     return torch.cat([s1.reshape(k, n1), s2.reshape(k, n1 * n1)], dim=1)
@@ -213,7 +219,8 @@ class cceom:
                 # L[a,i,j,b] = 2 (aj|ib) - (ab|ij) from the factors
                 df = cc.dfb
                 L_voov = (2.0 * torch.einsum("Pja,Pib->aijb", df.Bov, df.Bov)
-                          - torch.einsum("Pab,Pij->aijb", df.Bvv, df.Boo))
+                          - torch.einsum("Pab,Pij->aijb", dense(df.Bvv),
+                                         df.Boo))
             else:
                 L_voov = eri_views(cc)[1][v, o, o, v]
             L_voov = L_voov.cpu().numpy()

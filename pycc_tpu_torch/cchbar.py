@@ -20,7 +20,9 @@ import torch
 from .models.blocked import eri_views
 from .models.ccsd import build_tau, slices
 from .ops.contract import contract
-from .ops.kernels.vvvv import stack_complex
+from .ops.kernels.vvvv import StackedComplex, stack_complex
+from .parallel.mesh import (build_like, map_leading, mesh_vvvv, per_piece,
+                            region, shard_hbar)
 from .utils.log import logger as log
 
 BLOCKS = ("Hov", "Hvv", "Hoo", "Hoooo", "Hvvvv", "Hvovv", "Hooov", "Hovvo",
@@ -54,29 +56,81 @@ class HBar:
         (models/ccsd.vvvv_contract_efab).  A complex Hvvvv (the HBAR of
         real-time CC's complex amplitudes) is laid out as K1's stacked
         operand instead, [Re; Im] in the same (a, b, e, f) order
-        (`ops/kernels/vvvv.StackedComplex`), in the one copy."""
+        (`ops/kernels/vvvv.StackedComplex`), in the one copy.  A Hvvvv
+        Sharded over a mesh gives the operand Sharded over its own (a, b):
+        each piece gathered from the (e, f) columns of every shard onto
+        its cell's device (`parallel/mesh.build_like`)."""
         if self._efab is None:
-            H = self.Hvvvv.permute(2, 3, 0, 1)
-            self._efab = (stack_complex(H) if H.is_complex()
-                          else H.contiguous())
+            H = self.Hvvvv
+            cplx = H.is_complex()
+
+            def piece(sl, dev):
+                x = region(H, (slice(None), slice(None), sl[-4], sl[-3]),
+                           dev).permute(2, 3, 0, 1)
+                return stack_complex(x).ri if cplx else x.contiguous()
+
+            Wt = build_like(H, ((None,) if cplx else ()) + ("va", "vb"),
+                            ((2,) if cplx else ()) + tuple(H.shape), piece)
+            self._efab = StackedComplex(Wt) if cplx else Wt
         return self._efab
 
 
-def build_hbar(model, F, ERI, L, t1, t2, no):
+def _hvvvv(model, W, ERI, t1, t2, tau, no):
+    """The model's Hvvvv from W = <ab|ef>, piece by piece on W's layout
+    (`parallel/mesh.per_piece`): each piece the (A, B) rows, made on its
+    piece's device from W's piece and the (A, B) slices of the o v^3 and
+    o^2 v^2 integrals and amplitudes, so on a mesh no v^4 tensor forms on
+    the home device; a plain W is one piece."""
+    o, v = slices(no)
+    vovv = None if model == "CCD" else ERI[v, o, v, v]
+    oovv = ERI[o, o, v, v]
+
+    def piece(p, sl):
+        A, B = sl[0], sl[1]
+        dev = p.device
+        ov = oovv.to(dev)
+        if model == "CCD":
+            H = p + contract("mnab,mnef->abef", t2[:, :, A, B].to(dev), ov)
+            return H.contiguous()
+        H = (p - contract("mb,amef->abef", t1[:, B].to(dev), vovv[A].to(dev))
+             - contract("ma,bmfe->abef", t1[:, A].to(dev), vovv[B].to(dev)))
+        if model == "CC2":
+            H = H + contract("nb,anef->abef", t1[:, B].to(dev),
+                             contract("ma,mnef->anef", t1[:, A].to(dev), ov))
+        else:
+            H = H + contract("mnab,mnef->abef", tau[:, :, A, B].to(dev), ov)
+        return H.contiguous()
+
+    return per_piece(W, piece)
+
+
+def _t1_hvvvv(t1, Hvvvv):
+    """contract('if,abef->abei', t1, Hvvvv), piece by piece on Hvvvv's
+    layout (`parallel/mesh.map_leading`)."""
+    return map_leading(
+        Hvvvv, lambda p, sl: contract("if,abef->abei", t1.to(p.device), p),
+        tuple(Hvvvv.shape[2:3]) + (t1.shape[0],))
+
+
+def build_hbar(model, F, ERI, L, t1, t2, no, vvvv=None):
     """All HBAR blocks for the given model ('CCSD', 'CCSD(T)' and 'CC3'
     share the CCSD forms; 'CCD' and 'CC2' have their own).  Hvvvv is
-    contiguous."""
+    contiguous.  vvvv: <ab|ef> as the ladder reads it (None: ERI[v,v,v,v]);
+    a mesh ccwfn's is Sharded over (a, b), and Hvvvv is then built and
+    read shard by shard on its layout (`_hvvvv`), every other block a
+    plain tensor on the home device."""
     o, v = slices(no)
     tau = build_tau(t1, t2)
     ccd = model == "CCD"
     cc2 = model == "CC2"
+    W = ERI[v, v, v, v] if vvvv is None else vvvv
 
     if ccd:
         Hov = F[o, v]
         Hvv = F[v, v] - contract("mnfa,mnfe->ae", t2, L[o, o, v, v])
         Hoo = F[o, o] + contract("inef,mnef->mi", t2, L[o, o, v, v])
         Hoooo = ERI[o, o, o, o] + contract("ijef,mnef->mnij", t2, ERI[o, o, v, v])
-        Hvvvv = ERI[v, v, v, v] + contract("mnab,mnef->abef", t2, ERI[o, o, v, v])
+        Hvvvv = _hvvvv(model, W, ERI, t1, t2, tau, no)
         Hvovv = ERI[v, o, v, v]
         Hooov = ERI[o, o, o, v]
         Hovvo = (ERI[o, v, v, o]
@@ -95,8 +149,8 @@ def build_hbar(model, F, ERI, L, t1, t2, no):
                  - contract("ineb,nmje->mbij", t2, ERI[o, o, o, v])
                  - contract("jneb,mnie->mbij", t2, ERI[o, o, o, v])
                  + contract("njeb,mnie->mbij", t2, L[o, o, o, v]))
-        return HBar(Hov, Hvv, Hoo, Hoooo, Hvvvv.contiguous(), Hvovv, Hooov,
-                    Hovvo, Hovov, Hvvvo, Hovoo)
+        return HBar(Hov, Hvv, Hoo, Hoooo, Hvvvv, Hvovv, Hooov, Hovvo, Hovov,
+                    Hvvvo, Hovoo)
 
     Hov = F[o, v] + contract("nf,mnef->me", t1, L[o, o, v, v])
     Hvv = (F[v, v]
@@ -116,15 +170,7 @@ def build_hbar(model, F, ERI, L, t1, t2, no):
     else:
         Hoooo = Hoooo + contract("ijef,mnef->mnij", tau, ERI[o, o, v, v])
 
-    tmp = contract("mb,amef->abef", t1, ERI[v, o, v, v])
-    Hvvvv = ERI[v, v, v, v] - tmp - tmp.permute(1, 0, 3, 2)
-    del tmp
-    if cc2:
-        Hvvvv = Hvvvv + contract("nb,anef->abef", t1,
-                                 contract("ma,mnef->anef", t1, ERI[o, o, v, v]))
-    else:
-        Hvvvv = Hvvvv + contract("mnab,mnef->abef", tau, ERI[o, o, v, v])
-    Hvvvv = Hvvvv.contiguous()
+    Hvvvv = _hvvvv("CC2" if cc2 else "CCSD", W, ERI, t1, t2, tau, no)
 
     Hvovv = ERI[v, o, v, v] - contract("na,nmef->amef", t1, ERI[o, o, v, v])
     Hooov = ERI[o, o, o, v] + contract("if,nmef->mnie", t1, ERI[o, o, v, v])
@@ -144,7 +190,7 @@ def build_hbar(model, F, ERI, L, t1, t2, no):
     if cc2:
         Hvvvo = (ERI[v, v, v, o]
                  - contract("me,miab->abei", F[o, v], t2)
-                 + contract("if,abef->abei", t1, Hvvvv)
+                 + _t1_hvvvv(t1, Hvvvv)
                  + contract("nb,anei->abei", t1,
                             contract("ma,mnei->anei", t1, ERI[o, o, v, o]))
                  - contract("mb,amei->abei", t1, ERI[v, o, v, o])
@@ -159,7 +205,7 @@ def build_hbar(model, F, ERI, L, t1, t2, no):
     else:
         Hvvvo = (ERI[v, v, v, o]
                  - contract("me,miab->abei", Hov, t2)
-                 + contract("if,abef->abei", t1, Hvvvv)
+                 + _t1_hvvvv(t1, Hvvvv)
                  + contract("mnab,mnei->abei", tau, ERI[o, o, v, o])
                  - contract("imfa,bmfe->abei", t2, ERI[v, o, v, v])
                  - contract("imfb,amef->abei", t2, ERI[v, o, v, v])
@@ -197,14 +243,13 @@ class cchbar:
     first use.  storage='df': `self.hbar` is a models/dfhbar.DFHBar (the
     blocks of at most o^3 v, the factors and their t1 dressings) and its 8
     explicit blocks are attributes; CCD, CCSD, CCSD(T) and CC3 take the
-    CCSD forms, CC2 its own."""
+    CCSD forms, CC2 its own.  On a mesh ccwfn (parallel/mesh.py) the v^4
+    and o v^3 blocks are Sharded (`shard_hbar`), Hvvvv built shard by
+    shard."""
 
     def __init__(self, ccwfn):
-        from .ccwfn import _not_ported
         storage = getattr(ccwfn, "storage", "full")
-        if getattr(ccwfn, "mesh", None) is not None:
-            raise _not_ported("cchbar(mesh=...)",
-                              "Queue 1, item 13 (multi-device)")
+        mesh = getattr(ccwfn, "mesh", None)
         t0 = time.time()
         self.ccwfn = ccwfn
         with ccwfn.timers.time("hbar.build"):
@@ -216,9 +261,12 @@ class cchbar:
                 names = DF_BLOCKS
             else:
                 ERI, L = eri_views(ccwfn)
-                self.hbar = build_hbar(ccwfn.model, ccwfn.H.F, ERI, L,
-                                       ccwfn.t1, ccwfn.t2, ccwfn.no)
+                self.hbar = build_hbar(
+                    ccwfn.model, ccwfn.H.F, ERI, L, ccwfn.t1, ccwfn.t2,
+                    ccwfn.no, vvvv=mesh_vvvv(ccwfn))
                 names = BLOCKS
+            if mesh is not None:
+                self.hbar = shard_hbar(self.hbar, mesh)
         for name in names:
             setattr(self, name, getattr(self.hbar, name))
         log.info("\nHBAR constructed in %.3f seconds.\n" % (time.time() - t0))

@@ -34,6 +34,7 @@ from .models.ccsd import (build_tau, pair_symmetric, slices,
 from .ops.contract import contract
 from .ops.diis import DIIS
 from .ops.kernels.vvvv import vvvv_nt
+from .parallel.mesh import dense, mesh_vvvv
 from .utils.log import logger as log
 
 def build_Goo(t2, l2):
@@ -49,6 +50,8 @@ def lambda_residuals(model, hb, F, ERI, L, t1, t2, l1, l2, no,
     """r_L1, r_L2 for CCD/CC2/CCSD (+ optional (T) source terms S1/S2).
     hb is a cchbar.HBar; the Hvvvv ladder goes through `ladder` (K1 by
     default, `vvvv_nt_reference` for the plain product)."""
+    # read whole: on a mesh assembled once a call (parallel/mesh.dense)
+    Hvovv, Hvvvo = dense(hb.Hvovv), dense(hb.Hvvvo)
     o, v = slices(no)
     Goo = build_Goo(t2, l2)
     Gvv = build_Gvv(t2, l2)
@@ -65,7 +68,7 @@ def lambda_residuals(model, hb, F, ERI, L, t1, t2, l1, l2, no,
             r1 = r1 + S1
         r1 = r1 + contract("ie,ea->ia", l1, hb.Hvv)
         r1 -= contract("ma,im->ia", l1, hb.Hoo)
-        r1 += contract("imef,efam->ia", l2, hb.Hvvvo)
+        r1 += contract("imef,efam->ia", l2, Hvvvo)
         r1 -= contract("mnae,iemn->ia", l2, hb.Hovoo)
         r1 += contract("me,ieam->ia", l1, Hovvo_s)
         if cc2:
@@ -75,8 +78,8 @@ def lambda_residuals(model, hb, F, ERI, L, t1, t2, l1, l2, no,
             r1 -= contract("nf,inaf->ia", tmp, 2.0 * ERI[o, o, v, v])
             r1 += contract("nf,inaf->ia", tmp, ERI[o, o, v, v].swapaxes(2, 3))
         else:
-            r1 -= 2.0 * contract("ef,eifa->ia", Gvv, hb.Hvovv)
-            r1 += contract("ef,eiaf->ia", Gvv, hb.Hvovv)
+            r1 -= 2.0 * contract("ef,eifa->ia", Gvv, Hvovv)
+            r1 += contract("ef,eiaf->ia", Gvv, Hvovv)
             r1 -= 2.0 * contract("mn,mina->ia", Goo, hb.Hooov)
             r1 += contract("mn,imna->ia", Goo, hb.Hooov)
 
@@ -86,8 +89,8 @@ def lambda_residuals(model, hb, F, ERI, L, t1, t2, l1, l2, no,
             r2 = r2 + 0.5 * S2
         r2 = r2 + 2.0 * contract("ia,jb->ijab", l1, hb.Hov)
         r2 -= contract("ja,ib->ijab", l1, hb.Hov)
-        r2 += 2.0 * contract("ie,ejab->ijab", l1, hb.Hvovv)
-        r2 -= contract("ie,ejba->ijab", l1, hb.Hvovv)
+        r2 += 2.0 * contract("ie,ejab->ijab", l1, Hvovv)
+        r2 -= contract("ie,ejba->ijab", l1, Hvovv)
         r2 -= 2.0 * contract("mb,jima->ijab", l1, hb.Hooov)
         r2 += contract("mb,ijma->ijab", l1, hb.Hooov)
     if cc2:
@@ -118,16 +121,18 @@ def cc3_extra_fn(cc):
 
 def lambda_residuals_from_F(model, F, ERI, L, t1, t2, l1, l2, no,
                             real_time=False, F_ref=None, ladder=vvvv_nt,
-                            slabs=None):
+                            slabs=None, vvvv=None):
     """Rebuild HBAR from F on the fly (the real-time path's residual, F
     dressed by the field, every operand complex); CC3 takes the CCSD form
     plus its T3/L3 extras, in the slab form when `slabs` is True, the
     full-tensor form when False, and for None past o^3 v^3 = 2e8 elements
     (pycc_tpu's rule).  The Hvvvv ladder goes through `ladder`: under
     complex amplitudes one K1 launch on the HBAR's stacked complex
-    operand."""
+    operand.  vvvv: a mesh ccwfn's ladder operand (`parallel/mesh.
+    mesh_vvvv`), over which Hvvvv is built, and its ladder run, shard by
+    shard (`cchbar.build_hbar`)."""
     base = "CCSD" if model == "CC3" else model
-    hb = build_hbar(base, F, ERI, L, t1, t2, no)
+    hb = build_hbar(base, F, ERI, L, t1, t2, no, vvvv=vvvv)
     r1, r2 = lambda_residuals(base, hb, F, ERI, L, t1, t2, l1, l2, no,
                               ladder=ladder)
     if model == "CC3":
@@ -196,7 +201,7 @@ class cclambda:
                 nblocks=getattr(cc, "df_nblocks", None))
         ERI, L = eri_views(cc)
         return lambda_residuals_from_F(cc.model, F, ERI, L, t1, t2, l1, l2,
-                                       cc.no)
+                                       cc.no, vvvv=mesh_vvvv(cc))
 
     def solve_lambda_mixed(self, e_conv=1e-10, r_conv=1e-10, maxiter=100,
                            sp_conv=1e-6, sp_dtype=torch.float32,

@@ -34,6 +34,7 @@ from .models.ccsd import (pair_symmetric, slices, vvvv_contract,
 from .ops.contract import contract
 from .ops.diis import DIIS
 from .ops.kernels.vvvv import vvvv_nt
+from .parallel.mesh import dense
 from .utils.log import logger as log
 
 CART = ["X", "Y", "Z"]
@@ -70,8 +71,10 @@ def build_response_aux(hb):
     """The spin-adapted combinations 2 H - H^swap of three HBAR blocks
     that r_X, r_Y and in_Y read again and again, made once per response
     object."""
+    # read whole: on a mesh assembled once a call (parallel/mesh.dense)
+    Hvovv = dense(hb.Hvovv)
     return dict(
-        Hvovv_s=2.0 * hb.Hvovv - hb.Hvovv.swapaxes(2, 3),
+        Hvovv_s=2.0 * Hvovv - Hvovv.swapaxes(2, 3),
         Hooov_s=2.0 * hb.Hooov - hb.Hooov.swapaxes(0, 1),
         Hovvo_s=2.0 * hb.Hovvo - hb.Hovov.swapaxes(2, 3),
     )
@@ -80,6 +83,8 @@ def build_response_aux(hb):
 def r_X(hb, L, t2, A, omega, X1, X2, no, aux, ladder=vvvv_nt):
     """The right-hand residuals (r1, r2) of (HBAR - omega) X = -A for the
     pertbar blocks A (a dict); the Hvvvv ladder is one `ladder` call."""
+    # read whole: on a mesh assembled once a call (parallel/mesh.dense)
+    Hvvvo = dense(hb.Hvvvo)
     o, v = slices(no)
     r1 = A["Avo"].T - omega * X1
     r1 += contract("ie,ae->ia", X1, hb.Hvv)
@@ -95,7 +100,7 @@ def r_X(hb, L, t2, A, omega, X1, X2, no, aux, ladder=vvvv_nt):
     Zoo -= contract("mnef,inef->mi", L[o, o, v, v], X2)
 
     r2 = A["Avvoo"] - 0.5 * omega * X2
-    r2 += contract("ie,abej->ijab", X1, hb.Hvvvo)
+    r2 += contract("ie,abej->ijab", X1, Hvvvo)
     r2 -= contract("ma,mbij->ijab", X1, hb.Hovoo)
     r2 += contract("mi,mjab->ijab", Zoo, t2)
     r2 += contract("ae,ijeb->ijab", Zvv, t2)
@@ -116,6 +121,8 @@ def in_Y1(hb, L, t2, l1, l2, A, X1, X2, no, aux, ladder=vvvv_nt):
     Hvvvv terms, 'imfg,fgae' and 'imgf,fgea', are one `ladder` call on
     HBar.Hvvvv_efab: l2 and l2 with its virtual pair swapped stacked as
     one (2 o^2, v^2) operand."""
+    # read whole: on a mesh assembled once a call (parallel/mesh.dense)
+    Hvovv = dense(hb.Hvovv)
     o, v = slices(no)
     r = 2.0 * A["Aov"]
     r -= contract("im,ma->ia", A["Aoo"], l1)
@@ -168,11 +175,11 @@ def in_Y1(hb, L, t2, l1, l2, A, X1, X2, no, aux, ladder=vvvv_nt):
     r -= contract("mi,ma->ia", build_Goo(X2, l2), hb.Hov)
     r += contract("ie,ea->ia", hb.Hov, build_Gvv(l2, X2))
     tmp = contract("imfg,mnef->igne", l2, X2)
-    r -= contract("igne,gnea->ia", tmp, hb.Hvovv)
+    r -= contract("igne,gnea->ia", tmp, Hvovv)
     tmp = contract("mifg,mnef->igne", l2, X2)
-    r -= contract("igne,gnae->ia", tmp, hb.Hvovv)
+    r -= contract("igne,gnae->ia", tmp, Hvovv)
     tmp = contract("mnga,mnef->gaef", l2, X2)
-    r -= contract("gief,gaef->ia", hb.Hvovv, tmp)
+    r -= contract("gief,gaef->ia", Hvovv, tmp)
     tmp = contract("gmae,mnef->ganf", aux["Hvovv_s"], X2)
     r += contract("nifg,ganf->ia", l2, tmp)
     Gvv_X2l2 = build_Gvv(X2, l2)
@@ -192,6 +199,8 @@ def in_Y1(hb, L, t2, l1, l2, A, X1, X2, no, aux, ladder=vvvv_nt):
 
 def in_Y2(hb, L, ERI, t2, l1, l2, A, X1, X2, no, aux):
     """The doubles inhomogeneous term of the left equations."""
+    # read whole: on a mesh assembled once a call (parallel/mesh.dense)
+    Hvovv = dense(hb.Hvovv)
     o, v = slices(no)
     r = 2.0 * contract("ia,jb->ijab", l1, A["Aov"])
     r -= contract("ja,ib->ijab", l1, A["Aov"])
@@ -212,11 +221,11 @@ def in_Y2(hb, L, ERI, t2, l1, l2, A, X1, X2, no, aux):
     tmp = contract("me,ie->mi", X1, hb.Hov)
     r -= contract("mi,jmba->ijab", tmp, l2)
     tmp = contract("me,ijef->mijf", X1, l2)
-    r -= contract("mijf,fmba->ijab", tmp, hb.Hvovv)
+    r -= contract("mijf,fmba->ijab", tmp, Hvovv)
     tmp = contract("me,imbf->eibf", X1, l2)
-    r -= contract("eibf,fjea->ijab", tmp, hb.Hvovv)
+    r -= contract("eibf,fjea->ijab", tmp, Hvovv)
     tmp = contract("me,jmfa->ejfa", X1, l2)
-    r -= contract("fibe,ejfa->ijab", hb.Hvovv, tmp)
+    r -= contract("fibe,ejfa->ijab", Hvovv, tmp)
     tmp = contract("me,fmae->fa", X1, aux["Hvovv_s"])
     r += contract("ijfb,fa->ijab", l2, tmp)
     tmp = contract("me,fiea->mfia", X1, aux["Hvovv_s"])
@@ -256,12 +265,14 @@ def in_Y2(hb, L, ERI, t2, l1, l2, A, X1, X2, no, aux):
 def r_Y(hb, L, t2, imY1, imY2, omega, Y1, Y2, no, aux, ladder=vvvv_nt):
     """The left-hand residuals (r1, r2); the Hvvvv ladder 'ijef,efab' is
     one `ladder` call on HBar.Hvvvv_efab, as in Lambda."""
+    # read whole: on a mesh assembled once a call (parallel/mesh.dense)
+    Hvvvo = dense(hb.Hvvvo)
     o, v = slices(no)
     r1 = imY1 + omega * Y1
     r1 += contract("ie,ea->ia", Y1, hb.Hvv)
     r1 -= contract("im,ma->ia", hb.Hoo, Y1)
     r1 += contract("ieam,me->ia", aux["Hovvo_s"], Y1)
-    r1 += contract("imef,efam->ia", Y2, hb.Hvvvo)
+    r1 += contract("imef,efam->ia", Y2, Hvvvo)
     r1 -= contract("iemn,mnae->ia", hb.Hovoo, Y2)
     Gvv_t2Y2 = build_Gvv(t2, Y2)
     r1 -= contract("eifa,ef->ia", aux["Hvovv_s"], Gvv_t2Y2)

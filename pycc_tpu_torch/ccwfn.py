@@ -64,6 +64,7 @@ from .models.blocked import ERIBlocks, LoovvOnly, blocked_views, eri_views
 from .models.dfhbar import loovv_df
 from .ops.diis import DIIS
 from .ops.kernels.vvvv import vvvv_nt
+from .parallel.mesh import Sharded
 from .utils.device import init_device
 from .utils.log import logger as log
 from .utils.timing import Timers
@@ -95,9 +96,6 @@ _DF_RESIDUALS = {
 # past this many o^3 v^3 elements the triples run one slab at a time
 T3_FULL_MAX = 2e8
 
-_NOT_PORTED_INIT_KWARGS = {
-    "mesh": "Queue 1, item 13 (multi-device)",
-}
 _VALID_LOCAL = (None, "PNO", "PAO", "CPNO++", "PNO++")
 # what a precision stage derives from the stage's tensors: _cast_stage
 # drops them (the bf16 copies, the (T) Lambda sources and density blocks)
@@ -110,12 +108,21 @@ def _not_ported(what, item):
                                % (what, item))
 
 
-def _reject(kwargs, table, where):
-    for name in kwargs:
-        if name not in table:
-            raise TypeError("%s got an unexpected keyword argument %r"
-                            % (where, name))
-        raise _not_ported("%s(%s=...)" % (where, name), table[name])
+def _check_mesh(mesh, device):
+    """A mesh must be a parallel.mesh.Mesh, and the solver runs on its home
+    device: `device` may only name that one."""
+    from .parallel.mesh import Mesh
+    if mesh is None:
+        return
+    if not isinstance(mesh, Mesh):
+        raise TypeError("mesh= takes a pycc_tpu_torch.parallel.Mesh (from "
+                        "parallel.make_mesh), got %r" % type(mesh).__name__)
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", 0)
+    if dev != mesh.home:
+        raise ValueError("mesh= runs on the mesh's home device %s, but "
+                         "device=%r" % (mesh.home, device))
 
 
 def t3_slabs(cc):
@@ -150,7 +157,10 @@ class ccwfn:
     """An RHF-CC wave function and energy object on one torch device.
 
     storage: 'full' (ERI and L), 'blocked' (the six Dirac blocks) or 'df'
-    (Cholesky factors).  storage='df' options: df_tol (the Cholesky
+    (Cholesky factors).  mesh: a parallel.make_mesh mesh, whose home
+    device `device` must name; the storage's v^4 and o v^3 operands are
+    then laid over it and every ladder runs a K1 launch a shard
+    (parallel/mesh.py).  storage='df' options: df_tol (the Cholesky
     tolerance, default 1e-8), df_direct (None: on when scf_wfn carries AO
     factors), df_nblocks (the ladder's a-blocks; None:
     `dfccsd._ladder_blocks`).  They are ignored under the other storages,
@@ -161,16 +171,17 @@ class ccwfn:
                  df_nblocks=None, make_t3_density=False, t3_scan=None,
                  real_time=False, local=None, local_cutoff=1e-5,
                  pair_cutoff=None, local_mos="PIPEK_MEZEY", it2_opt=True,
-                 filter=False, **kwargs):
+                 filter=False, mesh=None):
         time_init = time.time()
         model = _check_model(model)
         storage = storage.lower()
         if storage not in ("full", "blocked", "df"):
             raise ValueError("%s is not an allowed storage mode." % storage)
         precision = _check_precision(precision)
-        _reject(kwargs, _NOT_PORTED_INIT_KWARGS, "ccwfn")
+        _check_mesh(mesh, device)
         self._check_local(local, local_mos, pair_cutoff, model, filter,
-                          storage, df_direct, scf_wfn)
+                          storage, df_direct, scf_wfn, mesh)
+        self.mesh = mesh
         self.local = local
         self.local_cutoff = local_cutoff
         self.pair_cutoff = pair_cutoff
@@ -196,20 +207,26 @@ class ccwfn:
         self.nv = self.nmo - self.no - self.nfzc
         self.nact = self.no + self.nv
 
+        # on a mesh the integrals are made in host memory and cut into
+        # their pieces from there (_apply_mesh): the home device never
+        # holds a whole v^4 operand
+        hdev = self.device if mesh is None else torch.device("cpu")
         if local is not None:
             self._init_local(scf_wfn)
         elif storage == "full":
-            self.H = build_hamiltonian(scf_wfn, device=self.device,
+            self.H = build_hamiltonian(scf_wfn, device=hdev,
                                        dtype=self.dtype)
+            self._apply_mesh()
             self._set_amplitudes(self.H.ERI[self.o, self.o, self.v, self.v])
         elif storage == "blocked":
             # no nact^4 tensor: F and the properties, then the six blocks
             with self.timers.time("ccwfn.hamiltonian"):
-                self.H = build_hamiltonian(scf_wfn, device=self.device,
+                self.H = build_hamiltonian(scf_wfn, device=hdev,
                                            dtype=self.dtype, eri=False)
             with self.timers.time("ccwfn.blocks"):
-                self.blocks = mo_eri_blocks(scf_wfn, device=self.device,
+                self.blocks = mo_eri_blocks(scf_wfn, device=hdev,
                                             dtype=self.dtype)
+            self._apply_mesh()
             self._set_amplitudes(self.blocks.oovv)
         else:
             if df_direct is None:
@@ -220,15 +237,14 @@ class ccwfn:
             # F and the factors are made in float64; both take the
             # working dtype below
             with self.timers.time("ccwfn.hamiltonian"):
-                H = build_hamiltonian(scf_wfn, device=self.device,
+                H = build_hamiltonian(scf_wfn, device=hdev,
                                       eri=not self.df_direct)
             if self.df_direct:
                 B = self._df_factors_direct(scf_wfn)
             else:
                 from .ops.cholesky import cholesky_factor_eri
                 with self.timers.time("ccwfn.df_cholesky"):
-                    B = cholesky_factor_eri(H.ERI, tol=df_tol,
-                                            device=self.device)
+                    B = cholesky_factor_eri(H.ERI, tol=df_tol, device=hdev)
             # nothing four-index stays: the factors carry the integrals
             self.H = dataclasses.replace(H, F=H.F.to(self.dtype), ERI=None,
                                          L=None)
@@ -237,13 +253,38 @@ class ccwfn:
         log.info("CCWFN object initialized in %.3f seconds."
                  % (time.time() - time_init))
 
+    def _apply_mesh(self, dtype=None):
+        """On a mesh, lay the storage over it (parallel/mesh.py) from
+        wherever it was made, host memory included, each piece cast to
+        `dtype` (None: as it is) on its way: the full ERI and L with the
+        ladder's operand, the Dirac blocks or the DF factors, each on its
+        layout, and F and the properties on the home device.  The
+        amplitudes and the denominators are made on the home device after
+        it.  Without a mesh nothing moves."""
+        from .parallel.mesh import shard_blocks, shard_df, shard_hamiltonian
+        if self.mesh is None:
+            return
+        self.H = shard_hamiltonian(self.H, self.mesh, dtype)
+        if self.storage == "blocked":
+            self.blocks = shard_blocks(self.blocks, self.mesh, dtype)
+        elif self.storage == "df":
+            self.dfb = shard_df(self.dfb, self.mesh, dtype)
+
     @staticmethod
     def _check_local(local, local_mos, pair_cutoff, model, filter, storage,
-                     df_direct, scf_wfn):
+                     df_direct, scf_wfn, mesh):
         """The local keywords' checks and refusals, pycc_tpu's, made
         before anything is built."""
         if local not in _VALID_LOCAL:
             raise ValueError("%s is not an allowed local-CC model." % local)
+        if local is not None and mesh is not None:
+            if filter:
+                raise ValueError("mesh sharding with local models requires "
+                                 "the native pair-space solver "
+                                 "(filter=False); the filter-simulation "
+                                 "path is dense.")
+            raise _not_ported("lccwfn(mesh=...)", "Queue 1, item 13b (the "
+                              "pair stacks over a mesh)")
         if local_mos not in ("PIPEK_MEZEY", "BOYS"):
             raise ValueError("%s is not an allowed MO localization method."
                              % local_mos)
@@ -343,7 +384,11 @@ class ccwfn:
         the factor blocks in the working dtype, the MP2 guess assembled
         from them, and the model's factor residuals."""
         self.naux = B.shape[0]
+        if self.mesh is not None:
+            # cut the factors into their pieces from host memory
+            B = B.cpu()
         self.dfb = dfq.df_blocks(B.to(self.dtype), self.no)
+        self._apply_mesh()
         self._set_amplitudes(dfq._eri_oovv(self.dfb))
         log.info("DF/Cholesky factors: naux = %d (tol %s%s)"
                  % (self.naux, self.df_tol,
@@ -377,17 +422,20 @@ class ccwfn:
     @classmethod
     def from_df_factors(cls, B, F, no, escf=0.0, model="CCSD",
                         precision="DP", df_nblocks=None, mu=None,
-                        device="cuda"):
+                        device="cuda", mesh=None):
         """A storage='df' solver straight from precomputed MO-basis
         Cholesky/DF factors B (naux, nact, nact) and the active-space MO
         Fock matrix F (frozen core already dropped), numpy arrays or
         tensors: the state pycc_tpu's prepare-on-host pipeline writes
         (examples/prepare_df_molecule.py), carried onto `device`.  mu:
         optional (3, nact, nact) MO dipole integrals, cast to the working
-        dtype as F is; without them H.mu is `()`."""
+        dtype as F is; without them H.mu is `()`.  mesh: a
+        parallel.make_mesh mesh; Bvv is then laid over it (`shard_df`)."""
         self = cls.__new__(cls)
         self.model = _check_model(model)
         self.precision = _check_precision(precision)
+        _check_mesh(mesh, device)
+        self.mesh = mesh
         self.storage = "df"
         self.local = None
         self.filter = False
@@ -427,8 +475,9 @@ class ccwfn:
                               Bvv=Bh[:, no_:, no_:]),
                 mu=tuple(x.to("cpu", torch.float64) for x in mu),
                 m=(), p=(), Q=())
-        self._set_df(torch.as_tensor(B, dtype=torch.float64,
-                                     device=self.device))
+        self._set_df(torch.as_tensor(
+            B, dtype=torch.float64,
+            device=self.device if mesh is None else "cpu"))
         return self
 
     # ------------------------------------------------------------------
@@ -698,6 +747,8 @@ class ccwfn:
             return
 
         def host(x):
+            if isinstance(x, Sharded):
+                return x.full("cpu")
             return None if x is None else x.detach().to("cpu", copy=True)
 
         H = self.H
@@ -736,16 +787,25 @@ class ccwfn:
         self.H = self.blocks = self.dfb = None
         for name in _STAGE_CACHES:
             self.__dict__.pop(name, None)
-        full = self.storage == "full"
-        self.H = Hamiltonian(
-            F=put(m["F"]), ERI=put(m["ERI"]) if full else None,
-            L=put(m["L"]) if full else None,
-            **{k: tuple(map(putp, m[k])) for k in ("mu", "m", "p", "Q")},
-            no=self.no)
-        if self.storage == "blocked":
-            self.blocks = ERIBlocks(*map(put, m["blocks"]))
-        elif self.storage == "df":
-            self.dfb = dfq.DFERI(*map(put, m["dfb"]))
+        if self.mesh is not None:
+            # the host masters cut into their pieces, each piece cast on
+            # its way to its device
+            self.H = Hamiltonian(
+                F=m["F"], ERI=m["ERI"], L=m["L"],
+                **{k: m[k] for k in ("mu", "m", "p", "Q")}, no=self.no)
+            self.blocks, self.dfb = m["blocks"], m["dfb"]
+            self._apply_mesh(dtype)
+        else:
+            full = self.storage == "full"
+            self.H = Hamiltonian(
+                F=put(m["F"]), ERI=put(m["ERI"]) if full else None,
+                L=put(m["L"]) if full else None,
+                **{k: tuple(map(putp, m[k])) for k in ("mu", "m", "p", "Q")},
+                no=self.no)
+            if self.storage == "blocked":
+                self.blocks = ERIBlocks(*map(put, m["blocks"]))
+            elif self.storage == "df":
+                self.dfb = dfq.DFERI(*map(put, m["dfb"]))
         self.dtype = dtype
         self.t1 = self.t1.to(dtype)
         # a float32 stage leaves roundoff in the pair-antisymmetric part of

@@ -12,7 +12,7 @@ amplitudes, projected pair by pair.  Each iteration takes a Jacobi step
 in the semicanonical pair bases and a DIIS step over the local
 amplitudes, all on the device; the host reads one (energy, rms) pair an
 iteration.  pycc_tpu's mesh sharding of the pair stacks
-(`shard_pair_stacks`) is ROADMAP.md Queue 1, item 13.
+(`shard_pair_stacks`) is ROADMAP.md Queue 1, item 13b.
 """
 
 import time
@@ -31,7 +31,7 @@ class lccwfn:
         if mesh is not None:
             raise NotImplementedError(
                 "lccwfn(mesh=...) is not ported yet: ROADMAP.md Queue 1, "
-                "item 13 (multi-device).")
+                "item 13b (the pair stacks over a mesh).")
         self.o, self.v = o, v
         self.no, self.nv = no, nv
         self.H = H

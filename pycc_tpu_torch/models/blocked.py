@@ -13,13 +13,15 @@ o v^3) would give back the memory the blocks save.
 `BlockedERI`/`BlockedL` quack like the full tensors under 4-tuple o/v
 slicing, so the residual, HBAR, Lambda, density and (T) equations run
 verbatim on blocked storage.  `blocks.vvvv` is contiguous: it is K1's B
-operand as it is.
+operand as it is.  On a mesh (parallel/mesh.shard_blocks) vvvv and ovvv
+are Sharded; the views read them assembled, the ladder shard by shard.
 """
 
 from typing import NamedTuple
 
 import torch
 
+from ..parallel.mesh import dense
 from .ccsd import slices
 
 
@@ -110,7 +112,8 @@ class BlockedERI:
 
     def block(self, pat):
         canon, sigma = _TABLE[pat]
-        base = getattr(self.blocks, canon)
+        # a block sharded over a mesh is read assembled on the home device
+        base = dense(getattr(self.blocks, canon))
         if sigma == (0, 1, 2, 3):
             return base
         return base.permute(sigma)

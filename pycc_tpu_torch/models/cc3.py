@@ -33,6 +33,7 @@ import torch
 
 from ..ops.contract import contract
 from ..ops.kernels.vvvv import vvvv_nt
+from ..parallel.mesh import dense
 from ..triples import (_dslice, _swap_ac, _swap_bc, _t3c_chunk_ij,
                        _t3c_slab, _t3c_slab_ij, _t_df_kc, slab_layouts,
                        t3_denom, t3c_full)
@@ -111,7 +112,8 @@ def cc3_intermediates_df(dfb, t1, no, scan_layout=False):
     The o v^3 tensors (Wamef, Wabei) are formed; nothing nact^4 is.
     scan_layout=True gives Wabei as the occupied-major (i,a,b,e) slab
     layout and Wmbij as (i,j,m,b), those of `triples.slab_layouts`."""
-    Boo, Bov, Bvv = dfb.Boo, dfb.Bov, dfb.Bvv
+    # Bvv whole (assembled once a call on a mesh)
+    Boo, Bov, Bvv = dfb.Boo, dfb.Bov, dense(dfb.Bvv)
     Bvo = Bov.transpose(1, 2)
     Dmi = contract("Pmf,if->Pmi", Bov, t1)
     Cbi = contract("Pbf,if->Pbi", Bvv, t1)
@@ -168,7 +170,8 @@ def cc3_lambda_intermediates_df(dfb, t1, no):
     of the dense form is the product of the two dressings), so the v^4
     tensor stays implicit: the third output is Bd_ae, and its one consumer
     contracts against it (`_wvvvv_y1`)."""
-    Boo, Bov, Bvv = dfb.Boo, dfb.Bov, dfb.Bvv
+    # Bvv whole (assembled once a call on a mesh)
+    Boo, Bov, Bvv = dfb.Boo, dfb.Bov, dense(dfb.Bvv)
     Bvo = Bov.transpose(1, 2)
     Dmi = contract("Pmf,if->Pmi", Bov, t1)
     Cbi = contract("Pbf,if->Pbi", Bvv, t1)

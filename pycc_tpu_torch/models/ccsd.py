@@ -16,6 +16,7 @@ import torch
 
 from ..ops.contract import contract, seed
 from ..ops.kernels.vvvv import StackedComplex, complex_product, vvvv_nt
+from ..parallel.mesh import is_sharded, ladder_sharded, map_leading
 
 
 def slices(no):
@@ -49,7 +50,12 @@ def vvvv_contract(tau, W, ladder=vvvv_nt):
     amplitudes) as [Re W; Im W], (2 v^2, v^2), which W may already be, a
     `StackedComplex` made once per HBAR (`cchbar.HBar.Hvvvv_efab`).
     bfloat16 operands take K1's bf16 mode and give a bfloat16 result
-    (`ladder_product`)."""
+    (`ladder_product`).  A W Sharded over a mesh (parallel/mesh.py) is
+    this product on each shard's piece, one `ladder` call a shard
+    (`ladder_sharded`)."""
+    if is_sharded(W):
+        return ladder_sharded(
+            tau, W, lambda t, w: vvvv_contract(t, w, ladder))
     no1, no2, nv, _ = tau.shape
     na, nb = W.shape[0], W.shape[1]
     A = tau.reshape(no1 * no2, nv * nv)
@@ -241,8 +247,10 @@ def residuals_cc2(F, ERI, L, vvvv, t1, t2, no):
     r2 -= 0.5 * contract("imab,jm->ijab", t2, contract("je,me->jm", t1, F[o, v]))
     r2 += 0.5 * contract("ma,mbij->ijab", t1,
                          contract("nb,mnij->mbij", t1, Wmnij))
-    r2 += 0.5 * contract("jf,abif->ijab", t1,
-                         contract("ie,abef->abif", t1, vvvv))
+    # piece by piece on vvvv's layout (one piece unless on a mesh)
+    r2 += 0.5 * contract("jf,abif->ijab", t1, map_leading(
+        vvvv, lambda p, sl: contract("ie,abef->abif", t1.to(p.device), p),
+        (no, vvvv.shape[3])))
     r2 -= contract("ma,mbij->ijab", t1, Zmbij)
     r2 -= contract("ma,mbij->ijab", t1,
                    contract("ie,mbej->mbij", t1, ERI[o, v, v, o]))

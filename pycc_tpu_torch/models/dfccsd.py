@@ -37,6 +37,7 @@ import torch
 
 from ..ops.contract import contract, seed
 from ..ops.kernels.vvvv import vvvv_nt
+from ..parallel.mesh import dense, per_piece
 
 
 class DFERI(NamedTuple):
@@ -48,6 +49,13 @@ class DFERI(NamedTuple):
     Boo: torch.Tensor
     Bov: torch.Tensor
     Bvv: torch.Tensor
+
+
+def whole_bvv(df):
+    """df with Bvv whole where it lives, for the terms that contract it
+    outside a ladder: on a mesh (Bvv Sharded, parallel/mesh.py) assembled
+    on the home device, once a call of whoever asks."""
+    return df._replace(Bvv=dense(df.Bvv))
 
 
 def df_blocks(B, no):
@@ -175,9 +183,16 @@ LADDER_MAX_ELEMS = 2 ** 28
 def _ladder_blocks(nv, naux, max_elems=LADDER_MAX_ELEMS):
     """Number of a-blocks so one (blk, v, v, v) assembly stays under
     ~max_elems elements; a divisor of nv where one is near."""
-    blk = max(1, int(max_elems // (nv * nv * nv)))
-    nblk = max(1, -(-nv // blk))
-    while nv % nblk:
+    return _block_count(nv, nv * nv * nv, max_elems)
+
+
+def _block_count(n, row_elems, max_elems):
+    """Number of blocks of n rows of row_elems elements each so that one
+    block stays under ~max_elems elements; a divisor of n where one is
+    near."""
+    blk = max(1, int(max_elems // row_elems))
+    nblk = max(1, -(-n // blk))
+    while n % nblk:
         nblk += 1
     return nblk
 
@@ -203,7 +218,10 @@ def ladder_df(df, t1, t2, nblocks=None, ladder=vvvv_nt):
     (peak blk*v^3, never v^4; nblocks=None takes `_ladder_blocks`), one
     `ladder` call (K1 by default) a block."""
     from .dfhbar import ladder_apply
-    BL = 0.5 * df.Bvv - contract("ma,Pme->Pae", t1, df.Bov)
+    # piece by piece on Bvv's layout (one piece unless on a mesh)
+    BL = per_piece(df.Bvv, lambda p, sl: 0.5 * p - contract(
+        "ma,Pme->Pae", t1[:, sl[1]].to(p.device),
+        df.Bov[:, :, sl[2]].to(p.device)))
     return ladder_apply(BL, df.Bvv, _tau(t1, t2), nblocks=nblocks,
                         ladder=ladder)
 
@@ -242,6 +260,8 @@ def residuals_ccsd_df(F, df, t1, t2, no, nblocks=None, ladder=vvvv_nt):
     """DF-CCSD residuals: same fixed point as models/ccsd.residuals_ccsd
     evaluated on the B-reconstructed ERI (exactly, given exact factors);
     the ladder's blocks go through `ladder` (K1 by default)."""
+    # the ladder reads Bvv's pieces (dfs), every other term Bvv whole
+    dfs, df = df, whole_bvv(df)
     eri_oovv = _eri_oovv(df)
     Loovv = 2.0 * eri_oovv - eri_oovv.swapaxes(2, 3)
     eri_ooov = _eri_ooov(df)
@@ -269,7 +289,7 @@ def residuals_ccsd_df(F, df, t1, t2, no, nblocks=None, ladder=vvvv_nt):
     r2 -= 0.5 * contract("imab,jm->ijab", t2, contract("je,me->jm", t1, Fme))
     r2 += 0.5 * contract("mnij,mnab->ijab", Wmnij, tau)
     # dressed ladder == 0.5*vvvv ladder - t1*Zmbij of the dense equations
-    r2 += ladder_df(df, t1, t2, nblocks=nblocks, ladder=ladder)
+    r2 += ladder_df(dfs, t1, t2, nblocks=nblocks, ladder=ladder)
     r2 += contract("imae,mbej->ijab", t2 - t2.swapaxes(2, 3), Wmbej)
     r2 += contract("imae,mbej->ijab", t2, Wmbej + Wmbje.swapaxes(2, 3))
     r2 += contract("mjae,mbie->ijab", t2, Wmbje)
@@ -286,6 +306,8 @@ def residuals_ccsd_df(F, df, t1, t2, no, nblocks=None, ladder=vvvv_nt):
 
 def residuals_ccd_df(F, df, t1, t2, no, nblocks=None, ladder=vvvv_nt):
     """DF-CCD: models/ccsd.residuals_ccd with factorized integrals."""
+    # the ladder reads Bvv's pieces (dfs), every other term Bvv whole
+    dfs, df = df, whole_bvv(df)
     o, v = slice(0, no), slice(no, None)
     eri_oovv = _eri_oovv(df)
     Loovv = 2.0 * eri_oovv - eri_oovv.swapaxes(2, 3)
@@ -306,7 +328,7 @@ def residuals_ccd_df(F, df, t1, t2, no, nblocks=None, ladder=vvvv_nt):
     r2 += 0.5 * contract("mnij,mnab->ijab", Wmnij, t2)
     # undressed ladder: t1 = 0 makes BL = 0.5 * Bvv and tau = t2 (a real
     # zero, so that BL stays real under real-time CC's complex t2)
-    r2 += ladder_df(df, torch.zeros_like(t1.real), t2, nblocks=nblocks,
+    r2 += ladder_df(dfs, torch.zeros_like(t1.real), t2, nblocks=nblocks,
                     ladder=ladder)
     r2 += contract("imae,mbej->ijab", t2 - t2.swapaxes(2, 3), Wmbej)
     r2 += contract("imae,mbej->ijab", t2, Wmbej + Wmbje.swapaxes(2, 3))
@@ -319,6 +341,7 @@ def residuals_cc2_df(F, df, t1, t2, no, nblocks=None):
     """DF-CC2: models/ccsd.residuals_cc2 with factorized integrals.  The
     t1^2 vvvv and ovvv terms collapse to rank-1-in-t1 B contractions, so
     CC2 needs no ladder blocks at all (`nblocks` is accepted and unused)."""
+    df = whole_bvv(df)      # Bvv whole (assembled on a mesh)
     o, v = slice(0, no), slice(no, None)
     eri_oovv = _eri_oovv(df)
     Loovv = 2.0 * eri_oovv - eri_oovv.swapaxes(2, 3)

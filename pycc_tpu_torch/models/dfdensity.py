@@ -19,7 +19,8 @@ from ..cclambda import build_Gvv
 from ..ops.contract import contract
 from ..ops.kernels.vvvv import vvvv_nt
 from .ccsd import build_tau
-from .dfccsd import _eri_oooo, _eri_ooov, _eri_oovv, _eri_ovov
+from ..parallel.mesh import dense
+from .dfccsd import _eri_oooo, _eri_ooov, _eri_oovv, _eri_ovov, whole_bvv
 from .dfhbar import ladder_apply
 
 
@@ -27,6 +28,7 @@ def _evvvo_extra_df(df, G):
     """sum <ab|ci> G[abci] for a materialized v^3 o extra block (the (T)
     density's Gvvvo): a loop over a, so that the ERI slice never exists
     beyond one (v, o, v) sheet."""
+    df = whole_bvv(df)
     e = torch.zeros((), dtype=G.dtype, device=G.device)
     for a in range(G.shape[0]):
         t = contract("Pc,Pib->cib", df.Bvv[:, a], df.Bov)   # <a.|ci> sheet
@@ -38,7 +40,7 @@ def _evvvv_df(model, df, t1, t2, l2, nblocks=None, ladder=vvvv_nt):
     """0.5 * sum <ab|cd> Dvvvv[abcd] without forming either v^4 tensor."""
     if model == "CC2":
         # Dvvvv = t1[ma] t1[nb] l2[mncd]: absorb both t1 into B
-        Bt1 = contract("Pac,ma->Pcm", df.Bvv, t1)
+        Bt1 = contract("Pac,ma->Pcm", dense(df.Bvv), t1)
         Z = contract("Pcm,Pdn->mncd", Bt1, Bt1)
         return 0.5 * contract("mncd,mncd->", l2, Z)
     x2 = t2 if model == "CCD" else build_tau(t1, t2)
@@ -53,6 +55,8 @@ def _evvvo_df(model, df, t1, t2, l1, l2, nblocks=None, ladder=vvvv_nt):
     ccdensity.build_Dvvvo.  <ab|ci> = sum_P Bvv[P,a,c] Bov[P,i,b]."""
     if model == "CCD":
         return torch.zeros((), dtype=t2.dtype, device=t2.device)
+    # the ladder reads Bvv's pieces (dfs), every other term Bvv whole
+    dfs, df = df, whole_bvv(df)
     tau = build_tau(t1, t2)
     tauS = 2.0 * tau - tau.swapaxes(2, 3)
 
@@ -85,7 +89,7 @@ def _evvvo_df(model, df, t1, t2, l1, l2, nblocks=None, ladder=vvvv_nt):
         # Z7[nmce] = sum_ab t2[nmab] W[c,e,a,b],
         # W[c,e,a,b] = sum_P Bvv[P,c,a] (sum_i t1[ie] Bov[P,i,b])
         BRe = contract("ie,Pib->Peb", t1, df.Bov)
-        Z7 = ladder_apply(df.Bvv.transpose(1, 2), BRe, t2, nblocks=nblocks,
+        Z7 = ladder_apply(dfs.Bvv.transpose(1, 2), BRe, t2, nblocks=nblocks,
                           ladder=ladder)
         e = e - contract("nmce,nmce->", l2, Z7)
         # tmp8 = t2[niae] l2[nmce]:  D -= tmp8[iamc] t1[mb]
@@ -134,7 +138,7 @@ def density_energy_df(F, df, t1, t2, l1, l2, no, model="CCSD",
     # <ij|ab> = (ia|jb)
     etwo = 0.5 * contract("ijkl,ijkl->", _eri_oooo(df), Doooo)
     etwo = etwo + contract("ijka,ijka->", _eri_ooov(df), Dooov)
-    etwo = etwo + contract("iajb,iajb->", _eri_ovov(df), Dovov)
+    etwo = etwo + contract("iajb,iajb->", _eri_ovov(whole_bvv(df)), Dovov)
     etwo = etwo + 0.5 * contract("ijab,ijab->", _eri_oovv(df), Doovv)
     etwo = etwo + _evvvv_df(model, df, t1, t2, l2, nblocks=nblocks,
                             ladder=ladder)

@@ -43,9 +43,10 @@ import torch
 from ..ops.contract import contract
 from ..ops.kernels.vvvv import (ladder_product, stack_rows,
                                 unstack_product, vvvv_nt)
-from .dfccsd import (DFERI, LADDER_MAX_ELEMS, _eri_oooo, _eri_ooov,
-                     _eri_oovv, _eri_ovoo, _eri_ovov, _eri_ovvo,
-                     _ladder_blocks, _tau, ladder_W)
+from ..parallel.mesh import Sharded, dense, per_piece, region, split_ranges
+from .dfccsd import (DFERI, LADDER_MAX_ELEMS, _block_count, _eri_oooo,
+                     _eri_ooov, _eri_oovv, _eri_ovoo, _eri_ovov, _eri_ovvo,
+                     _ladder_blocks, _tau, ladder_W, whole_bvv)
 
 
 class DFHBar(NamedTuple):
@@ -65,8 +66,12 @@ class DFHBar(NamedTuple):
 
 
 def dress_factors(df, t1):
-    """The two t1 dressings (see the module docstring)."""
-    Bd_ae = df.Bvv - contract("na,Pne->Pae", t1, df.Bov)
+    """The two t1 dressings (see the module docstring).  Bd_ae is dressed
+    piece by piece on Bvv's layout and keeps it (`parallel/mesh.
+    per_piece`: one piece unless on a mesh)."""
+    Bd_ae = per_piece(df.Bvv, lambda p, sl: p - contract(
+        "na,Pne->Pae", t1[:, sl[1]].to(p.device),
+        df.Bov[:, :, sl[2]].to(p.device)))
     Bd_mi = df.Boo + contract("if,Pmf->Pmi", t1, df.Bov)
     return Bd_ae, Bd_mi
 
@@ -95,6 +100,13 @@ def ladder_apply(BL, BR, x2, nblocks=None, ladder=vvvv_nt):
     port's budget (`dfccsd._ladder_blocks`); the blocks write into one
     preallocated output, a ragged last block needs no padding.
 
+    On a mesh (BL or BR Sharded, parallel/mesh.py) each cell takes its
+    a-range and b-range: the factor slices BL[:, A] and BR[:, B] gathered
+    onto its device, W assembled there a block of its a at a time, one
+    `ladder` call a block, and the block's (a, b) columns copied into the
+    output on x2's device.  With nblocks=None a shard's blocks are sized
+    to the same budget (`dfccsd._block_count`).
+
     A complex x2 goes in as one real product, its real and imaginary rows
     stacked.  A complex factor makes W complex (real-time CC's factors,
     dressed by complex t1): each block's W is assembled complex and goes
@@ -117,29 +129,67 @@ def ladder_apply(BL, BR, x2, nblocks=None, ladder=vvvv_nt):
     A = x2.reshape(-1, ne * nf)
     m = A.shape[0]
     As = stack_rows(A).contiguous()
-    if nblocks is None:
-        nblocks = (_ladder_blocks(na, naux, LADDER_MAX_ELEMS // 4)
-                   if complex_W else _ladder_blocks(na, naux))
-    blk = -(-na // nblocks)
+    budget = LADDER_MAX_ELEMS // 4 if complex_W else LADDER_MAX_ELEMS
+    mesh = next((x.mesh for x in (BL, BR) if isinstance(x, Sharded)), None)
+    if mesh is None:
+        if nblocks is None:
+            nblocks = _ladder_blocks(na, naux, budget)
+        cells = [(slice(0, na), slice(0, nb), -(-na // nblocks), BL, BR,
+                  As)]
+    else:
+        cells = _mesh_cells(mesh, BL, BR, As, nblocks, budget, ne * nf)
     if complex_W:
         z = torch.empty((m, na, nb), dtype=torch.promote_types(A.dtype, dt),
                         device=A.device)
     else:
         z = torch.empty((As.shape[0], na, nb), dtype=As.dtype,
                         device=A.device)
-    for a0 in range(0, na, blk):
-        a1 = min(a0 + blk, na)
-        W = ladder_W(BL[:, a0:a1], BR)
-        if complex_W:
-            out = unstack_product(ladder_product(ladder, As, stack_rows(W)),
-                                  A.is_complex(), True)
-        else:
-            out = ladder_product(ladder, As, W)
-        z[:, a0:a1] = out.view(-1, a1 - a0, nb)
-        del W, out
+    for sa, sb, blk, BLc, BRc, Ac in cells:
+        nA, nB = sa.stop - sa.start, sb.stop - sb.start
+        for a0 in range(0, nA, blk):
+            a1 = min(a0 + blk, nA)
+            W = ladder_W(BLc[:, a0:a1], BRc)
+            if complex_W:
+                out = unstack_product(
+                    ladder_product(ladder, Ac, stack_rows(W)),
+                    A.is_complex(), True)
+            else:
+                out = ladder_product(ladder, Ac, W)
+            z[:, sa.start + a0:sa.start + a1, sb].copy_(
+                out.view(-1, a1 - a0, nB))
+            del W, out
     if x2.is_complex() and not complex_W:
         z = torch.complex(z[:m], z[m:])
     return z.view(*lead, na, nb)
+
+
+def _mesh_cells(mesh, BL, BR, As, nblocks, budget, kf):
+    """(a-range, b-range, block, BL[:, A], BR[:, B], As) of every mesh
+    cell with work, the factor slices and As on the cell's device (As
+    copied once a device)."""
+    na, nb = BL.shape[1], BR.shape[1]
+    on = {}
+    cells = []
+    for i, j, dev in mesh.cells():
+        sa = slice(*split_ranges(na, mesh.shape[0])[i])
+        sb = slice(*split_ranges(nb, mesh.shape[1])[j])
+        nA, nB = sa.stop - sa.start, sb.stop - sb.start
+        if nA * nB == 0:
+            continue
+        if dev not in on:
+            on[dev] = As.to(dev)
+        blk = (-(-na // nblocks) if nblocks is not None
+               else -(-nA // _block_count(nA, nB * kf, budget)))
+        cells.append((sa, sb, blk, region(BL, (slice(None), sa), dev),
+                       region(BR, (slice(None), sb), dev), on[dev]))
+    return cells
+
+
+def whole_factors(dfh):
+    """dfh with Bd_ae and Bvv whole where they live, for the implicit-block
+    terms, which contract them outside a ladder: on a mesh assembled on
+    the home device, once a call (`dfccsd.whole_bvv`)."""
+    return dfh._replace(df=whole_bvv(dfh.df), Bd_ae=dense(dfh.Bd_ae))
 
 
 def _ea_layout(Bd_ae):
@@ -209,10 +259,11 @@ def build_hbar_df(F, dfb, t1, t2, no, model="CCSD"):
     the dressed-factor bilinears give, plus bare-Fock t2 terms in
     Hovoo/Hvvvo.  CCD shares the CCSD forms (they coincide at t1 = 0)."""
     o, v = slice(0, no), slice(no, None)
-    df = dfb
+    # Bd_ae is dressed on Bvv's layout; the blocks read Bvv whole
+    Bd_ae, Bd_mi = dress_factors(dfb, t1)
+    df = whole_bvv(dfb)
     cc2 = model == "CC2"
     tau = _tau(t1, t2)
-    Bd_ae, Bd_mi = dress_factors(df, t1)
 
     eri_oovv = _eri_oovv(df)
     Loovv = 2.0 * eri_oovv - eri_oovv.swapaxes(2, 3)
@@ -296,7 +347,7 @@ def build_hbar_df(F, dfb, t1, t2, no, model="CCSD"):
 
     return DFHBar(Hov=Hov, Hvv=Hvv, Hoo=Hoo, Hoooo=Hoooo, Hooov=Hooov,
                   Hovvo=Hovvo, Hovov=Hovov, Hovoo=Hovoo,
-                  df=df, Bd_ae=Bd_ae, Bd_mi=Bd_mi)
+                  df=dfb, Bd_ae=Bd_ae, Bd_mi=Bd_mi)
 
 
 # ---------------------------------------------------------------------------
@@ -306,6 +357,7 @@ def build_hbar_df(F, dfb, t1, t2, no, model="CCSD"):
 def zvv_c1_hvovv(dfh, C1):
     """2 'amef,mf->ae' - 'amfe,mf->ae' over Hvovv (the EOM Zvv), for C1
     of any leading shape."""
+    dfh = whole_factors(dfh)
     s = contract("Pmf,...mf->...P", dfh.df.Bov, C1)
     # the second term: C1[mf] Hvovv[amfe] = C1[mf] Bd[P,a,f] Bov[P,m,e]
     E = contract("Paf,...mf->...Pam", dfh.Bd_ae, C1)
@@ -316,6 +368,7 @@ def zvv_c1_hvovv(dfh, C1):
 def r1_c2_hvovv(dfh, C2):
     """2 'imef,amef->ia' - 'imef,amfe->ia' (the EOM sigma1), for C2 of
     any leading shape.  Largest intermediate (naux, o, v) a vector."""
+    dfh = whole_factors(dfh)
     Z = contract("...imef,Pmf->...Pie", C2, dfh.df.Bov)
     Z2 = contract("...imef,Pme->...Pif", C2, dfh.df.Bov)
     return (2.0 * contract("...Pie,Pae->...ia", Z, dfh.Bd_ae)
@@ -324,6 +377,7 @@ def r1_c2_hvovv(dfh, C2):
 
 def r1_gvv_hvovv(dfh, Gvv):
     """-2 'ef,eifa->ia' + 'ef,eiaf->ia' over Hvovv (the Lambda r1)."""
+    dfh = whole_factors(dfh)
     s = contract("ef,Pef->P", Gvv, dfh.Bd_ae)
     T = contract("ef,Pea->Pfa", Gvv, dfh.Bd_ae)
     return (-2.0 * contract("P,Pia->ia", s, dfh.df.Bov)
@@ -332,6 +386,7 @@ def r1_gvv_hvovv(dfh, Gvv):
 
 def r2_l1_hvovv(dfh, l1):
     """2 'ie,ejab->ijab' - 'ie,ejba->ijab' over Hvovv (the Lambda r2)."""
+    dfh = whole_factors(dfh)
     A = contract("ie,Pea->Pia", l1, dfh.Bd_ae)
     t1_ = contract("Pia,Pjb->ijab", A, dfh.df.Bov)
     A2 = contract("ie,Peb->Pib", l1, dfh.Bd_ae)
@@ -353,6 +408,7 @@ def r1_l2_hvvvo(dfh, t1, t2, l2, Hov, cc2=False):
     as Hov), the t1.t1 bilinear for tau in (4), the t1-dressed-only
     Hvvvv in (3), bare integrals in (8)/(9), and no t2 ring terms
     (5)-(7)."""
+    dfh = whole_factors(dfh)
     df = dfh.df
     Bov, Boo, Bvv = df.Bov, df.Boo, df.Bvv
     tau = _tau(t1, t2)
@@ -439,6 +495,7 @@ def s2_c1_hvvvo(dfh, t1, t2, C1, Hov):
     the o v^3 block, for C1 of any leading shape; o^2 v^2 output a vector.
     The same nine dense terms as `r1_l2_hvvvo`, contracted over e with C1
     first."""
+    dfh = whole_factors(dfh)
     df = dfh.df
     Bov, Boo, Bvv = df.Bov, df.Boo, df.Bvv
     tau = _tau(t1, t2)

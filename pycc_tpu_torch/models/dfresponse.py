@@ -26,6 +26,7 @@ import torch
 
 from ..ops.contract import contract
 from ..ops.kernels.vvvv import vvvv_nt
+from ..parallel.mesh import dense
 from .dfhbar import (_ea_layout, _pair_sym, hvvvv_x2_df, ladder_apply,
                      r1_gvv_hvovv, r1_l2_hvvvo, r2_l1_hvovv, sigma1_df,
                      sigma2_df, zvv_c1_hvovv)
@@ -107,7 +108,7 @@ def _gaef_hvovv(dfh, l2, X2, nblocks=None):
     path forms a v^4 temporary (ccresponse.in_Y1).  g-blocked (nblocks
     blocks of g, default v // 32): U[P,a,f] = sum_ge Bd[P,g,e] tmp[g,a,e,f]
     accumulated a block at a time, then -U[P,a,f] Bov[P,i,f]."""
-    Bd, Bov = dfh.Bd_ae, dfh.df.Bov
+    Bd, Bov = dense(dfh.Bd_ae), dfh.df.Bov
     naux, nv = Bd.shape[0], Bd.shape[1]
     if nblocks is None:
         nblocks = max(1, nv // 32)
@@ -130,7 +131,7 @@ def inY1_df(dfh, Loovv, Eoovv, t1, t2, l1, l2, Ad, pert_ov, X1, X2, no,
     (<= o^3 v) and the factor-assembled Loovv are used as they are.  The
     comments carry the dense einsum each term replaces.  nblocks is the
     g-blocking of `_gaef_hvovv`."""
-    Bov, Bd = dfh.df.Bov, dfh.Bd_ae
+    Bov, Bd = dfh.df.Bov, dense(dfh.Bd_ae)
     Hooov_s = 2.0 * dfh.Hooov - dfh.Hooov.swapaxes(0, 1)
 
     r = 2.0 * Ad["Aov"]
@@ -253,9 +254,10 @@ def inY2_df(dfh, Loovv, Eoovv, t1, t2, l1, l2, Ad, X1, X2, no,
     """The DF form of ccresponse.in_Y2; its X1-dressed Hvovv term is a
     generalized ladder (`ladder_apply`, one `ladder` call an a-block, two
     for a complex X1)."""
-    Bov, Bd = dfh.df.Bov, dfh.Bd_ae
+    # the ladder reads Bd_ae's pieces on a mesh, every other term it whole
+    Bov, Bd = dfh.df.Bov, dense(dfh.Bd_ae)
     Hooov_s = 2.0 * dfh.Hooov - dfh.Hooov.swapaxes(0, 1)
-    Bd_T = _ea_layout(Bd)
+    Bd_T = _ea_layout(dfh.Bd_ae)
 
     r = 2.0 * contract("ia,jb->ijab", l1, Ad["Aov"])
     r = r - contract("ja,ib->ijab", l1, Ad["Aov"])

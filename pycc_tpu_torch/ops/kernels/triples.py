@@ -178,18 +178,20 @@ def t_energy_row(i, Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps, t2, no,
     Wv, Ev, Eo, L, t2s = (x.to(sd) for x in (Wvvvo_o, Evovv, Eooov, Loovv,
                                              t2))
     Fa, ea = Fov.to(acc), eps.to(acc)
-    outs =tuple(torch.zeros(s, dtype=acc, device=dev) for s in
+    outs = tuple(torch.zeros(s, dtype=acc, device=dev) for s in
                  ((no, nv), (no, nv), (no, nv, nv), (no, nv, nv),
                   (no, nv, nv), (no, nv, nv), (no, no, nv, nv)))
     # two elements a copy when every staged row starts on an even element
     pair = 2 * Wv.element_size()
     vec = 2 if (no % 2 == 0 and nv % 2 == 0 and all(
         x.data_ptr() % pair == 0 for x in (Wv, t2m, Otm, Ev, G, t2s))) else 1
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = getattr(lib, _ENTRIES[sd])(
-        i, *(x.data_ptr() for x in (Wv, t2m, Otm, Ev, G, Eo, L, Fa, ea, t2s)
-             + outs),
-        no, nv, vec, stream)
+    # the launch goes to the current device: make it the operands'
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, _ENTRIES[sd])(
+            i, *(x.data_ptr() for x in (Wv, t2m, Otm, Ev, G, Eo, L, Fa, ea,
+                                        t2s) + outs),
+            no, nv, vec, stream)
     if rc != 0:
         raise RuntimeError("t_row launch failed: %s"
                            % lib.t_row_error_string(rc).decode())

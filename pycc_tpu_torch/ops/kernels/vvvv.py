@@ -111,9 +111,13 @@ def vvvv_nt(A, B, bf16=False):
     if M == 0 or N == 0:
         return C
     lib = _library()
-    stream = torch.cuda.current_stream(A.device).cuda_stream
-    rc = getattr(lib, "vvvv_nt_" + mode)(A.data_ptr(), B.data_ptr(), C.data_ptr(),
-                             M, N, K, copy_bytes(A, B), stream)
+    # the ctypes launch goes to the current device: make it A's, so that a
+    # shard on another card of a mesh launches where its operands are
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        rc = getattr(lib, "vvvv_nt_" + mode)(
+            A.data_ptr(), B.data_ptr(), C.data_ptr(), M, N, K,
+            copy_bytes(A, B), stream)
     if rc != 0:
         raise RuntimeError("vvvv_nt launch failed: %s"
                            % lib.vvvv_nt_error_string(rc).decode())

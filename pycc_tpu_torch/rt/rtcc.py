@@ -54,6 +54,7 @@ from ..models.blocked import eri_views
 from ..models.ccsd import build_tau, slices
 from ..ops.contract import contract
 from ..ops.kernels.vvvv import vvvv_nt
+from ..parallel.mesh import mesh_vvvv
 
 
 def _host(x):
@@ -161,7 +162,8 @@ class rtcc:
                 nblocks=getattr(cc, "df_nblocks", None), **kw)
         ERI, L = eri_views(cc)
         return lambda_residuals_from_F(cc.model, F, ERI, L, t1, t2, l1, l2,
-                                       self.no, slabs=self._slabs, **kw)
+                                       self.no, slabs=self._slabs,
+                                       vvvv=mesh_vvvv(cc), **kw)
 
     def _phase(self, F, t1, t2):
         o, v = slices(self.no)

@@ -32,6 +32,8 @@ the JAX versions have no counterpart here.
 import torch
 
 from .models.blocked import eri_views
+from .models.dfccsd import whole_bvv
+from .parallel.mesh import dense
 from .ops.contract import contract
 
 
@@ -541,6 +543,7 @@ def t_scan_df_slices(F, Boo, Bov, Bvv, no):
     the factors' device, in the layouts `scan_slices` cuts from the full
     ERI: Dirac <pq|rs> = (pr|qs) = sum_P B[P,p,r] B[P,q,s]."""
     o, v = _slices(no)
+    Bvv = dense(Bvv)            # whole (assembled on a mesh)
     Wvvvo_o = contract("Pac,Pib->iabc", Bvv, Bov).contiguous()
     Wovoo_t = contract("Pij,Pka->jkia", Boo, Bov).contiguous()
     Evovv = contract("Pab,Pic->aibc", Bvv, Bov).contiguous()
@@ -811,7 +814,7 @@ def t_vikings_scan_df_chunked(dfb, F, t1, t2, no, kc=None):
         kc = _t_df_kc(no, nv)
     if no % kc:
         raise ValueError("kc=%d must divide no=%d" % (kc, no))
-    Boo, Bov, Bvv = dfb
+    Boo, Bov, Bvv = whole_bvv(dfb)
     # one (v, v, v) sheet at a time: W[k,a,c,e] = sum_P Bvv[P,a,e] Bov[P,k,c]
     W = torch.empty((no, nv, nv, nv), dtype=Bvv.dtype, device=Bvv.device)
     for k in range(no):

@@ -1,7 +1,7 @@
 """Blocked storage in the port (pycc_tpu_torch/models/blocked.py,
 ccwfn(storage="blocked")) and the bf16-gated solve against pycc_tpu on
 the same inputs, and tests/test_016's oracles through the port on the
-CPU (its two sharded cases belong to the multi-device item).
+CPU (its two sharded cases are in test_torch_mesh.py).
 
 The views are bit-equal to the dense slices; the blocked post-convergence
 stack equals full storage on the same wavefunction at 1e-12 (only the

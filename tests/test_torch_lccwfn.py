@@ -248,6 +248,6 @@ def test_010_pair_screened_rejects_unsupported_combinations():
 def test_lccwfn_mesh_names_item_13():
     ref, H, lo = _carried()
     from pycc_tpu_torch.lccwfn import lccwfn
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 13b"):
         lccwfn(slice(0, ref.no), slice(ref.no, None), ref.no, ref.nv, H,
                "PNO", "CCSD", 0.0, lo, mesh=object())

@@ -83,20 +83,22 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"storage": "df", "mesh": object()},
+    {"storage": "df", "mesh": 4},
     {"model": "CC3", "real_time": True},
     {"real_time": True},
-    {"storage": "blocked"}, {"local": "PNO"}, {"mesh": object()},
+    {"storage": "blocked"}, {"local": "PNO"}, {"mesh": 4},
 ])
 def test_options_outside_the_slice_raise(kwargs):
     """Each option outside the slice raises naming its ROADMAP.md item;
-    storage='blocked' (ported with item 10), real_time=True (item 11) and
-    local='PNO' (item 12) build."""
-    ported = ({"storage": "blocked"}, {"model": "CC3", "real_time": True},
-              {"real_time": True}, {"local": "PNO"})
-    item = None if kwargs in ported else "ROADMAP.md"
+    storage='blocked' (ported with item 10), real_time=True (item 11),
+    local='PNO' (item 12) and mesh= (item 13: here a 2 x 2 mesh of CPU
+    devices, from make_mesh) build."""
+    from pycc_tpu_torch.parallel import make_mesh
+    kwargs = dict(kwargs)
+    if "mesh" in kwargs:
+        kwargs["mesh"] = make_mesh(devices=["cpu"] * kwargs["mesh"])
     _ran_or_raised(lambda: pycc_tpu_torch.ccwfn(_wfn(), device="cpu",
-                                                **kwargs).t2, item)
+                                                **kwargs).t2, None)
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -118,9 +120,15 @@ def test_ccwfn_accepts_every_local_keyword(kwargs):
 
 
 def test_mesh_names_item_13():
-    with pytest.raises(NotImplementedError, match="item 13"):
+    """mesh= is item 13, ported: a mesh that is not a parallel.Mesh is a
+    TypeError naming make_mesh; the native local solver over a mesh is
+    item 13b, still to come."""
+    from pycc_tpu_torch.parallel import make_mesh
+    with pytest.raises(TypeError, match="make_mesh"):
+        pycc_tpu_torch.ccwfn(_wfn(), device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="item 13b"):
         pycc_tpu_torch.ccwfn(_wfn(), device="cpu", local="PNO",
-                             mesh=object())
+                             mesh=make_mesh(devices=["cpu"] * 2))
 
 
 def test_trace_writes_a_profile(tmp_path):
@@ -167,6 +175,14 @@ def _converged(**kw):
     with contextlib.redirect_stdout(io.StringIO()):
         cc.solve_cc(e_conv=1e-8, r_conv=1e-8)
     return cc
+
+
+def _mesh_hbar():
+    """The HBAR of a ccwfn on a 2 x 2 mesh of CPU devices (item 13)."""
+    from pycc_tpu_torch.parallel import make_mesh
+    cc = _converged(mesh=make_mesh(devices=["cpu"] * 4))
+    with contextlib.redirect_stdout(io.StringIO()):
+        return pycc_tpu_torch.cchbar(cc)
 
 
 def _full_hbar():
@@ -261,8 +277,7 @@ def _ran_or_raised(call, item):
      None),
     (lambda: _converged(storage="df").t3_density(), None),
     (_blocked_hbar, None),
-    (lambda: pycc_tpu_torch.cchbar(types.SimpleNamespace(mesh=object())),
-     "item 13"),
+    (lambda: _mesh_hbar().Hvvvv.full(), None),
     (_lambda_chk, None),
     (_eom_resume, None),
     (_cc3_onepdm, None),

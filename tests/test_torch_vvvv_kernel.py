@@ -326,3 +326,29 @@ def test_complex_W_route_matches_plain_version_on_card(cuda_device, dtype,
     assert ((out - ref).abs().max() / ref.abs().max()).item() < tol
     exact = A.to(dtype) @ W.T
     assert ((out - exact).abs().max() / exact.abs().max()).item() < tol
+
+
+@pytest.mark.cuda
+def test_sharded_ladder_is_one_launch_a_shard_on_card(cuda_device):
+    """A ladder on W Sharded over a mesh (parallel/mesh.py) is one K1
+    launch a shard, at a ragged split, equal to one launch on the whole W;
+    a shard's operands on two devices raise."""
+    from pycc_tpu_torch.models.ccsd import vvvv_contract
+    from pycc_tpu_torch.parallel import Sharded, make_mesh
+    n = torch.cuda.device_count()
+    m = make_mesh(devices=["cuda:%d" % (i % n) for i in range(4)])
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    nv, no = 13, 5
+    W = torch.randn((nv,) * 4, generator=g, device=cuda_device,
+                    dtype=torch.float64)
+    tau = torch.randn((no, no, nv, nv), generator=g, device=cuda_device,
+                      dtype=torch.float64)
+    before = vvvv_nt.launches
+    out = vvvv_contract(tau, Sharded.put(W, m, ("va", "vb")))
+    torch.cuda.synchronize()
+    assert vvvv_nt.launches - before == 4 and out.device == tau.device
+    assert torch.equal(out, vvvv_contract(tau, W))
+    ref = vvvv_contract(tau, W, vvvv_nt_reference)
+    assert float((out - ref).abs().max()) < 1e-12
+    with pytest.raises(ValueError, match="one CUDA device"):
+        vvvv_nt(tau.reshape(no * no, -1), W.reshape(nv * nv, -1).cpu())
