@@ -55,13 +55,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
      ladders of every right-hand side);
   6. a real size on full storage: (H2O)_6/cc-pVDZ CCSD(T) (144 basis
      functions, (no, nv) = (24, 114) with the frozen core) through
-     run_rhf -> ccwfn -> solve_cc, and one residual timed at the
-     converged amplitudes;
+     run_rhf -> ccwfn -> solve_cc, one residual timed at the converged
+     amplitudes, and the (T) with bf16 slabs (t_vikings_scan(slab_dtype=
+     torch.bfloat16): K2's bf16 stream, one launch a row, held to
+     tests/test_004's two conditions against the float64 K2 value);
   6b. [post] post-convergence on phase 6's ccwfn: the (T) density scan
      (its E(T) held to K2's), HBAR, Lambda-CCSD(T) (K1 on the pre-laid
      'ijef,efab' operand, one launch an iteration), the densities and
-     their energy (held to E(CCSD) + E(T)), and EOM-CCSD for 3 roots (one
-     K1 launch a sigma batch), with the residuals recomputed from the
+     their energy (held to E(CCSD) + E(T)), and EOM-CCSD for 3 roots from
+     the CIS guess (one K1 launch a sigma batch), with the residuals
+     recomputed from the
      returned subspace and the sigma through K1 held to the plain one;
   6c. [resp] linear response on the same ccwfn and its Lambda: the 21
      pertbars (12 complex), the conditioning probe, the MU-MU dynamic
@@ -112,7 +115,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      hold on 80 GB: (H2O)_6/aug-cc-pVDZ DF-CCSD(T) (246 basis functions,
      (24, 216)) through run_rhf(df=True) -> ccwfn(storage="df") ->
      solve_cc, with the host seconds and the ladder split into W assembly
-     and K1;
+     and K1; its DF-SCF and AO property integrals run in a spawned worker
+     process from the top of the script (`DFWorker`, two host threads),
+     beside the earlier phases, and the script stops it on every exit;
   7b. [dfpost] the DF post-convergence stack at that size, on phase 7's
      factors, F and dipole integrals (ccwfn.from_df_factors, CCSD,
      solved by solve_cc_mixed with a bf16 stage: K1 in bf16, f32 and f64
@@ -123,6 +128,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
      and that polarizability element (residuals recomputed), each K1
      caller (Lambda, EOM, densities, response) counted and held to its
      plain ladder.
+  7c. [dfrt] real-time CCSD over those factors on [dfpost]'s converged
+     CCSD and Lambda (no new SCF or solve): rtcc under the Gaussian pulse
+     for 2 rk4(0.01) steps, y on the card; the field-free right-hand side
+     at the converged state, the Lagrangian and dipole at t = 0, one
+     right-hand side through K1 against the plain ladder, K1's launches
+     counted for each of the two complex ladders (one launch an a-block
+     of the complex W a side), the right-hand side split into the T side,
+     the DF-HBAR rebuild, the W assembly and the Lambda side; then two
+     rk4 steps at (H2O)_4/cc-pVDZ over factors (storage="df", the MO
+     ERI's Cholesky) on [cc3]'s wavefunction against pycc_tpu's frozen mu
+     and Lagrangian at 1e-10.
   8. [mesh] the sharded paths at full width, on [real]'s wavefunction
      and [df]'s factors (no new SCF), over a 2 x 2 mesh of cuda:(i % n)
      for n cards (on one card the four shards share cuda:0): (H2O)_6
@@ -135,7 +151,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
      at 1e-10, K1 one launch an a-block a shard).  Each init's rise of the
      home card's peak is checked against what the card then holds (the
      integrals are cut into pieces from host memory).  K1 at the
-     per-shard shapes is in phase 3's table.
+     per-shard shapes is in phase 3's table.  Last, the native local
+     solver over the mesh, ccwfn(local="PNO", filter=False, mesh=): its
+     stacks cut by pycc_tpu's rule, (H2O)_6 CCSD held to [local]'s native
+     energy at 1e-11 and (H2O)_4 at pair_cutoff 1e-4 (the screened stacks
+     over 'va') to [local]'s, with the stacks' bytes a cell against
+     whole, s/iter against [local]'s and the peak.
+The script's total seconds and the card's name and power limit precede
+the kernels' summary.
 The line before the last is the kernels' JSON summary (one entry for each
 kernel on each path); the last line is {"ok": true, "device": {...}}.
 """
@@ -144,6 +167,7 @@ import collections
 import gc
 import json
 import math
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -163,18 +187,19 @@ from pycc_tpu_torch import triples
 from pycc_tpu_torch.cchbar import build_hbar
 from pycc_tpu_torch.cclambda import cc3_extra_fn, lambda_residuals
 from pycc_tpu_torch.ccdensity import build_Moo, build_Mvv
-from pycc_tpu_torch.hamiltonian import build_hamiltonian
+from pycc_tpu_torch.hamiltonian import ao_properties, build_hamiltonian
 from pycc_tpu_torch.models import cc3, dfccsd
 from pycc_tpu_torch.models.ccsd import (build_tau, residuals_ccsd,
                                         vvvv_contract, vvvv_contract_efab)
 from pycc_tpu_torch.models.dfdensity import density_energy_df
-from pycc_tpu_torch.models.dfhbar import hvvvv_x2_df
+from pycc_tpu_torch.models.dfhbar import build_hbar_df, hvvvv_x2_df
 from pycc_tpu_torch.ops.kernels import triples as k2
 from pycc_tpu_torch.ops.kernels import vvvv
 from pycc_tpu_torch.ops.kernels.triples import (t_energy_row,
                                                 t_energy_row_reference)
 from pycc_tpu_torch.ops.cholesky import cholesky_factor_eri
-from pycc_tpu_torch.ops.kernels.vvvv import vvvv_nt, vvvv_nt_reference
+from pycc_tpu_torch.ops.kernels.vvvv import (stack_rows, vvvv_nt,
+                                             vvvv_nt_reference)
 from pycc_tpu_torch.rt.integrators import rk4
 from pycc_tpu_torch.rt.lasers import gaussian_laser, sine_square_laser
 from pycc_tpu_torch.scf import integrals as ints
@@ -272,7 +297,16 @@ K1_RT_SHAPE = (2 * 576, 2 * 12996, 12996)
 # Lambda side's stacked complex W
 K1_LOCAL_RT_SHAPE = (2 * 25, 361, 361)
 K1_LOCAL_RT_LAMBDA_SHAPE = (2 * 25, 2 * 361, 361)
-K1_COMPLEX_LIBRARY = (K1_RT_SHAPE, K1_LOCAL_RT_LAMBDA_SHAPE)
+# [dfrt]: over factors both ladders of a right-hand side assemble a
+# complex W (the T side's factor dressed by the complex t1, the Lambda
+# side's Bd_ae), so each goes in a-block by a-block as [Re W; Im W]
+# against the stacked complex rows, on a quarter of the real block budget
+# (dfhbar.ladder_apply): (2 o^2, 2 blk v, v^2), one launch an a-block a
+# side; its library yardstick one complex128 A @ B.T at (o^2, blk v, v^2)
+DFRT_BLOCKS = dfccsd._ladder_blocks(DF_NV, 0, dfccsd.LADDER_MAX_ELEMS // 4)
+K1_DFRT_SHAPE = (2 * DF_NO ** 2, 2 * -(-DF_NV // DFRT_BLOCKS) * DF_NV,
+                 DF_NV ** 2)
+K1_COMPLEX_LIBRARY = (K1_RT_SHAPE, K1_LOCAL_RT_LAMBDA_SHAPE, K1_DFRT_SHAPE)
 # [mesh]: a 2 x 2 mesh; each shard's ladder is one K1 launch against its
 # (a, b) columns of W, (o^2, (v/2)^2, v^2) at [real]'s (24, 114), the EOM
 # sigma batch's rows against the same columns, and over [df]'s factors
@@ -301,6 +335,7 @@ K1_SHAPES = [
     (K1_MESH_SHAPE, "(H2O)_6 2x2 mesh shard", ("f64",)),
     (K1_MESH_EOM_SHAPE, "(H2O)_6 mesh EOM shard", ("f64",)),
     (K1_MESH_DF_SHAPE, "(H2O)_6/aug mesh DF block", ("f64",)),
+    (K1_DFRT_SHAPE, "(H2O)_6/aug DF RT complex-W block", ("f64",)),
 ]
 # the H100 SXM data sheet's dense peaks (at its 700 W limit): HBM bytes/s,
 # and flop/s for the arithmetic each kernel does in each type (float64 on
@@ -1165,6 +1200,19 @@ def phase_real_size(smi, name=REAL_SIZE):
                                                       abs(eccsd - eccsd_ref)))
     print("[real] E(T) = %.12f  |dE| = %.2e" % (et, abs(et - et_ref)))
 
+    # the (T) with bf16 slabs: K2's bf16 stream, float32 accumulation
+    k2.reset_launches()
+    e16, t16 = _synced(lambda: triples.t_vikings_scan(
+        cc, slab_dtype=torch.bfloat16))
+    n16 = dict(t_energy_row.launches_by_stream)
+    launches["t_row_bf16"] = n16["bf16"]
+    e16_dtype, e16 = e16.dtype, float(e16)
+    print("[real] (T) with bf16 slabs (t_vikings_scan(slab_dtype="
+          "torch.bfloat16)): %.2f s, K2 launches by stream %s, E(T) = %.12f "
+          "(%s)  |E(T) - f64 K2's| = %.2e = %.2e |E(T)|  | %s"
+          % (t16, n16, e16, e16_dtype, abs(e16 - et),
+             abs(e16 - et) / abs(et), smi))
+
     # one full-storage residual at the converged amplitudes, which
     # [mixed] times its blocked residual against
     t1, t2 = cc.t1.clone(), cc.t2.clone()
@@ -1190,6 +1238,12 @@ def phase_real_size(smi, name=REAL_SIZE):
         raise AssertionError("%d K1 launches in %d iterations, %d K2 launches "
                              "for no = %d" % (launches["vvvv_nt"], cc.niter,
                                               launches["t_row"], cc.no))
+    # test_004's two conditions on the bf16 (T)
+    if not (n16 == {"f64": 0, "f32": 0, "bf16": cc.no}
+            and e16_dtype == torch.float32
+            and 0.0 < abs(e16 - et) < 5e-3 * abs(et)):
+        raise AssertionError("[real] bf16 (T): launches %s, %s E(T) %.12f vs "
+                             "f64 %.12f" % (n16, e16_dtype, e16, et))
     return launches, cc, eccsd, et, real
 
 
@@ -1242,7 +1296,7 @@ def phase_post(cc, eccsd, et_k2, smi, name=REAL_SIZE):
     eom = pycc_tpu_torch.cceom(hb)
     vvvv_nt.launches = 0
     (E, C), t_eom = _synced(lambda: eom.solve_eom(
-        N=EOM_ROOTS, e_conv=1e-8, r_conv=1e-6))
+        N=EOM_ROOTS, e_conv=1e-8, r_conv=1e-6, guess="CIS"))
     eom_launches = vvvv_nt.launches
     peak = torch.cuda.max_memory_allocated()
     n_sigma = cc.timers.count["eom.sigma"]
@@ -1264,7 +1318,7 @@ def phase_post(cc, eccsd, et_k2, smi, name=REAL_SIZE):
           "s): %s Eh  %d iterations  subspace %d  sigma batches %d  K1 "
           "launches %d  residual norms %s  |Ritz - E| %.2e  peak device "
           "memory %.2f GB"
-          % (EOM_ROOTS, t_eom, "HBAR_SS", cc.timers.total["eom.guess"],
+          % (EOM_ROOTS, t_eom, "CIS", cc.timers.total["eom.guess"],
              np.array2string(E, precision=10), eom.niter, C.shape[0],
              n_sigma, eom_launches, ", ".join("%.2e" % r for r in rn), dw,
              peak / 1e9))
@@ -1848,13 +1902,71 @@ def _ladder_split(cc):
     return assembly, k1, ladder, residual
 
 
-def phase_df(smi, name=DF_SIZE):
-    escf_ref, eccsd_ref, et_ref = FROZEN_DF[name]
-    torch.cuda.reset_peak_memory_stats()
+# the [df] wavefunction's worker: the host threads it may use (its AO
+# Cholesky runs on one), so that the main process keeps the rest
+DF_WORKER_THREADS = "2"
+
+
+def _df_wavefunction(conn, name):
+    """[df]'s DF-SCF and the AO property integrals ccwfn's init reads (kept
+    on the wavefunction), in a worker process; the wavefunction and the
+    seconds of each go back through `conn`."""
     t0 = time.perf_counter()
     wfn = run_rhf(moldict[name], "aug-cc-pvdz", freeze_core=True, df=True,
                   df_tol=DF_TOL)
     t_scf = time.perf_counter() - t0
+    ao_properties(wfn)
+    conn.send((wfn, t_scf, time.perf_counter() - t0 - t_scf))
+    conn.close()
+
+
+class DFWorker:
+    """[df]'s host work, started at the top of the script in a spawned
+    process, so that its one-thread AO Cholesky and its DF-SCF run while
+    the card works through the earlier phases.  `result()` waits for the
+    wavefunction (an exception if the worker failed); `stop()` ends the
+    process if it still runs."""
+
+    def __init__(self, name=DF_SIZE):
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, child = ctx.Pipe(duplex=False)
+        keys = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+        saved = {k: os.environ.get(k) for k in keys}
+        os.environ.update({k: DF_WORKER_THREADS for k in keys})
+        try:
+            self._proc = ctx.Process(target=_df_wavefunction,
+                                     args=(child, name), daemon=True)
+            self._proc.start()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        child.close()
+
+    def result(self):
+        t0 = time.perf_counter()
+        try:
+            out = self._conn.recv()
+        except EOFError:
+            self._proc.join(10)
+            raise RuntimeError("[df] the DF-SCF worker died (exit code %s)"
+                               % self._proc.exitcode) from None
+        self._proc.join(60)
+        return out + (time.perf_counter() - t0,)
+
+    def stop(self):
+        if self._proc.is_alive():
+            self._proc.terminate()
+        self._proc.join(10)
+        self._conn.close()
+
+
+def phase_df(smi, worker, name=DF_SIZE):
+    escf_ref, eccsd_ref, et_ref = FROZEN_DF[name]
+    torch.cuda.reset_peak_memory_stats()
+    wfn, t_scf, t_props, t_wait = worker.result()
     t_chol = wfn.timers.total["rhf.ao_cholesky"]
     t0 = time.perf_counter()
     cc = pycc_tpu_torch.ccwfn(wfn, model="CCSD(T)", storage="df",
@@ -1877,12 +1989,14 @@ def phase_df(smi, name=DF_SIZE):
           "AO %d, recompressed %d (df_tol %.0e)  | %s"
           % (name, wfn.basisset().nbf, cc.no, cc.nv, wfn.B_ao.shape[0],
              cc.naux, DF_TOL, smi))
-    print("[df] host: SCF %.1f s (AO Cholesky %.1f s, the rest %.1f s); "
-          "ccwfn init %.1f s (property integrals and F %.1f s, MO transform "
-          "%.1f s, recompression on the card %.1f s)"
-          % (t_scf, t_chol, t_scf - t_chol, t_init,
-             init["ccwfn.hamiltonian"], init["ccwfn.df_factors_to_mo"],
-             init["ccwfn.df_recompress"]))
+    print("[df] host, in a worker process beside the earlier phases (%s "
+          "threads): SCF %.1f s (AO Cholesky %.1f s, the rest %.1f s), AO "
+          "property integrals %.1f s; the script waited %.1f s for them; "
+          "ccwfn init %.1f s (F and the property transforms %.1f s, MO "
+          "transform %.1f s, recompression on the card %.1f s)"
+          % (DF_WORKER_THREADS, t_scf, t_chol, t_scf - t_chol, t_props,
+             t_wait, t_init, init["ccwfn.hamiltonian"],
+             init["ccwfn.df_factors_to_mo"], init["ccwfn.df_recompress"]))
     print("[df] E(SCF) = %.12f  |dE(SCF)| = %.2e"
           % (wfn.energy(), abs(wfn.energy() - escf_ref)))
     print("[df] CCSD solve %.1f s  %d iterations  %.3f s/iter  (T) %.1f s  "
@@ -2107,7 +2221,8 @@ def phase_dfpost(factors, smi, name=DF_SIZE):
         raise AssertionError("[dfpost] K1 launches (got, want): %s" % bad)
     out = {k: got[k] for k in ("lambda", "eom", "density", "response")}
     out.update(ccsd_bf16=cc_modes["bf16"], ccsd_f32=cc_modes["f32"])
-    return out
+    lam.hbar = None
+    return out, (cc, lam, ecc)
 
 
 # ---------------------------------------------------------------------------
@@ -2497,6 +2612,218 @@ def phase_rt_frozen(wfn, smi, name=CC3_SIZE):
     if not (mu_gap < 1e-8 and lag_gap < 1e-8 and launches == 16):
         raise AssertionError("[rt] %s missed pycc_tpu's frozen trajectory: "
                              "|mu| %.2e, |Lagrangian| %.2e, K1 launches %d"
+                             % (name, mu_gap, lag_gap, launches))
+
+
+# [dfrt]: real-time CCSD over [dfpost]'s factors, rk4(RT_H) steps
+DFRT_STEPS = 2
+
+# (H2O)_4/cc-pVDZ, frozen core, storage="df" (the MO ERI's Cholesky at
+# df_tol 1e-8, naux 1222): mu and the Lagrangian at t = 0.02 after two
+# rk4(0.01) steps under RT_PULSE, from pycc_tpu in float64 on a CPU host
+# (8 cores, 5.7 min):
+#   wfn = run_rhf(moldict["(H2O)_4"], "cc-pvdz", freeze_core=True)
+#   cc = pycc_tpu.ccwfn(wfn, storage="df")
+#   cc.solve_cc(1e-12, 1e-12)
+#   lam = pycc_tpu.cclambda(cc, pycc_tpu.cchbar(cc))
+#   lam.solve_lambda(1e-12, 1e-12)
+#   rt = pycc_tpu.rtcc(cc, lam, None, gaussian_laser(0.01, 0, 0.01,
+#                                                    center=0.05))
+#   y = rt.collect_amps(cc.t1, cc.t2, lam.l1, lam.l2, 0)
+#   y = rk4(0.01)(rt.f, 0.0, y); y = rk4(0.01)(rt.f, 0.01, y)
+#   t1, t2, l1, l2, _ = rt.extract_amps(y)
+#   rt.dipole(t1, t2, l1, l2), rt.lagrangian(0.02, t1, t2, l1, l2)
+# (Ecorr -0.861900770407978, pseudo-E -0.848164207742988 there)
+FROZEN_DFRT = {
+    "(H2O)_4": dict(
+        mu=(0.0003413604450032191 - 2.4870877397185026e-10j,
+            0.0011795608312944073 + 9.027165471130334e-11j,
+            -0.0005793823593332123 + 1.5843711042227774e-10j),
+        lagrangian=-163.13185205274723 - 5.016430362479301e-22j),
+}
+DFRT_CONV = 1e-12
+
+
+def _w_assembly_ms(BL, BR, nblocks):
+    """ms on the card to assemble every a-block of one complex ladder's W
+    as K1's B operand, [Re W; Im W] (`dfhbar.ladder_apply`'s complex
+    route: `dfccsd.ladder_W`, then `stack_rows`)."""
+    dt = torch.promote_types(BL.dtype, BR.dtype)
+    BL, BR = BL.to(dt), BR.to(dt)
+    blk = -(-BL.shape[1] // nblocks)
+    total = 0.0
+    for a0 in range(0, BL.shape[1], blk):
+        ms, W = _event_ms(lambda: stack_rows(dfccsd.ladder_W(
+            BL[:, a0:a0 + blk], BR)))
+        total += ms
+        del W
+    return total
+
+
+def phase_dfrt(post, smi, name=DF_SIZE):
+    """[dfrt]: real-time CCSD at [df]'s size over its factors, on
+    [dfpost]'s converged CCSD and Lambda (no new SCF, no new solve): rtcc
+    under RT_PULSE for DFRT_STEPS rk4(RT_H) steps from t = 0, y on the
+    card.  Checked: the field-free right-hand side at the converged state
+    (max|r/D| and the quasienergy, as [rt] holds them), the Lagrangian at
+    t = 0 against E_ref + Ecorr and the dipole against the ccdensity
+    one-pdm's, one right-hand side through K1 against the plain ladder,
+    and K1's launches in each of the two complex ladders = DFRT_BLOCKS a
+    right-hand side (counted from 0 over the propagation).  Printed: the
+    right-hand side split into the T side, the DF-HBAR rebuild, the W
+    assembly of both ladders and the Lambda side, and the peak."""
+    cc, lam, ecc = post
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    no, nv, o = cc.no, cc.nv, cc.o
+
+    rt0 = pycc_tpu_torch.rtcc(cc, lam, None, gaussian_laser(
+        0.0, *RT_PULSE[1:]))
+    y0 = rt0.collect_amps(cc.t1, cc.t2, lam.l1, lam.l2, 0)
+    f0 = rt0.f(0.0, y0)
+    r1, r2, s1, s2, dphase = rt0.extract_amps(f0)
+    d1, d2 = cc.Dia, cc.Dijab
+    r_free = max((r1 / d1).abs().max().item(), (r2 / d2).abs().max().item(),
+                 (s1 / d1).abs().max().item(), (s2 / d2).abs().max().item())
+    eref = float(2.0 * torch.trace(cc.H.F[o, o]) - rt0._loooo_tr)
+    phase_gap = abs(complex(dphase) - (-1j) * (eref + ecc))
+    del f0, r1, r2, s1, s2
+    L0 = rt0.lagrangian(0.0, cc.t1, cc.t2, lam.l1, lam.l2)
+    rt = pycc_tpu_torch.rtcc(cc, lam, None, gaussian_laser(*RT_PULSE))
+    mu0 = rt.dipole(cc.t1, cc.t2, lam.l1, lam.l2)
+    opdm = pycc_tpu_torch.ccdensity(cc, lam, onlyone=True).compute_onepdm(
+        cc.t1, cc.t2, lam.l1, lam.l2)
+    mu_dens = [float(torch.sum(m * opdm)) for m in cc.H.mu]
+    dip_gap = max(abs(a - b) for a, b in zip(mu0, mu_dens))
+    del opdm, rt0
+
+    counts = _counted_rhs(rt)
+    vvvv_nt.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ret = rt.propagate(rk4(RT_H), y0, RT_H * DFRT_STEPS - 1e-12)
+    torch.cuda.synchronize()
+    t_prop = time.perf_counter() - t0
+    launches = vvvv_nt.launches
+    main = dict(counts)
+    peak = torch.cuda.max_memory_allocated()
+    keys = sorted(ret)
+    t_end = float(keys[-1])
+
+    # at the final state: one right-hand side split by part, K1 against
+    # the plain ladder, the observables' time
+    y = rt.y
+    t1, t2, l1, l2, _ = rt.extract_amps(y)
+    F = rt._field(t_end, y.dtype)
+    f_k1, rhs_s = _synced(lambda: rt.f(t_end, y))
+    t_ms, _ = _event_ms(lambda: rt.t_residuals(F, t1, t2))
+    lam_ms, _ = _event_ms(lambda: rt.lambda_residuals(F, t1, t2, l1, l2))
+    hbar_ms, hb = _event_ms(lambda: build_hbar_df(F, cc.dfb, t1, t2, no))
+    dfb = cc.dfb
+    w_t_ms = _w_assembly_ms(0.5 * dfb.Bvv - torch.einsum(
+        "ma,Pme->Pae", t1, dfb.Bov.to(t1.dtype)), dfb.Bvv, DFRT_BLOCKS)
+    BLl = hb.Bd_ae.transpose(1, 2)
+    w_l_ms = _w_assembly_ms(BLl, BLl, DFRT_BLOCKS)
+    del hb, BLl
+    obs_s = _synced(lambda: rt._observables(t_end, y))[1]
+    f_plain = pycc_tpu_torch.rtcc(cc, lam, None, rt.V,
+                                  ladder=vvvv_nt_reference).f(t_end, y)
+    rel_plain = _rel_c(f_k1, f_plain)
+    finite = bool(torch.isfinite(torch.view_as_real(y)).all())
+    del f_k1, f_plain, F, y, t1, t2, l1, l2
+    peak_all = torch.cuda.max_memory_allocated()
+
+    mz = [ret[k]["mu_z"].real for k in keys]
+    n_obs = launches - main["t"] - main["lambda"]
+    print("[dfrt] %s/aug-cc-pVDZ real-time CCSD over [dfpost]'s factors  "
+          "(no, nv) = (%d, %d) naux %d, y %d complex128 (%.0f MB), "
+          "gaussian_laser%s, rk4(%g) x %d  | %s"
+          % (name, no, nv, cc.naux, y0.numel(), y0.numel() * 16 / 1e6,
+             RT_PULSE, RT_H, DFRT_STEPS, smi))
+    print("[dfrt] field-free right-hand side at the converged state: max|r/D|"
+          " %.1e; |dphase/dt + i (E_ref + Ecorr)| = %.1e (E_ref = 2 tr F_oo "
+          "- L_ijij = %.10f)" % (r_free, phase_gap, eref))
+    print("[dfrt] t = 0: Lagrangian %.12f (E_ref + Ecorr %.12f, |d| %.1e); "
+          "dipole %s, |d| from the ccdensity one-pdm dipole %.1e"
+          % (L0.real, eref + ecc, abs(L0 - (eref + ecc)),
+             np.round(np.array(mu0).real, 10), dip_gap))
+    print("[dfrt] propagate %.2f s: %.3f s a step (4 right-hand sides and the"
+          " observables); one right-hand side %.3f s: T side %.1f ms (its W "
+          "assembly %.1f ms), Lambda side %.1f ms (DF-HBAR rebuild %.1f ms, "
+          "its W assembly %.1f ms); observables %.3f s a step; peak device "
+          "memory %.2f GB through the propagation (%.2f GB above [dfpost]'s "
+          "state), %.2f GB with the checks"
+          % (t_prop, t_prop / DFRT_STEPS, rhs_s, t_ms, w_t_ms, lam_ms,
+             hbar_ms, w_l_ms, obs_s, peak / 1e9, (peak - base) / 1e9,
+             peak_all / 1e9))
+    print("[dfrt] K1: %d launches over %d right-hand sides: T ladder %d (%.0f "
+          "a right-hand side), Lambda ladder %d (%.0f), the observables' "
+          "density ladders %d; K1 vs the plain ladder, one right-hand side "
+          "at t = %.2f: max|diff|/max|plain| = %.1e"
+          % (launches, main["rhs"], main["t"], main["t"] / main["rhs"],
+             main["lambda"], main["lambda"] / main["rhs"], n_obs, t_end,
+             rel_plain))
+    print("[dfrt] mu_z(t): %s  Lagrangian(t_end) %.12f"
+          % (", ".join("%s %.12f" % (k, v) for k, v in zip(keys, mz)),
+             ret[keys[-1]]["ecc"].real))
+    print("[dfrt] the phase, its checks included: %.1f s  | %s"
+          % (time.perf_counter() - t_phase, smi))
+
+    checks = [
+        ("field-free residuals", r_free <= 10 * RT_CONV),
+        ("phase", phase_gap < 1e-9),
+        ("Lagrangian(0)", abs(L0 - (eref + ecc)) < 1e-9),
+        ("dipole(0)", dip_gap < 1e-10),
+        ("K1 vs plain", rel_plain <= 1e-12),
+        ("K1 launches", main["rhs"] == 4 * DFRT_STEPS
+         and main["t"] == main["lambda"] == DFRT_BLOCKS * main["rhs"]),
+        ("finite", finite and len(keys) == DFRT_STEPS + 1
+         and all(np.isfinite(v) for v in mz)),
+    ]
+    bad = [what for what, ok in checks if not ok]
+    if bad:
+        raise AssertionError("[dfrt] checks failed: %s" % bad)
+    del rt, cc, lam, post
+    gc.collect()    # _counted_rhs's wrappers hold their rtcc in a cycle
+    return {"dfrt_t": main["t"], "dfrt_lambda": main["lambda"]}
+
+
+def phase_dfrt_frozen(wfn, smi, name=CC3_SIZE):
+    """[dfrt]'s check against pycc_tpu's frozen trajectory on [cc3]'s
+    (H2O)_4 wavefunction over factors: ccwfn(storage="df") (the MO ERI's
+    Cholesky), CCSD and Lambda to DFRT_CONV, two rk4(RT_H) steps under
+    RT_PULSE, mu and the Lagrangian at t = 0.02 (1e-10)."""
+    ref = FROZEN_DFRT[name]
+    t0 = time.perf_counter()
+    cc = pycc_tpu_torch.ccwfn(wfn, model="CCSD", storage="df", device=DEVICE)
+    cc.solve_cc(DFRT_CONV, DFRT_CONV)
+    lam = pycc_tpu_torch.cclambda(cc, pycc_tpu_torch.cchbar(cc))
+    lam.solve_lambda(DFRT_CONV, DFRT_CONV)
+    lam.hbar = None
+    rt = pycc_tpu_torch.rtcc(cc, lam, None, gaussian_laser(*RT_PULSE))
+    y = rt.collect_amps(cc.t1, cc.t2, lam.l1, lam.l2, 0)
+    vvvv_nt.launches = 0
+    y = rk4(RT_H)(rt.f, 0.0, y)
+    y = rk4(RT_H)(rt.f, RT_H, y)
+    launches = vvvv_nt.launches
+    t1, t2, l1, l2, _ = rt.extract_amps(y)
+    mu = rt.dipole(t1, t2, l1, l2)
+    lag = rt.lagrangian(2 * RT_H, t1, t2, l1, l2)
+    mu_gap = max(abs(a - b) for a, b in zip(mu, ref["mu"]))
+    lag_gap = abs(lag - ref["lagrangian"])
+    blocks = 2 * 8 * dfccsd._ladder_blocks(cc.nv, cc.naux,
+                                           dfccsd.LADDER_MAX_ELEMS // 4)
+    print("[dfrt] %s/cc-pVDZ DF-CCSD (no, nv) = (%d, %d) naux %d, two rk4 "
+          "steps: mu_z = %s |mu - pycc_tpu's frozen| = %.1e, Lagrangian %s "
+          "|d| = %.1e, K1 launches %d (want %d); %.1f s with the CCSD and "
+          "Lambda solves  | %s"
+          % (name, cc.no, cc.nv, cc.naux, mu[2], mu_gap, lag, lag_gap,
+             launches, blocks, time.perf_counter() - t0, smi))
+    if not (mu_gap < 1e-10 and lag_gap < 1e-10 and launches == blocks):
+        raise AssertionError("[dfrt] %s missed pycc_tpu's frozen trajectory:"
+                             " |mu| %.2e, |Lagrangian| %.2e, K1 launches %d"
                              % (name, mu_gap, lag_gap, launches))
 
 
@@ -2890,7 +3217,9 @@ def phase_local(real, smi, name=REAL_SIZE):
     bad = [what for what, ok in checks if not ok]
     if bad:
         raise AssertionError("[local] checks failed: %s" % bad)
-    return {"local_ccsd": k1_cc, "local_lambda": k1_lam}
+    native = dict(e=e_nat, s_iter=t_nat / n_nat, niter=n_nat, peak=peak_nat,
+                  dim=dim)
+    return {"local_ccsd": k1_cc, "local_lambda": k1_lam}, native
 
 
 def phase_local_native(wfn, smi, name=CC3_SIZE):
@@ -2964,6 +3293,7 @@ def phase_local_native(wfn, smi, name=CC3_SIZE):
     bad = [what for what, ok in checks if not ok]
     if bad:
         raise AssertionError("[local] %s checks failed: %s" % (name, bad))
+    return dict(runs[LOCAL_PAIR_CUTOFF], dim=dim)
 
 
 def _mesh_devices():
@@ -2988,7 +3318,58 @@ def _check_init_peak(what, grew, stored, largest):
                              "GB it keeps" % (what, grew / 1e9, held / 1e9))
 
 
-def phase_mesh(wfn, real_e, post_ref, factors, df_ref, smi, name=REAL_SIZE):
+def _mesh_native_local(wfn, ref, smi, name, pair_cutoff=None):
+    """The native pair-space CCSD over a MESH_SHAPE mesh through the entry
+    point a user calls, ccwfn(local=, filter=False, pair_cutoff=, mesh=)
+    -> .lccwfn: its stacks cut over the mesh, its energy held to [local]'s
+    unsharded native run (ref) at 1e-11, its pair dimensions to [local]'s.
+    Returns the printed numbers."""
+    from pycc_tpu_torch.parallel import Sharded, make_mesh
+    mesh = make_mesh(devices=_mesh_devices(), shape=MESH_SHAPE)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    nat, t_pre = _synced(lambda: pycc_tpu_torch.ccwfn(
+        wfn, model="CCSD", filter=False, pair_cutoff=pair_cutoff,
+        device=DEVICE, mesh=mesh, **LOCAL_KW))
+    if not np.array_equal(np.asarray(nat.Local.dim), ref["dim"]):
+        raise AssertionError("[mesh] the native run's pair dimensions "
+                             "differ from [local]'s")
+    lw = nat.lccwfn
+    cut = {k: x for k, x in lw._pre.items() if isinstance(x, Sharded)}
+    whole = sum(x.numel() * x.element_size() for x in cut.values())
+    cells = sorted(next(iter(cut.values())).pieces)
+    a_cell = max(sum(x.cell_bytes()[c] for x in cut.values()) for c in cells)
+    big = max(cut, key=lambda k: cut[k].numel())
+    big_cell = max(cut[big].cell_bytes().values())
+    mesh.gathered_bytes = 0
+    e, t = _synced(lambda: lw.solve_lcc(LOCAL_CONV, LOCAL_CONV))
+    s_iter = t / lw.niter
+    peak = torch.cuda.max_memory_allocated()
+    gathered = mesh.gathered_bytes / lw.niter
+    P = lw._pre["P"] if pair_cutoff is not None else lw.no ** 2
+    print("[mesh] %s native PNO-CCSD on the mesh (pair_cutoff=%s, P = %d of "
+          "%d pairs): %d stacks cut, %.3f GB whole, %.3f GB on the largest "
+          "cell (%.0f%%); the largest, %s (%s), %.3f GB whole, %.3f GB a "
+          "cell; set-up %.2f s; %d iterations, %.4f s/iter ([local]'s "
+          "unsharded %.4f); %.3f GB gathered onto the home device an "
+          "iteration; peak %.2f GB; E = %.12f |d[local]| = %.1e  | %s"
+          % (name, pair_cutoff, P, lw.no ** 2, len(cut), whole / 1e9,
+             a_cell / 1e9, 100.0 * a_cell / whole, big, cut[big].spec[:2],
+             cut[big].numel() * cut[big].element_size() / 1e9,
+             big_cell / 1e9, t_pre, lw.niter, s_iter, ref["s_iter"],
+             gathered / 1e9, peak / 1e9, e, abs(e - ref["e"]), smi))
+    if not abs(e - ref["e"]) < 1e-11:
+        raise AssertionError("[mesh] %s native local E %.12f missed [local]'s"
+                             " %.12f" % (name, e, ref["e"]))
+    del lw, nat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(e=e, s_iter=s_iter, whole=whole, a_cell=a_cell, peak=peak)
+
+
+def phase_mesh(wfn, real_e, post_ref, factors, df_ref, local_ref, smi,
+               name=REAL_SIZE):
     """[mesh]: the sharded paths at full width on [real]'s wavefunction and
     [df]'s factors (no new SCF).  (H2O)_6/cc-pVDZ CCSD(T) through
     ccwfn(mesh=) on full storage (E(CCSD) and E(T) held to [real]'s at
@@ -2999,7 +3380,11 @@ def phase_mesh(wfn, real_e, post_ref, factors, df_ref, smi, name=REAL_SIZE):
     whole W and held to the plain ladder; then DF-CCSD at (24, 216) through
     from_df_factors(mesh=) (held to [df]'s E(CCSD) at 1e-10, K1 one launch
     an a-block a shard); each init's peak through `_check_init_peak`.
-    Each caller's K1 launches are counted from 0."""
+    Each caller's K1 launches are counted from 0.  Last, the native local
+    solver over the mesh (`_mesh_native_local`): (H2O)_6 PNO CCSD on
+    [real]'s wavefunction and (H2O)_4 at pair_cutoff LOCAL_PAIR_CUTOFF on
+    [cc3]'s (local_ref: that wavefunction and [local]'s two native runs),
+    each held to [local]'s unsharded energy at 1e-11."""
     from pycc_tpu_torch.parallel import device_bytes, make_mesh
     devices = _mesh_devices()
     mesh = make_mesh(devices=devices, shape=MESH_SHAPE)
@@ -3149,6 +3534,13 @@ def phase_mesh(wfn, real_e, post_ref, factors, df_ref, smi, name=REAL_SIZE):
     if df_launches != per_iter * dn:
         raise AssertionError("[mesh] DF: %d K1 launches in %d iterations of "
                              "%d" % (df_launches, dn, per_iter))
+
+    # the native local solver over the mesh
+    wfn4, native6, native4 = local_ref
+    t0 = time.perf_counter()
+    _mesh_native_local(wfn, native6, smi, name)
+    _mesh_native_local(wfn4, native4, smi, CC3_SIZE, LOCAL_PAIR_CUTOFF)
+    print("[mesh] native local part %.1f s" % (time.perf_counter() - t0))
     print("[mesh] phase %.1f s" % (time.perf_counter() - t_phase))
     return {"mesh": launches["vvvv_nt"], "mesh_t_row": launches["t_row"],
             "mesh_lambda": lam_launches, "mesh_eom": eom_launches,
@@ -3156,7 +3548,7 @@ def phase_mesh(wfn, real_e, post_ref, factors, df_ref, smi, name=REAL_SIZE):
 
 
 def _kernel_entries(k1_cells, k2_cells, full, post, resp, cc3_, df, dfpost,
-                    mixed, rt, local, mesh):
+                    mixed, rt, local, mesh, dfrt):
     """The kernels line: each kernel on each path, with that path's
     launches and the timed cell at the shape the path launches it at."""
     k1 = dict(route="cuda", source="pycc_tpu_torch/csrc/vvvv_nt.cu",
@@ -3168,6 +3560,8 @@ def _kernel_entries(k1_cells, k2_cells, full, post, resp, cc3_, df, dfpost,
              **k1_cells[K1_FULL_SHAPE, "f64"]),
         dict(name="t_row", **k2, launches=full["t_row"],
              **k2_cells[(24, 114), "f64"]),
+        dict(name="t_row/bf16", **k2, launches=full["t_row_bf16"],
+             **k2_cells[(24, 114), "bf16->f32"]),
         dict(name="vvvv_nt/lambda", **k1, launches=post["lambda"],
              **k1_cells[K1_FULL_SHAPE, "f64"]),
         dict(name="vvvv_nt/eom", **k1, launches=post["eom"],
@@ -3231,12 +3625,25 @@ def _kernel_entries(k1_cells, k2_cells, full, post, resp, cc3_, df, dfpost,
              **k1_cells[K1_MESH_EOM_SHAPE, "f64"]),
         dict(name="vvvv_nt/mesh_df", **k1, launches=mesh["mesh_df"],
              **k1_cells[K1_MESH_DF_SHAPE, "f64"]),
+        dict(name="vvvv_nt/df_rt_t", **k1, launches=dfrt["dfrt_t"],
+             **k1_cells[K1_DFRT_SHAPE, "f64"]),
+        dict(name="vvvv_nt/df_rt_lambda", **k1, launches=dfrt["dfrt_lambda"],
+             **k1_cells[K1_DFRT_SHAPE, "f64"]),
     ]
 
 
 def main():
+    t_script = time.perf_counter()
     name, smi = phase_device()
     pycc_tpu_torch.set_verbosity("quiet")
+    worker = DFWorker()
+    try:
+        _main(t_script, name, smi, worker)
+    finally:
+        worker.stop()
+
+
+def _main(t_script, name, smi, worker):
     phase_build()
     k1_cells = phase_kernel(smi)
     k2_cells = phase_k2(smi)
@@ -3248,7 +3655,8 @@ def main():
     torch.cuda.empty_cache()
     rt = phase_rt(real, smi)
     torch.cuda.empty_cache()
-    local.update(phase_local(real, smi))
+    local_k1, native6 = phase_local(real, smi)
+    local.update(local_k1)
     torch.cuda.empty_cache()
     mixed = phase_mixed(real, eom_roots, muz, smi)
     wfn_real = real["wfn"]
@@ -3258,19 +3666,25 @@ def main():
     torch.cuda.empty_cache()
     phase_rt_frozen(wfn_cc3, smi)
     torch.cuda.empty_cache()
-    phase_local_native(wfn_cc3, smi)
-    del wfn_cc3
+    native4 = phase_local_native(wfn_cc3, smi)
     torch.cuda.empty_cache()
-    df, factors, df_ref = phase_df(smi)
+    df, factors, df_ref = phase_df(smi, worker)
     torch.cuda.empty_cache()
-    dfpost = phase_dfpost(factors, smi)
+    dfpost, dfpost_state = phase_dfpost(factors, smi)
+    torch.cuda.empty_cache()
+    dfrt = phase_dfrt(dfpost_state, smi)
+    del dfpost_state
+    torch.cuda.empty_cache()
+    phase_dfrt_frozen(wfn_cc3, smi)
     torch.cuda.empty_cache()
     mesh = phase_mesh(wfn_real, (eccsd, et), (post["pseudo_e"], eom_roots),
-                      factors, df_ref, smi)
+                      factors, df_ref, (wfn_cc3, native6, native4), smi)
+    del wfn_cc3
+    print("the whole script: %.1f s" % (time.perf_counter() - t_script))
     print(smi)
     print(json.dumps({"kernels": _kernel_entries(
         k1_cells, k2_cells, full, post, resp, cc3_launches, df, dfpost,
-        mixed, rt, local, mesh)}))
+        mixed, rt, local, mesh, dfrt)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

@@ -3,7 +3,7 @@
 one host: a 2 x 2 mesh of cuda:(i % n) over the n visible cards.
 
     python3 probes/mesh_cards.py      (from the repository root; about
-                                       five minutes, two of them the
+                                       six minutes, two of them the
                                        (H2O)_6 SCF on the host; four cards
                                        to span cards)
 
@@ -21,7 +21,11 @@ one host: a 2 x 2 mesh of cuda:(i % n) over the n visible cards.
    with what the mesh init added to each card's peak beside what each
    card then holds: the integrals are made in host memory and cut into
    their pieces from there, so no card, the home one included, holds a
-   whole v^4 operand at any point.
+   whole v^4 operand at any point;
+4. on the same wavefunction the native PNO-CCSD solver (local="PNO",
+   local_cutoff 1e-5, it2_opt=False, filter=False) on the mesh against
+   the unsharded one on cuda:0 (E at 1e-11), with the bytes its stacks
+   take on each card beside the whole stacks' bytes.
 """
 
 import os
@@ -142,7 +146,9 @@ def main():
           % [round(torch.cuda.max_memory_allocated(i) / 1e9, 3)
              for i in range(n)])
     del W, tau, one_card, cards, whole, out
-    full_width(devices, n, smi.splitlines()[0])
+    wfn = full_width(devices, n, smi.splitlines()[0])
+    torch.cuda.empty_cache()
+    native_local(wfn, devices, n, smi.splitlines()[0])
 
 
 def full_width(devices, n, smi):
@@ -177,6 +183,38 @@ def full_width(devices, n, smi):
              abs(e - e0), smi))
     if abs(e - e0) > 1e-11:
         raise AssertionError("(H2O)_6: the mesh missed the unsharded run")
+    return wfn
+
+
+def native_local(wfn, devices, n, smi):
+    kw = dict(model="CCSD", local="PNO", local_cutoff=1e-5, it2_opt=False,
+              filter=False, device="cuda:0")
+    cc = pycc_tpu_torch.ccwfn(wfn, **kw)
+    t0 = time.perf_counter()
+    e0 = cc.lccwfn.solve_lcc(1e-10, 1e-10)
+    sync_all()
+    t_whole = (time.perf_counter() - t0) / cc.lccwfn.niter
+    whole = device_bytes(*cc.lccwfn._pre.values())
+    del cc
+    torch.cuda.empty_cache()
+    sync_all()
+    cc = pycc_tpu_torch.ccwfn(wfn, mesh=make_mesh(devices=devices), **kw)
+    lw = cc.lccwfn
+    held = device_bytes(*lw._pre.values())
+    t0 = time.perf_counter()
+    e = lw.solve_lcc(1e-10, 1e-10)
+    sync_all()
+    print("(H2O)_6/cc-pVDZ native PNO-CCSD on the mesh: the stacks held by "
+          "card (GB) %s (unsharded, on cuda:0: %s); %d iterations, %.4f "
+          "s/iter (unsharded %.4f); E = %.12f, |mesh - unsharded| = %.2e  "
+          "| %s"
+          % ({d: round(b / 1e9, 3) for d, b in held.items()},
+             {d: round(b / 1e9, 3) for d, b in whole.items()}, lw.niter,
+             (time.perf_counter() - t0) / lw.niter, t_whole, e, abs(e - e0),
+             smi))
+    if abs(e - e0) > 1e-11:
+        raise AssertionError("(H2O)_6 native local: the mesh missed the "
+                             "unsharded run")
 
 
 if __name__ == "__main__":

@@ -43,7 +43,9 @@ basis and builds the pair spaces (local.Local).  filter=True is the
 simulation path: the dense residuals (K1 in the ladder), each Jacobi
 step projected through the pair spaces (`Local.filter_amps`).
 filter=False also builds the native pair-space solver, `self.lccwfn`
-(lccwfn.py; pair_cutoff= screens its pairs, lccwfn_screened.py).
+(lccwfn.py; pair_cutoff= screens its pairs, lccwfn_screened.py); with
+mesh= its precomputed stacks are laid over the mesh (H stays whole on
+the home device, as in pycc_tpu).
 """
 
 import dataclasses
@@ -101,11 +103,6 @@ _VALID_LOCAL = (None, "PNO", "PAO", "CPNO++", "PNO++")
 # drops them (the bf16 copies, the (T) Lambda sources and density blocks)
 _STAGE_CACHES = ("_bf16", "S1", "S2", "Doo_t3", "Dvv_t3", "Dov_t3",
                  "Goovv", "Gooov", "Gvvvo")
-
-
-def _not_ported(what, item):
-    return NotImplementedError("%s is not ported yet: ROADMAP.md %s."
-                               % (what, item))
 
 
 def _check_mesh(mesh, device):
@@ -277,14 +274,10 @@ class ccwfn:
         before anything is built."""
         if local not in _VALID_LOCAL:
             raise ValueError("%s is not an allowed local-CC model." % local)
-        if local is not None and mesh is not None:
-            if filter:
-                raise ValueError("mesh sharding with local models requires "
-                                 "the native pair-space solver "
-                                 "(filter=False); the filter-simulation "
-                                 "path is dense.")
-            raise _not_ported("lccwfn(mesh=...)", "Queue 1, item 13b (the "
-                              "pair stacks over a mesh)")
+        if local is not None and mesh is not None and filter:
+            raise ValueError("mesh sharding with local models requires the "
+                             "native pair-space solver (filter=False); the "
+                             "filter-simulation path is dense.")
         if local_mos not in ("PIPEK_MEZEY", "BOYS"):
             raise ValueError("%s is not an allowed MO localization method."
                              % local_mos)
@@ -347,7 +340,8 @@ class ccwfn:
                     self.Local.overlaps()
                 self.lccwfn = lccwfn(o, v, no, self.nv, self.H, self.local,
                                      self.model, self.eref, self.Local,
-                                     pair_cutoff=self.pair_cutoff)
+                                     pair_cutoff=self.pair_cutoff,
+                                     mesh=self.mesh)
 
     @property
     def o(self):

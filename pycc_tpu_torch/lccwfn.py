@@ -11,8 +11,15 @@ residual (K1 in its ladder on the card) on the back-transformed
 amplitudes, projected pair by pair.  Each iteration takes a Jacobi step
 in the semicanonical pair bases and a DIIS step over the local
 amplitudes, all on the device; the host reads one (energy, rms) pair an
-iteration.  pycc_tpu's mesh sharding of the pair stacks
-(`shard_pair_stacks`) is ROADMAP.md Queue 1, item 13b.
+iteration.
+
+mesh= (a parallel.make_mesh mesh): the precomputed stacks are cut over
+it by pycc_tpu's rule (`parallel.mesh.shard_pair_stacks`: the pair-
+leading ones over ('va', 'vb'), the compact screened ones over 'va') and
+the residuals read them piece by piece.  pycc_tpu also lays t2 and the
+denominators over the mesh; here they stay on the home device with t1,
+the Jacobi step and DIIS (t2 is o^2 D^2), as a canonical mesh solver
+keeps its amplitudes home.
 """
 
 import time
@@ -28,10 +35,6 @@ from .utils.log import logger as log
 class lccwfn:
     def __init__(self, o, v, no, nv, H, local, model, eref, Local,
                  pair_cutoff=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "lccwfn(mesh=...) is not ported yet: ROADMAP.md Queue 1, "
-                "item 13b (the pair stacks over a mesh).")
         self.o, self.v = o, v
         self.no, self.nv = no, nv
         self.H = H
@@ -40,6 +43,7 @@ class lccwfn:
         self.eref = eref
         self.Local = Local
         self.pair_cutoff = pair_cutoff
+        self.mesh = mesh
 
         # initial local amplitudes: t2[ij] = -ERIoovv_loc[ij] / D[ij]
         QLp = Local.QLp
@@ -96,6 +100,10 @@ class lccwfn:
                 self._res = lambda t1r, t2r: res(pre, t1r, t2r)
                 self._en = lambda t1r, t2r: leq.energy_ccsd_local(pre, t1r,
                                                                   t2r)
+            if mesh is not None:
+                # the closures above read this `pre`, the pieces
+                from .parallel.mesh import shard_pair_stacks
+                pre = shard_pair_stacks(pre, mesh, no)
             self._pre = pre
 
     def dense_amps(self, t1loc, t2loc):

@@ -19,11 +19,20 @@ contract, pairwise from the left (torch.einsum's order where opt_einsum is
 not installed), and the o^3 D^3 stacks are made one row of their first
 index at a time (`_rows`), so that no intermediate outgrows the stacks
 themselves.
+
+Over a device mesh (lccwfn(mesh=)) the pair-leading stacks are
+`parallel.Sharded` (`parallel.mesh.shard_pair_stacks`) and every
+contraction that reads one runs piece by piece (`contract_pieces`, C
+here: the plain einsum when nothing is sharded).  The two o^4 D^2
+intermediates (the overlap-stitched amplitudes of Fae and of the Wmnij
+term) stay on the pieces (keep=True); a stack added whole to a term is
+read whole once a call (`dense`).
 """
 
 import torch
 
-from .ops.contract import contract as C
+from .parallel.mesh import contract_pieces as C
+from .parallel.mesh import dense
 
 
 def _rows(subscripts, *operands):
@@ -106,26 +115,28 @@ def residuals_ccd_local(pre, t2r):
     t2s = t2r - t2r.swapaxes(2, 3)
 
     # Fae
-    ST = C("ijmnax,mnxy->ijmnay", Sr, t2r)
-    Fae = pre["Fvv"] - C("ijmnay,ijmney->ijae", ST, pre["TL"])
+    ST = C("ijmnax,mnxy->ijmnay", Sr, t2r, keep=True)
+    Fae = dense(pre["Fvv"]) - C("ijmnay,ijmney->ijae", ST, pre["TL"])
     # Fmi
     Fmi = pre["F_oo"] + C("jnab,jnmab->mj", t2r, pre["BL"])
     # Wmnij
     Wmnij = pre["ERI_oooo"] + C("ijef,ijmnef->mnij", t2r, pre["BE"])
     # Wmbej
     G = C("ijnby,jnfy->ijnbf", pre["Sijjn"], t2r)
-    Wmbej = pre["W1"] - 0.5 * C("ijnbf,imjnef->ijmbe", G, pre["XE"])
+    Wmbej = dense(pre["W1"]) - 0.5 * C("ijnbf,imjnef->ijmbe", G, pre["XE"])
     G = C("ijnby,njfy->ijnbf", pre["Sijnj"], t2r)
     Wmbej = Wmbej + 0.5 * C("ijnbf,imnjef->ijmbe", G, pre["XL"])
     # Wmbje
     G = C("ijnby,jnxy->ijnbx", pre["Sijjn"], t2r)
-    Wmbje = -pre["W1je"] + 0.5 * C("ijnbx,jnmixe->ijmbe", G, pre["XE2"])
+    Wmbje = -dense(pre["W1je"]) + 0.5 * C("ijnbx,jnmixe->ijmbe", G,
+                                          pre["XE2"])
     # Wmbie
     G = C("ijnby,inxy->ijnbx", pre["Sijin"], t2r)
-    Wmbie = -pre["W1ie"] + 0.5 * C("ijnbx,inmjxe->ijmbe", G, pre["XE3"])
+    Wmbie = -dense(pre["W1ie"]) + 0.5 * C("ijnbx,inmjxe->ijmbe", G,
+                                          pre["XE3"])
 
     # r_T2
-    r2 = 0.5 * torch.einsum("ijijab->ijab", pre["BE"])
+    r2 = 0.5 * C("ijijab->ijab", pre["BE"])
     r2 = r2 + C("ijae,ijbe->ijab", t2r, Fae)
     r2 = r2 + 0.5 * C("ijef,ijabef->ijab", t2r, pre["VV"])
     D3 = C("ijmax,imxy,ijmby->ijmab", pre["Sijim"], t2r, pre["Sijim"])
@@ -136,7 +147,7 @@ def residuals_ccd_local(pre, t2r):
     r2 = r2 + C("ijmae,ijmbe->ijab", D6, Wmbej + Wmbje)
     D7 = C("ijmax,mjxe->ijmae", pre["Sijmj"], t2r)
     r2 = r2 + C("ijmae,ijmbe->ijab", D7, Wmbie)
-    D8 = C("ijmnay,mnyx,ijmnbx->ijmnab", Sr, t2r, Sr)
+    D8 = C("ijmnay,mnyx,ijmnbx->ijmnab", Sr, t2r, Sr, keep=True)
     r2 = r2 + 0.5 * C("ijmnab,mnij->ijab", D8, Wmnij)
 
     return r2 + r2.permute(1, 0, 3, 2)
@@ -222,8 +233,8 @@ def precompute_ccsd(H, Local, no, nv):
 def _singles_intermediates(pre, t1loc, t2r, Sb_t1mm):
     """Fae, Fmi and Fme of the CCSD singles (shared with CC2)."""
     Sr = pre["Sr"]
-    ST = C("ijmnax,mnxy->ijmnay", Sr, t2r)
-    Fae = pre["Fvv"] - C("ijmnay,ijmney->ijae", ST, pre["TL"])
+    ST = C("ijmnax,mnxy->ijmnay", Sr, t2r, keep=True)
+    Fae = dense(pre["Fvv"]) - C("ijmnay,ijmney->ijae", ST, pre["TL"])
     Fae = Fae - 0.5 * C("ijma,ijme->ijae", Sb_t1mm, pre["Fov_loc"])
     Fae = Fae + C("mb,ijmabe->ijae", t1loc, pre["TLm"])
     Fae = Fae - 0.5 * C("nf,ijmnef,ijma->ijae", t1loc, pre["TLnn"], Sb_t1mm)
@@ -233,7 +244,7 @@ def _singles_intermediates(pre, t1loc, t2r, Sb_t1mm):
     Fmi = Fmi + C("ne,mnje->mj", t1loc, pre["LooovD"])
     Fmi = Fmi + 0.5 * C("nf,mnjef,je->mj", t1loc, pre["TL2"], t1loc)
 
-    Fme = pre["Fov_loc"] + C("nf,ijmnef->ijme", t1loc, pre["TLnn"])
+    Fme = dense(pre["Fov_loc"]) + C("nf,ijmnef->ijme", t1loc, pre["TLnn"])
     return Fae, Fmi, Fme
 
 
@@ -275,7 +286,7 @@ def residuals_ccsd_local(pre, t1loc, t2r):
 
     # ---- Wmbej
     G = C("ijnby,jnfy->ijnbf", pre["Sijjn"], t2r)
-    Wmbej = pre["W1"] - 0.5 * C("ijnbf,imjnef->ijmbe", G, pre["XE"])
+    Wmbej = dense(pre["W1"]) - 0.5 * C("ijnbf,imjnef->ijmbe", G, pre["XE"])
     Gn = C("ijnby,njfy->ijnbf", pre["Sijnj"], t2r)
     Wmbej = Wmbej + 0.5 * C("ijnbf,imnjef->ijmbe", Gn, pre["XL"])
     Wmbej = Wmbej + C("jf,ijmbef->ijmbe", t1loc, pre["TE_mbe"])
@@ -284,14 +295,16 @@ def residuals_ccsd_local(pre, t1loc, t2r):
 
     # ---- Wmbje
     G = C("ijnby,jnxy->ijnbx", pre["Sijjn"], t2r)
-    Wmbje = -pre["W1je"] + 0.5 * C("ijnbx,jnmixe->ijmbe", G, pre["XE2"])
+    Wmbje = -dense(pre["W1je"]) + 0.5 * C("ijnbx,jnmixe->ijmbe", G,
+                                          pre["XE2"])
     Wmbje = Wmbje - C("jf,ijmbfe->ijmbe", t1loc, pre["TE_bFe"])
     Wmbje = Wmbje + C("ijnb,ijmne->ijmbe", Sb_t1nn, pre["Eooov_loc"])
     Wmbje = Wmbje + C("jf,ijnb,ijmnfe->ijmbe", t1loc, Sb_t1nn, pre["XE5"])
 
     # ---- Wmbie
     G = C("ijnby,inxy->ijnbx", pre["Sijin"], t2r)
-    Wmbie = -pre["W1ie"] + 0.5 * C("ijnbx,inmjxe->ijmbe", G, pre["XE3"])
+    Wmbie = -dense(pre["W1ie"]) + 0.5 * C("ijnbx,inmjxe->ijmbe", G,
+                                          pre["XE3"])
     Wmbie = Wmbie - C("if,ijmbfe->ijmbe", t1loc, pre["TE_bFe_mj"])
     Wmbie = Wmbie + C("ijnb,ijmne->ijmbe", Sb_t1nn, pre["Eooov_mj"])
     Wmbie = Wmbie + C("if,ijnb,ijmnfe->ijmbe", t1loc, Sb_t1nn, pre["XE6"])
@@ -299,7 +312,7 @@ def residuals_ccsd_local(pre, t1loc, t2r):
     r1 = _r_T1(pre, t1loc, t2r, Fae, Fmi, Fme)
 
     # ---- r_T2
-    r2 = 0.5 * torch.einsum("ijijab->ijab", pre["BE"])
+    r2 = 0.5 * C("ijijab->ijab", pre["BE"])
     r2 = r2 + C("ijae,ijbe->ijab", t2r, Fae)
     r2 = r2 + 0.5 * C("ijef,ijabef->ijab", t2r, pre["VV"])
     r2 = r2 + 0.5 * C("ie,jf,ijabef->ijab", t1loc, t1loc, pre["VV2"])
@@ -319,7 +332,7 @@ def residuals_ccsd_local(pre, t1loc, t2r):
     r2 = r2 - C("ie,ijmbe,ijma->ijab", t1loc, pre["E9"], Sb_t1mm)
     r2 = r2 - C("ijmae,ie,ijmb->ijab", pre["E11"], t1loc, Sb_t1mm)
     r2 = r2 - C("ijma,ijmb->ijab", Sb_t1mm, pre["Eovoo_loc"])
-    D8 = C("ijmnay,mnyx,ijmnbx->ijmnab", Sr, t2r, Sr)
+    D8 = C("ijmnay,mnyx,ijmnbx->ijmnab", Sr, t2r, Sr, keep=True)
     r2 = r2 + 0.5 * C("ijmnab,mnij->ijab", D8, Wmnij)
     r2 = r2 + 0.5 * C("ijma,mnij,ijnb->ijab", Sb_t1mm, Wmnij, Sb_t1nn)
 
@@ -339,7 +352,7 @@ def residuals_cc2_local(pre, t1loc, t2r):
 
     # ---- CC2 doubles: bare Fock coupling + T1-dressed integrals;
     # the effective fae/fmi fold the two canonical 0.5-halves into one
-    fae = pre["Fvv"] - C("ijmb,ijme->ijbe", Sb_t1mm, pre["Fov_loc"])
+    fae = dense(pre["Fvv"]) - C("ijmb,ijme->ijbe", Sb_t1mm, pre["Fov_loc"])
     fmi = pre["F_oo"] + C("je,jme->mj", t1loc, pre["FovD"])
 
     Wmnij = pre["ERI_oooo"]
@@ -349,7 +362,7 @@ def residuals_cc2_local(pre, t1loc, t2r):
 
     Zmb = C("ie,jf,ijmbef->ijmb", t1loc, t1loc, pre["Eovvv_iijj"])
 
-    r2 = 0.5 * torch.einsum("ijijab->ijab", pre["BE"])
+    r2 = 0.5 * C("ijijab->ijab", pre["BE"])
     r2 = r2 + C("ijae,ijbe->ijab", t2r, fae)
     D3 = C("ijmax,imxy,ijmby->ijmab", pre["Sijim"], t2r, pre["Sijim"])
     r2 = r2 - C("ijmab,mj->ijab", D3, fmi)

@@ -16,13 +16,21 @@ contribution.  pycc_tpu's `jax.lax.map` scans (over pairs for the
 ladders, over rows for the cross blocks, over m in the residual) are
 Python loops over the same slices here, which bound the live
 intermediates the same way.
+
+Over a device mesh the compact stacks are `parallel.Sharded` over 'va'
+on their leading strong-pair axis (the (no, no)-leading ones over ('va',
+'vb'), `parallel.mesh.shard_pair_stacks`): a contraction reads them
+piece by piece (`contract_pieces`, C here), a cross-pair gather through
+`take`, and a stack added whole to a term is read whole once a call
+(`dense`).  Without a mesh each of these is the plain operation.
 """
 
 import numpy as np
 import torch
 
 from .lccwfn_local import _pair_vvvv
-from .ops.contract import contract as C
+from .parallel.mesh import contract_pieces as C
+from .parallel.mesh import dense, take
 
 
 def mp2_pair_energies(H, Local, no, nv):
@@ -267,8 +275,9 @@ def _gathers(pre, t2c, t2sc):
     g["jn"] = _safe(pidx[pj])
     g["nj"] = _safe(pidx[:, pj].T)
     g["in"] = _safe(pidx[pi])
-    rowg = torch.arange(Sg.shape[0], device=Sg.device)[:, None]
-    S = {k: Sg[rowg, s] * m[:, :, None, None] for k, (s, m) in g.items()}
+    rowg = torch.arange(Sg.shape[0], device=pidx.device)[:, None]
+    S = {k: take(Sg, rowg, s) * m[:, :, None, None]
+         for k, (s, m) in g.items()}
     t = {k: t2c[s] * m[:, :, None, None] for k, (s, m) in g.items()}
     t["sim"] = t2sc[g["im"][0]] * g["im"][1][:, :, None, None]
     G = dict(jn=C("pnby,pnfy->pnbf", S["jn"], t["jn"]),
@@ -289,22 +298,26 @@ def _w_terms(pre, m, g, S, t, G, Wmbej_t1=None, Wmbje_t1=None,
     jn_safe, mask_jn = g["jn"]
     nj_safe, mask_nj = g["nj"]
     in_safe, mask_in = g["in"]
+    rows = torch.arange(im_safe.shape[0], device=im_safe.device)
     r_im = im_safe[:, m]
     msk_im = mask_im[:, m][:, None, None, None]
-    XE_pm = pre["XEg"][r_im[:, None], jn_safe] \
+    XE_pm = take(pre["XEg"], r_im[:, None], jn_safe) \
         * mask_jn[:, :, None, None] * msk_im
-    Wmbej = pre["W1g"][:, m] - 0.5 * C("pnbf,pnef->pbe", G["jn"], XE_pm)
-    XL_pm = pre["XLg"][r_im[:, None], nj_safe] \
+    Wmbej = take(pre["W1g"], rows, m) \
+        - 0.5 * C("pnbf,pnef->pbe", G["jn"], XE_pm)
+    XL_pm = take(pre["XLg"], r_im[:, None], nj_safe) \
         * mask_nj[:, :, None, None] * msk_im
     Wmbej = Wmbej + 0.5 * C("pnbf,pnef->pbe", G["nj"], XL_pm)
-    XE2_pm = pre["XE2g"][jn_safe, r_im[:, None]] \
+    XE2_pm = take(pre["XE2g"], jn_safe, r_im[:, None]) \
         * mask_jn[:, :, None, None] * msk_im
-    Wmbje = -pre["W1jeg"][:, m] + 0.5 * C("pnbx,pnxe->pbe", G["jnx"], XE2_pm)
+    Wmbje = -take(pre["W1jeg"], rows, m) \
+        + 0.5 * C("pnbx,pnxe->pbe", G["jnx"], XE2_pm)
     r_mj = mj_safe[:, m]
     msk_mj = mask_mj[:, m][:, None, None, None]
-    XE3_pm = pre["XE3g"][in_safe, r_mj[:, None]] \
+    XE3_pm = take(pre["XE3g"], in_safe, r_mj[:, None]) \
         * mask_in[:, :, None, None] * msk_mj
-    Wmbie = -pre["W1ieg"][:, m] + 0.5 * C("pnbx,pnxe->pbe", G["inx"], XE3_pm)
+    Wmbie = -take(pre["W1ieg"], rows, m) \
+        + 0.5 * C("pnbx,pnxe->pbe", G["inx"], XE3_pm)
     if Wmbej_t1 is not None:
         Wmbej = Wmbej + Wmbej_t1[:, m]
         Wmbje = Wmbje + Wmbje_t1[:, m]
@@ -352,22 +365,22 @@ def residuals_ccd_screened(pre, t2r):
     t2sc = t2c - t2c.swapaxes(1, 2)
 
     # Fae[p,a,e] = Fvv - sum_q (Sg[p,q] t2c[q]) . TLg[p,q]
-    ST = C("pqax,qxy->pqay", Sg, t2c)
-    Fae = pre["Fvv"] - C("pqay,pqey->pae", ST, TLg)
+    ST = C("pqax,qxy->pqay", Sg, t2c, keep=True)
+    Fae = dense(pre["Fvv"]) - C("pqay,pqey->pae", ST, TLg)
     Fmi = _fmi_ccd(pre, t2c, no)
     # Wmnij[q, p] = <mn|ij> + t2c[p] . BEg[p, q]
-    Wmnij = pre["ERI_oooo_g"] + C("pef,pqef->qp", t2c, BEg)
+    Wmnij = dense(pre["ERI_oooo_g"]) + C("pef,pqef->qp", t2c, BEg)
 
     g, S, t, G = _gathers(pre, t2c, t2sc)
     r2c = sum(_w_terms(pre, m, g, S, t, G, fmi=Fmi[m, pj])
               for m in range(no))
 
     # m-independent terms
-    diag = torch.arange(Sg.shape[0], device=Sg.device)
-    r2c = r2c + 0.5 * BEg[diag, diag]
+    diag = torch.arange(Sg.shape[0], device=pi.device)
+    r2c = r2c + 0.5 * take(BEg, diag, diag)
     r2c = r2c + C("pae,pbe->pab", t2c, Fae)
     r2c = r2c + 0.5 * C("pef,pabef->pab", t2c, pre["VVg"])
-    D8 = C("pqay,qyx,pqbx->pqab", Sg, t2c, Sg)
+    D8 = C("pqay,qyx,pqbx->pqab", Sg, t2c, Sg, keep=True)
     r2c = r2c + 0.5 * C("pqab,qp->pab", D8, Wmnij)
     return _scatter(pre, r2c, no, D)
 
@@ -390,8 +403,8 @@ def residuals_ccsd_screened(pre, t1loc, t2r):
     Sb = C("pmax,mx->pma", pre["Sdiag_g"], t1loc)
 
     # ---- Fae (P, D, D)
-    ST = C("pqax,qxy->pqay", Sg, t2c)
-    Fae = pre["Fvv"] - C("pqay,pqey->pae", ST, TLg)
+    ST = C("pqax,qxy->pqay", Sg, t2c, keep=True)
+    Fae = dense(pre["Fvv"]) - C("pqay,pqey->pae", ST, TLg)
     Fae = Fae - 0.5 * C("pma,pme->pae", Sb, pre["Fov_g"])
     Fae = Fae + C("mb,pmabe->pae", t1loc, pre["TLm_g"])
     Fae = Fae - 0.5 * C("nf,pmnef,pma->pae", t1loc, pre["TLnn_g"], Sb)
@@ -403,12 +416,12 @@ def residuals_ccsd_screened(pre, t1loc, t2r):
     Fmi = Fmi + 0.5 * C("nf,mnjef,je->mj", t1loc, pre["TL2"], t1loc)
 
     # ---- Fme (P, no_m, D)
-    Fme = pre["Fov_g"] + C("nf,pmnef->pme", t1loc, pre["TLnn_g"])
+    Fme = dense(pre["Fov_g"]) + C("nf,pmnef->pme", t1loc, pre["TLnn_g"])
     FmeD = Fme[diag]                                    # [j, m, e]
     s4 = C("je,jme->jm", t1loc, FmeD)
 
     # ---- Wmnij (Q, P)
-    Wmnij = pre["ERI_oooo_g"] + C("pef,pqef->qp", t2c, BEg)
+    Wmnij = dense(pre["ERI_oooo_g"]) + C("pef,pqef->qp", t2c, BEg)
     Wmnij = Wmnij + C("pe,qpe->qp", t1j, pre["EooovD_g"])
     Wmnij = Wmnij + C("pe,qpe->qp", t1i, pre["EoovoD_g"])
     Wmnij = Wmnij + C("pe,pf,qpef->qp", t1i, t1j, pre["TE2_g"])
@@ -434,8 +447,8 @@ def residuals_ccsd_screened(pre, t1loc, t2r):
               for m in range(no))
 
     # m-independent terms
-    rowg = torch.arange(Sg.shape[0], device=Sg.device)
-    r2c = r2c + 0.5 * BEg[rowg, rowg]
+    rowg = torch.arange(Sg.shape[0], device=pi.device)
+    r2c = r2c + 0.5 * take(BEg, rowg, rowg)
     r2c = r2c + C("pae,pbe->pab", t2c, Fae)
     r2c = r2c + 0.5 * C("pef,pabef->pab", t2c, pre["VVg"])
     r2c = r2c + 0.5 * C("pe,pf,pabef->pab", t1i, t1j, pre["VV2_g"])
@@ -445,7 +458,7 @@ def residuals_ccsd_screened(pre, t1loc, t2r):
     r2c = r2c - C("pe,pmbe,pma->pab", t1i, pre["E9_g"], Sb)
     r2c = r2c - C("pmae,pe,pmb->pab", pre["E11_g"], t1i, Sb)
     r2c = r2c - C("pma,pmb->pab", Sb, pre["Eovoo_g"])
-    D8 = C("pqay,qyx,pqbx->pqab", Sg, t2c, Sg)
+    D8 = C("pqay,qyx,pqbx->pqab", Sg, t2c, Sg, keep=True)
     r2c = r2c + 0.5 * C("pqab,qp->pab", D8, Wmnij)
     r2c = r2c + 0.5 * C("pqa,qp,pqb->pab", Sb[:, pi], Wmnij, Sb[:, pj])
     r2 = _scatter(pre, r2c, no, D)
@@ -465,7 +478,7 @@ def residuals_ccsd_screened(pre, t1loc, t2r):
     r1 = r1 + C("imae,ime->ia", T1a, Fme_im)
     r1 = r1 + C("imaef,imef->ia", pre["Eovvv_mi"], t2s2_mi)
     r1 = r1 + C("nf,inaf->ia", t1loc, pre["Lnvvi"])
-    ST1 = C("iqax,qxe->iqae", Sg[diag], t2c)
+    ST1 = C("iqax,qxe->iqae", take(Sg, diag), t2c)
     r1 = r1 - C("iqae,qie->ia", ST1, pre["LoovoD_g"])
 
     return r1, r2

@@ -133,7 +133,9 @@ def t_energy_row(i, Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps, t2, no,
     made on each call.  derived, if given, is `t_row_derived` of the same
     operands and stream_dtype; else it is formed here.  The outputs are in
     the accumulate type.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel (`t_energy_row.launches` counts the launches)."""
+    launch the kernel (`t_energy_row.launches` counts the launches,
+    `t_energy_row.launches_by_stream` them by streamed type: "f64", "f32"
+    or "bf16")."""
     ops = (Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps, t2)
     if all(x.device.type == "cpu" for x in ops):
         return t_energy_row_reference(i, *ops, no, stream_dtype=stream_dtype)
@@ -196,10 +198,21 @@ def t_energy_row(i, Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps, t2, no,
         raise RuntimeError("t_row launch failed: %s"
                            % lib.t_row_error_string(rc).decode())
     t_energy_row.launches += 1
+    t_energy_row.launches_by_stream[_STREAM_LABELS[sd]] += 1
     return outs
 
 
+_STREAM_LABELS = {torch.float64: "f64", torch.float32: "f32",
+                  torch.bfloat16: "bf16"}
 t_energy_row.launches = 0
+t_energy_row.launches_by_stream = {"f64": 0, "f32": 0, "bf16": 0}
+
+
+def reset_launches():
+    """Set K2's launch counts (total and by streamed type) to 0."""
+    t_energy_row.launches = 0
+    for k in t_energy_row.launches_by_stream:
+        t_energy_row.launches_by_stream[k] = 0
 
 
 def t_row_finalize(i, outs, t1, t2w):
@@ -215,17 +228,20 @@ def t_row_finalize(i, outs, t1, t2w):
 
 
 def t_vikings_rows(Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps, t1, t2,
-                   no):
+                   no, stream_dtype=None):
     """The (T) energy, one `t_energy_row` per occupied row: the port of
-    pycc_tpu's t_vikings_pallas.  The row energies are summed on the
-    device; the result is a 0-d tensor for the caller's one host read."""
+    pycc_tpu's t_vikings_pallas.  stream_dtype goes to every row and to
+    `t_row_derived` (torch.bfloat16: the bf16 stream, accumulated and
+    returned in float32).  The row energies are summed on the device; the
+    result is a 0-d tensor for the caller's one host read."""
     t2w = 4.0 * t2 - 2.0 * t2.swapaxes(2, 3)
     derived = (None if t2.device.type == "cpu"
-               else t_row_derived(Wovoo_t, Evovv, t2))
+               else t_row_derived(Wovoo_t, Evovv, t2, stream_dtype))
     e = None
     for i in range(no):
         outs = t_energy_row(i, Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov,
-                            eps, t2, no, derived=derived)
+                            eps, t2, no, stream_dtype=stream_dtype,
+                            derived=derived)
         ei = t_row_finalize(i, outs, t1, t2w)
         e = ei if e is None else e + ei
     return e

@@ -390,6 +390,148 @@ def build_like(x, spec, shape, make):
     return make(_whole(shape), x.device)
 
 
+def contract_pieces(subscripts, *operands, keep=False):
+    """contract(subscripts, *operands) over the pieces of its Sharded
+    operands, once a cell: the formula of a plain einsum, applied piece by
+    piece.  Without a Sharded operand it is `contract` itself.
+
+    The cell's letters are the subscript letters of the Sharded operands'
+    sharded axes; every Sharded operand must name the same letters on the
+    same mesh axes.  A cell cuts each Sharded operand's other axes that
+    carry a cell letter, and each whole operand's axes that do, to the
+    cell's ranges (a whole operand is copied to the cell's device), and
+    contracts there.  The cells' results meet on the home device: a
+    cell's result is added into its block of the output, the block its
+    surviving letters cut, so where both letters survive each cell writes
+    its own block and where a letter is contracted away the cells that
+    differ in it are summed.  keep=True leaves each cell's result on its
+    device instead, as a Sharded of the same layout: the output must then
+    begin with the cell letters in mesh-axis order.  Cells that cut the
+    same ranges (a 'va'-only layout on several devices) contract once."""
+    from ..ops.contract import contract
+    sharded = [k for k, x in enumerate(operands) if isinstance(x, Sharded)]
+    if not sharded:
+        return contract(subscripts, *operands)
+    ins, out = subscripts.replace(" ", "").split("->")
+    terms = ins.split(",")
+    first = operands[sharded[0]]
+    letters = _cell_letters(terms[sharded[0]], first.spec)
+    for k in sharded[1:]:
+        if (operands[k].mesh is not first.mesh
+                or _cell_letters(terms[k], operands[k].spec) != letters):
+            raise ValueError("contract_pieces(%r): the Sharded operands cut "
+                             "different letters or meshes" % subscripts)
+    mesh = first.mesh
+    sizes = {}
+    for t, x in zip(terms, operands):
+        for c, n in zip(t, x.shape):
+            sizes.setdefault(c, n)
+    done = {}
+    for i, j, dev in mesh.cells():
+        cut = first.cell_slices(i, j)
+        rng = {letters[ax]: cut[d] for d, ax in enumerate(first.spec)
+               if ax is not None}
+        key = tuple((s.start, s.stop) for s in rng.values())
+        if key in done:
+            continue
+        ops = []
+        for t, x in zip(terms, operands):
+            if isinstance(x, Sharded):
+                idx = tuple(slice(None) if x.spec[d] is not None
+                            else rng.get(c, slice(None))
+                            for d, c in enumerate(t))
+                ops.append(x.pieces[(i, j)][idx])
+            else:
+                idx = tuple(rng.get(c, slice(None)) for c in t)
+                ops.append(x[idx].to(dev))
+        done[key] = (rng, contract(subscripts, *ops))
+    if keep:
+        axes = [ax for ax in AXES if ax in letters]
+        if out[:len(axes)] != "".join(letters[ax] for ax in axes):
+            raise ValueError("contract_pieces(%r, keep=True): the output "
+                             "must begin with the cell letters" % subscripts)
+        spec = tuple(axes) + (None,) * (len(out) - len(axes))
+        pieces = {}
+        for i, j, _ in mesh.cells():
+            cut = first.cell_slices(i, j)
+            key = tuple((s.start, s.stop) for d, s in enumerate(cut)
+                        if first.spec[d] is not None)
+            pieces[(i, j)] = done[key][1]
+        return Sharded(mesh, spec, [sizes[c] for c in out], pieces)
+    cells = list(done.values())
+    res = torch.zeros([sizes[c] for c in out], dtype=cells[0][1].dtype,
+                      device=mesh.home)
+    for rng, r in cells:
+        res[tuple(rng.get(c, slice(None)) for c in out)] += r.to(mesh.home)
+    return res
+
+
+def _cell_letters(term, spec):
+    """{mesh axis: the letter of `term` on the axis it cuts}."""
+    return {ax: term[d] for d, ax in enumerate(spec) if ax is not None}
+
+
+def take(x, *index):
+    """x[index] for index tensors (or ints) on x's leading axes, broadcast
+    together, on the home device: for a Sharded x cut over its leading
+    axis alone, each piece gives the entries whose leading index falls in
+    its range (a gather on the piece's device, copied home); a plain x is
+    indexed as it is."""
+    if not isinstance(x, Sharded):
+        return x[index]
+    if any(p is not None for p in x.spec[1:]):
+        raise ValueError("take: x must be cut over its leading axis alone")
+    home = x.mesh.home
+    idx = torch.broadcast_tensors(*(torch.as_tensor(k, device=home)
+                                    for k in index))
+    out = torch.empty(tuple(idx[0].shape) + tuple(x.shape[len(idx):]),
+                      dtype=x.dtype, device=home)
+    seen = set()
+    for sl, p in x.shards():
+        lo, hi = sl[0].start, sl[0].stop
+        if (lo, hi) in seen:
+            continue
+        seen.add((lo, hi))
+        sel = (idx[0] >= lo) & (idx[0] < hi)
+        got = [k[sel].to(p.device) for k in idx]
+        got[0] = got[0] - lo
+        out[sel] = p[tuple(got)].to(home)
+    x.mesh.gathered_bytes += out.numel() * out.element_size()
+    return out
+
+
+def shard_pair_stacks(pre, mesh, no):
+    """The local solver's precomputed stacks over the mesh, by pycc_tpu's
+    rule (parallel/mesh.py shard_pair_stacks): a floating stack whose two
+    leading dims are (no, no) and which carries a local-virtual payload
+    (a later dim that is not no) is cut over ('va', 'vb') on those two
+    dims; a compact screened stack, whose leading dim is the strong-pair
+    count P > no, over 'va'; everything else stays whole on the home
+    device, the all-occupied F_oo and ERI_oooo included.  Integer and
+    boolean tensors (the pair index maps and their masks) stay whole on
+    the home device too, where pycc_tpu cuts those of leading dim P over
+    'va': every gather reads them whole.  Entries that are not tensors
+    pass through, and a stack held under two keys is cut once."""
+    out, cut = {}, {}
+    for k, x in pre.items():
+        if not isinstance(x, torch.Tensor):
+            out[k] = x
+            continue
+        if id(x) in cut:
+            out[k] = cut[id(x)]
+            continue
+        spec = None
+        if x.is_floating_point() or x.is_complex():
+            if (x.ndim >= 3 and x.shape[0] == no and x.shape[1] == no
+                    and any(d != no for d in x.shape[2:])):
+                spec = ("va", "vb")
+            elif x.ndim >= 1 and x.shape[0] > no:
+                spec = ("va",)
+        y = _home(x, mesh) if spec is None else Sharded.put(x, mesh, spec)
+        cut[id(x)] = out[k] = y
+    return out
+
+
 def mesh_vvvv(cc):
     """A mesh ccwfn's ladder operand (<ab|ef> Sharded over (a, b)), for
     the HBAR builds; None without a mesh."""

@@ -9,12 +9,12 @@ storage cuts every slice from the views of its six blocks):
 - `t_vikings_scan_core`: the pair-symmetric slab scan, one (i, j) slab of
   t3 at a time, as a plain whole-(T) reference (a Python loop over rows and
   j-chunks);
-- `t_vikings_scan(cc)`: the production (T) of `ccwfn(model="CCSD(T)")`.
-  It cuts the integral slices once (from the block views under
-  storage='blocked', from the factors under storage='df',
-  `t_scan_df_slices`) and runs every row through the K2 kernel wrapper
-  (`ops/kernels/triples.py`), which launches the CUDA kernel on CUDA
-  tensors;
+- `t_vikings_scan(cc, slab_dtype=None, jc=None)`: the production (T) of
+  `ccwfn(model="CCSD(T)")`.  It cuts the integral slices once (from the
+  block views under storage='blocked', from the factors under
+  storage='df', `t_scan_df_slices`) and runs every row through the K2
+  kernel wrapper (`ops/kernels/triples.py`), which launches the CUDA
+  kernel on CUDA tensors; slab_dtype=torch.bfloat16 is K2's bf16 stream;
 - `t_vikings_scan_df_chunked`: the plain, memory-bounded (T) from factors,
   k-chunked over one resident (o, v, v, v) tensor; called explicitly;
 - `t_vikings_inverted` and `t_tjl`: the virtual-driven and the Lee/Rendell
@@ -447,9 +447,12 @@ def _chunk_pair_energies(t3, Lext, Eext, Fov, Evovv, t1e, t2we, t2wr):
     X2 = contract("jkabc,kc->jab", td, Fov)
     X2 += contract("jkabc,dkbc->jad", T, Evovv)
     X2l = contract("jkabc,jklc->jlab", T, Eext)
-    e = 2.0 * contract("ja,ja->j", t1e, X1)
-    e += contract("jab,jab->j", t2we, X2)
-    e -= contract("jlab,jlab->j", t2wr, X2l)
+    # the X intermediates are small (j-window x v^2): the scalar
+    # contractions run in float32 under bf16 slabs, as pycc_tpu's do
+    up = torch.float32 if X1.dtype == torch.bfloat16 else X1.dtype
+    e = 2.0 * contract("ja,ja->j", t1e.to(up), X1.to(up))
+    e += contract("jab,jab->j", t2we.to(up), X2.to(up))
+    e -= contract("jlab,jlab->j", t2wr.to(up), X2l.to(up))
     return e
 
 
@@ -503,11 +506,14 @@ def t_vikings_scan_core(Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps,
 
     sym=True builds each T3 slab once per unordered pair, jc j-values at a
     time (default 2 when no is even, else 1; jc must divide no); sym=False
-    walks every ordered pair."""
+    walks every ordered pair.  slab_dtype (torch.bfloat16) casts the
+    slices, t1 and t2 to it, as pycc_tpu's does: the slabs are built and
+    consumed in that type, and the pair energies and their sum are
+    accumulated in float32."""
     if slab_dtype is not None:
-        from .ccwfn import _not_ported
-        raise _not_ported("t_vikings_scan_core(slab_dtype=...)",
-                          "Queue 1, item 3b (bf16 slabs of the (T) scan)")
+        (Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps, t1, t2) = (
+            x.to(slab_dtype) for x in (Wvvvo_o, Wovoo_t, Evovv, Eooov,
+                                       Loovv, Fov, eps, t1, t2))
     if sym:
         if jc is None:
             jc = 2 if no % 2 == 0 else 1
@@ -554,19 +560,36 @@ def t_scan_df_slices(F, Boo, Bov, Bvv, no):
             F.diagonal().contiguous())
 
 
-def t_vikings_scan(cc):
+# pycc_tpu's (T) over DF factors takes its k-chunked path past this many
+# no nv^3 elements, and that path ignores slab_dtype
+DF_SLAB_DTYPE_MAX = 2 ** 27
+
+
+def t_vikings_scan(cc, slab_dtype=None, jc=None,
+                   df_slab_max=DF_SLAB_DTYPE_MAX):
     """The (T) energy of a converged ccwfn, as a 0-d tensor: the slices
     once (cut from the full ERI or the blocked views, or under
     storage='df' assembled from the factors by `t_scan_df_slices`), then
     one K2 row per occupied index (the CUDA kernel on CUDA tensors, its
-    plain version on CPU tensors)."""
+    plain version on CPU tensors).
+
+    pycc_tpu's signature.  slab_dtype=torch.bfloat16 streams the K2 rows
+    in bfloat16 with float32 accumulation (`t_vikings_rows(stream_dtype=)`,
+    what the Pallas kernel computes); the result is then float32.  jc, the
+    j-chunk of the plain symmetric scan (`t_vikings_scan_core`), changes
+    nothing here: K2's driver has no j-chunk.  Over DF factors past
+    no nv^3 > df_slab_max (2^27, pycc_tpu's switch to its k-chunked path,
+    which ignores slab_dtype) slab_dtype is ignored too, and the rows
+    stream in the working dtype."""
     storage = getattr(cc, "storage", "full")
     from .ops.kernels.triples import t_vikings_rows
     if storage == "df":
+        if cc.no * cc.t2.shape[-1] ** 3 > df_slab_max:
+            slab_dtype = None
         sl = t_scan_df_slices(cc.H.F, *cc.dfb, cc.no)
     else:
         sl = scan_slices(cc)
-    return t_vikings_rows(*sl, cc.t1, cc.t2, cc.no)
+    return t_vikings_rows(*sl, cc.t1, cc.t2, cc.no, stream_dtype=slab_dtype)
 
 
 # ---------------------------------------------------------------------------

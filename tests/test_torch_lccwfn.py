@@ -246,8 +246,14 @@ def test_010_pair_screened_rejects_unsupported_combinations():
 
 
 def test_lccwfn_mesh_names_item_13():
+    """lccwfn(mesh=) (item 13b, ported): the stacks are cut over the mesh
+    and the energy of the carried amplitudes is the unsharded one."""
     ref, H, lo = _carried()
     from pycc_tpu_torch.lccwfn import lccwfn
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        lccwfn(slice(0, ref.no), slice(ref.no, None), ref.no, ref.nv, H,
-               "PNO", "CCSD", 0.0, lo, mesh=object())
+    from pycc_tpu_torch.parallel import Sharded, make_mesh
+    args = (slice(0, ref.no), slice(ref.no, None), ref.no, ref.nv, H, "PNO",
+            "CCSD", 0.0, lo)
+    whole = lccwfn(*args)
+    lw = lccwfn(*args, mesh=make_mesh(devices=["cpu"] * 4))
+    assert isinstance(lw._pre["Sr"], Sharded)
+    assert abs(lw.lcc_energy() - whole.lcc_energy()) < 1e-14

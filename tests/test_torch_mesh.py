@@ -105,8 +105,9 @@ def test_make_mesh_never_repeats_a_device_by_itself():
 
 def test_ccwfn_mesh_argument_checks():
     """mesh= takes a Mesh (TypeError naming make_mesh otherwise), runs on
-    its home device, and local + mesh raises as pycc_tpu's does (the filter
-    path) or names item 13b (the native pair solver)."""
+    its home device, and local + mesh raises as pycc_tpu's does on the
+    filter path; the native pair solver (item 13b, ported) lays its
+    stacks over the mesh and keeps H whole."""
     wfn = _wfn("sto-3g")
     with pytest.raises(TypeError, match="make_mesh"):
         pycc_tpu_torch.ccwfn(wfn, device="cpu", mesh=object())
@@ -115,9 +116,10 @@ def test_ccwfn_mesh_argument_checks():
     with pytest.raises(ValueError, match="native pair-space solver"):
         pycc_tpu_torch.ccwfn(wfn, device="cpu", local="PNO", filter=True,
                              mesh=_cpu_mesh())
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        pycc_tpu_torch.ccwfn(wfn, device="cpu", local="PNO",
-                             mesh=_cpu_mesh())
+    cc = pycc_tpu_torch.ccwfn(wfn, device="cpu", local="PNO",
+                              mesh=_cpu_mesh())
+    assert cc.lccwfn.mesh is not None and not isinstance(cc.H.ERI, Sharded)
+    assert any(isinstance(x, Sharded) for x in cc.lccwfn._pre.values())
 
 
 def test_sharded_reads_assemble_on_the_home_device():

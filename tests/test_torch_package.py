@@ -121,14 +121,14 @@ def test_ccwfn_accepts_every_local_keyword(kwargs):
 
 def test_mesh_names_item_13():
     """mesh= is item 13, ported: a mesh that is not a parallel.Mesh is a
-    TypeError naming make_mesh; the native local solver over a mesh is
-    item 13b, still to come."""
-    from pycc_tpu_torch.parallel import make_mesh
+    TypeError naming make_mesh; the native local solver over a mesh (item
+    13b) builds, its stacks cut over the mesh."""
+    from pycc_tpu_torch.parallel import Sharded, make_mesh
     with pytest.raises(TypeError, match="make_mesh"):
         pycc_tpu_torch.ccwfn(_wfn(), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        pycc_tpu_torch.ccwfn(_wfn(), device="cpu", local="PNO",
-                             mesh=make_mesh(devices=["cpu"] * 2))
+    cc = pycc_tpu_torch.ccwfn(_wfn(), device="cpu", local="PNO",
+                              mesh=make_mesh(devices=["cpu"] * 2))
+    assert any(isinstance(x, Sharded) for x in cc.lccwfn._pre.values())
 
 
 def test_trace_writes_a_profile(tmp_path):

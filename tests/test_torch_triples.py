@@ -96,12 +96,16 @@ def test_drivers_match_pycc_tpu_scan_core(no, nv, variant):
 
 
 def test_scan_core_refuses_what_it_does_not_take():
+    """jc must divide no; slab_dtype (bf16 slabs, ported) is taken: a
+    float32 energy near the float64 one, as pycc_tpu's."""
     Wv, Wo, Ev, Eo, L, Fov, eps, t1, t2 = _torch(_inputs(4, 8))
     with pytest.raises(ValueError, match="must divide"):
         ttr.t_vikings_scan_core(Wv, Wo, Ev, Eo, L, Fov, eps, t1, t2, 4, jc=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttr.t_vikings_scan_core(Wv, Wo, Ev, Eo, L, Fov, eps, t1, t2, 4,
-                                slab_dtype=torch.bfloat16)
+    e64 = ttr.t_vikings_scan_core(Wv, Wo, Ev, Eo, L, Fov, eps, t1, t2, 4)
+    e16 = ttr.t_vikings_scan_core(Wv, Wo, Ev, Eo, L, Fov, eps, t1, t2, 4,
+                                  slab_dtype=torch.bfloat16)
+    assert e16.dtype == torch.float32 and bool(torch.isfinite(e16))
+    assert 0 < abs(float(e16) - float(e64)) < 5e-2 * abs(float(e64))
 
 
 @functools.lru_cache(maxsize=None)
