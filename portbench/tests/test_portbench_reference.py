@@ -1,0 +1,156 @@
+"""The plain reference agrees with the port's plain paths at a tiny size on
+the CPU, and the port's float32 path (the control) fails the judge."""
+
+import math
+
+import pytest
+import torch
+
+import pycc_tpu_torch
+from pycc_tpu_torch.cclambda import lambda_residuals_from_F
+from pycc_tpu_torch.hamiltonian import build_hamiltonian
+from pycc_tpu_torch.models.ccsd import cc_energy, residuals_ccsd
+from pycc_tpu_torch.ops.kernels.vvvv import vvvv_nt_reference
+from pycc_tpu_torch.rt.lasers import gaussian_laser
+from pycc_tpu_torch.triples import t_vikings_scan
+
+from portbench.harness.inputs import make_inputs
+from portbench.reference import ccsd as rcc
+from portbench.reference import triples as rtr
+from portbench.reference.hamiltonian import (FactorERI, FullERI, mo_eri,
+                                             mo_fock, spin_adapted)
+from portbench.reference.lam import build_hbar, lambda_residuals
+from portbench.reference.rt import RT, Gaussian
+from portbench.tests.common import SEED, run_tiny
+
+CPU = torch.device("cpu")
+F64 = torch.float64
+
+
+@pytest.fixture(scope="module")
+def system(tiny):
+    """A tiny seeded wavefunction, the port's Hamiltonian of it and the
+    reference's, and random amplitudes near the MP2 guess."""
+    cfg = tiny.config("h2o6_vdz")
+    wfn = make_inputs(cfg, SEED, CPU)
+    H = build_hamiltonian(wfn, device="cpu")
+    C = torch.as_tensor(wfn.Ca_subset("AO", "ACTIVE"))
+    F = mo_fock(C, torch.as_tensor(wfn.Fa()))
+    ERI = mo_eri(C, torch.as_tensor(wfn.ERI_ao))
+    no = H.no
+    nv = F.shape[0] - no
+    g = torch.Generator().manual_seed(5)
+    t1 = 0.05 * torch.randn((no, nv), generator=g, dtype=F64)
+    t2 = 0.05 * torch.randn((no, no, nv, nv), generator=g, dtype=F64)
+    t2 = 0.5 * (t2 + t2.permute(1, 0, 3, 2))
+    return dict(wfn=wfn, H=H, F=F, ERI=ERI, L=spin_adapted(ERI), no=no,
+                t1=t1, t2=t2, g=g)
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def test_hamiltonian_agrees(system):
+    s = system
+    assert _rel(s["H"].F, s["F"]) < 1e-14
+    assert _rel(s["H"].ERI, s["ERI"]) < 1e-14
+    assert _rel(s["H"].L, s["L"]) < 1e-14
+
+
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+def test_ccsd_residuals_and_energy_agree(system, cplx):
+    s = system
+    no, v = s["no"], slice(s["no"], None)
+    t1, t2 = s["t1"], s["t2"]
+    F = s["F"]
+    if cplx:
+        t1 = t1 * (1 + 0.3j)
+        t2 = t2 * (1 - 0.2j)
+        F = F.to(torch.complex128)
+    ERIv = s["ERI"][v, v, v, v].contiguous()
+    r1, r2 = rcc.residuals_ccsd(F, FullERI(s["ERI"]), FullERI(s["L"]), ERIv,
+                                t1, t2, no)
+    p1, p2 = residuals_ccsd(F, s["H"].ERI, s["H"].L, s["H"].vvvv, t1, t2, no,
+                            ladder=vvvv_nt_reference)
+    assert _rel(p1, r1) < 1e-12 and _rel(p2, r2) < 1e-12
+    e = rcc.cc_energy(F, FullERI(s["L"]), t1, t2, no)
+    assert abs(complex(cc_energy(F, s["H"].L, t1, t2, no)) - complex(e)) \
+        < 1e-13 * abs(complex(e))
+
+
+def test_lambda_residuals_agree(system):
+    s = system
+    no, v = s["no"], slice(s["no"], None)
+    g = s["g"]
+    t1, t2 = s["t1"] * (1 + 0.1j), s["t2"] * (1 - 0.1j)
+    l1 = 2 * t1 + 0.01j
+    l2 = 2 * (2 * t2 - t2.swapaxes(2, 3)) + 0.01 * torch.randn(
+        t2.shape, generator=g, dtype=F64)
+    F = s["F"].to(torch.complex128)
+    ERIv = s["ERI"][v, v, v, v].contiguous()
+    H = build_hbar(F, FullERI(s["ERI"]), FullERI(s["L"]), ERIv, t1, t2, no)
+    r1, r2 = lambda_residuals(H, FullERI(s["L"]), t2, l1, l2, no)
+    p1, p2 = lambda_residuals_from_F("CCSD", F, s["H"].ERI, s["H"].L, t1,
+                                     t2, l1, l2, no,
+                                     ladder=vvvv_nt_reference)
+    assert _rel(p1, r1) < 1e-12 and _rel(p2, r2) < 1e-12
+
+
+def test_triples_energy_agrees(system):
+    s = system
+    cc = pycc_tpu_torch.ccwfn(s["wfn"], model="CCSD(T)", device="cpu")
+    cc.solve_cc(1e-10, 1e-10)
+    e_port = float(t_vikings_scan(cc))
+    e_ref = float(rtr.t_energy(s["F"], FullERI(s["ERI"]), FullERI(s["L"]),
+                               cc.t1, cc.t2, s["no"]))
+    assert e_ref < 0 and abs(e_port - e_ref) < 1e-13 * abs(e_ref)
+
+
+def test_factor_blocks_agree(tiny):
+    x = make_inputs(tiny.config("h2o6_avdz_df"), SEED, CPU)
+    B = torch.as_tensor(x.B)
+    full = torch.einsum("Ppr,Pqs->pqrs", B, B)
+    L = spin_adapted(full)
+    E = FactorERI(B, x.no)
+    LE = FactorERI(B, x.no, L=True, eri=E)
+    o, v = slice(0, x.no), slice(x.no, None)
+    for key in ((o, o, v, v), (o, v, v, v), (v, v, v, o), (o, v, o, o),
+                (v, v, v, v)):
+        assert _rel(E[key], full[key]) < 1e-14
+        assert _rel(LE[key], L[key]) < 1e-14
+
+
+def test_rt_rhs_and_dipole_agree(system):
+    s = system
+    no, v = s["no"], slice(s["no"], None)
+    cc = pycc_tpu_torch.ccwfn(s["wfn"], model="CCSD", device="cpu")
+    cc.solve_cc(1e-9, 1e-9)
+    lam = pycc_tpu_torch.cclambda(cc, pycc_tpu_torch.cchbar(cc))
+    lam.solve_lambda(1e-9, 1e-9)
+    pulse = (0.01, 0.3, 0.01, 0.05)
+    rt = pycc_tpu_torch.rtcc(cc, lam, None, gaussian_laser(
+        *pulse[:3], center=pulse[3]), ladder=vvvv_nt_reference)
+    y = rt.collect_amps(cc.t1, cc.t2, lam.l1, lam.l2, 0)
+    y = y + 0.001 * torch.randn(y.shape, generator=s["g"], dtype=F64)
+    mu = [torch.as_tensor(m) for m in cc.H.mu]
+    ref = RT(s["F"], FullERI(s["ERI"]), FullERI(s["L"]),
+             s["ERI"][v, v, v, v].contiguous(), mu, no, Gaussian(*pulse))
+    for t in (0.0, 0.047):
+        assert _rel(rt.f(t, y), ref.f(t, y)) < 1e-12
+    mu_port = rt.dipole(*rt.extract_amps(y)[:4])
+    mu_ref = ref.dipole(y).tolist()
+    assert max(abs(a - b) for a, b in zip(mu_port, mu_ref)) < 1e-14
+
+
+@pytest.mark.parametrize("cell", ["h2o6_vdz.ccsd_t", "h2o6_avdz_df.ccsd",
+                                  "h2o6_vdz.ccsd", "h2o6_vdz.rt"])
+def test_program_passes_and_float32_control_fails(tiny, cell):
+    """The cell's own limits (limits/<cell>.json): the program in its
+    configuration's float64 passes; its float32 path, the control, fails
+    at least one number."""
+    result, numbers = run_tiny(tiny, cell)
+    assert result["correct"], numbers
+    assert all(math.isfinite(x) for x in numbers.values())
+    control, numbers = run_tiny(tiny, cell, precision="SP")
+    assert not control["correct"], numbers
