@@ -36,6 +36,7 @@ from .ops.diis import DIIS
 from .ops.kernels.vvvv import vvvv_nt
 from .parallel.mesh import dense, mesh_vvvv
 from .utils.log import logger as log
+from .utils.timing import span
 
 def build_Goo(t2, l2):
     return contract("mjab,ijab->mi", t2, l2)
@@ -132,7 +133,8 @@ def lambda_residuals_from_F(model, F, ERI, L, t1, t2, l1, l2, no,
     mesh_vvvv`), over which Hvvvv is built, and its ladder run, shard by
     shard (`cchbar.build_hbar`)."""
     base = "CCSD" if model == "CC3" else model
-    hb = build_hbar(base, F, ERI, L, t1, t2, no, vvvv=vvvv)
+    with span("hbar.rebuild"):
+        hb = build_hbar(base, F, ERI, L, t1, t2, no, vvvv=vvvv)
     r1, r2 = lambda_residuals(base, hb, F, ERI, L, t1, t2, l1, l2, no,
                               ladder=ladder)
     if model == "CC3":
@@ -161,8 +163,9 @@ def lambda_residuals_from_F_df(model, F, dfb, t1, t2, l1, l2, no,
     if model not in ("CCD", "CC2", "CCSD", "CC3"):
         raise ValueError("Lambda over factors from F supports CCD, CC2, "
                          "CCSD and CC3 (got %s)." % model)
-    dfh = build_hbar_df(F, dfb, t1, t2, no,
-                        model="CC2" if model == "CC2" else "CCSD")
+    with span("hbar.rebuild"):
+        dfh = build_hbar_df(F, dfb, t1, t2, no,
+                            model="CC2" if model == "CC2" else "CCSD")
     r1, r2 = lambda_residuals_df(dfh, t1, t2, l1, l2, no, nblocks=nblocks,
                                  model="CCSD" if model == "CC3" else model,
                                  F=F, ladder=ladder)

@@ -211,8 +211,9 @@ class ccwfn:
         if local is not None:
             self._init_local(scf_wfn)
         elif storage == "full":
-            self.H = build_hamiltonian(scf_wfn, device=hdev,
-                                       dtype=self.dtype)
+            with self.timers.time("ccwfn.hamiltonian"):
+                self.H = build_hamiltonian(scf_wfn, device=hdev,
+                                           dtype=self.dtype)
             self._apply_mesh()
             self._set_amplitudes(self.H.ERI[self.o, self.o, self.v, self.v])
         elif storage == "blocked":
@@ -620,11 +621,13 @@ class ccwfn:
                     # amplitudes and what the push will overwrite
                     prev = (rms, t1, t2,
                             diis.mark(state) if use_diis else None)
-                    r1, r2 = self.residuals_bf16(F, t1, t2)
+                    with self.timers.time("ccwfn.residual"):
+                        r1, r2 = self.residuals_bf16(F, t1, t2)
                     r1, r2 = r1.to(t1.dtype), r2.to(t2.dtype)
                     self.niter_bf16 += 1
                 else:
-                    r1, r2 = self.residuals(F, t1, t2)
+                    with self.timers.time("ccwfn.residual"):
+                        r1, r2 = self.residuals(F, t1, t2)
                 if self.local is not None:
                     # the Jacobi step in each pair's truncated space
                     inc1, inc2 = self.Local.filter_amps(r1, r2)
@@ -643,11 +646,12 @@ class ccwfn:
                 if use_diis:
                     # DIIS error = the Jacobi increment from the amplitudes
                     # this iteration started from (post-extrapolation)
-                    diis.push(state, (t1n, t2n), (t1, t2))
-                    if niter >= start_diis:
-                        t1, t2 = diis.extrapolate(state, (t1n, t2n))
-                    else:
-                        t1, t2 = t1n, t2n
+                    with self.timers.time("ccwfn.diis"):
+                        diis.push(state, (t1n, t2n), (t1, t2))
+                        if niter >= start_diis:
+                            t1, t2 = diis.extrapolate(state, (t1n, t2n))
+                        else:
+                            t1, t2 = t1n, t2n
                 else:
                     t1, t2 = t1n, t2n
                 # the one host read of the iteration

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .utils.device import init_device
+from .utils.timing import span
 
 
 @dataclass(frozen=True, eq=False)
@@ -172,8 +173,10 @@ def build_hamiltonian(wfn, C=None, device="cuda", dtype=torch.float64,
         ERI_ao = getattr(wfn, "ERI_ao", None)
         if ERI_ao is None:
             ERI_ao = ints.eri(basis)
-        ERI = _mo_eri_dirac(torch.as_tensor(ERI_ao, device=dev), C)
+        with span("hamiltonian.h2d", nbytes=ERI_ao.nbytes):
+            ERI = torch.as_tensor(ERI_ao, device=dev)
         del ERI_ao
+        ERI = _mo_eri_dirac(ERI, C)
         L = (2.0 * ERI - ERI.swapaxes(2, 3)).to(dtype)
         ERI = ERI.to(dtype)
 

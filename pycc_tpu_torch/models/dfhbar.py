@@ -44,6 +44,7 @@ from ..ops.contract import contract
 from ..ops.kernels.vvvv import (ladder_product, stack_rows,
                                 unstack_product, vvvv_nt)
 from ..parallel.mesh import Sharded, dense, per_piece, region, split_ranges
+from ..utils.timing import span
 from .dfccsd import (DFERI, LADDER_MAX_ELEMS, _block_count, _eri_oooo,
                      _eri_ooov, _eri_oovv, _eri_ovoo, _eri_ovov, _eri_ovvo,
                      _ladder_blocks, _tau, ladder_W, whole_bvv)
@@ -148,7 +149,8 @@ def ladder_apply(BL, BR, x2, nblocks=None, ladder=vvvv_nt):
         nA, nB = sa.stop - sa.start, sb.stop - sb.start
         for a0 in range(0, nA, blk):
             a1 = min(a0 + blk, nA)
-            W = ladder_W(BLc[:, a0:a1], BRc)
+            with span("ladder.assemble"):
+                W = ladder_W(BLc[:, a0:a1], BRc)
             if complex_W:
                 out = unstack_product(
                     ladder_product(ladder, Ac, stack_rows(W)),

@@ -55,6 +55,7 @@ from ..models.ccsd import build_tau, slices
 from ..ops.contract import contract
 from ..ops.kernels.vvvv import vvvv_nt
 from ..parallel.mesh import mesh_vvvv
+from ..utils.timing import span
 
 
 def _host(x):
@@ -179,25 +180,28 @@ class rtcc:
     def f(self, t, y):
         """The ODE right-hand side at time t: a device tensor for a tensor
         y, a numpy array for a numpy y (scipy's complex_ode)."""
-        host = not isinstance(y, torch.Tensor)
-        if host:
-            y = torch.from_numpy(np.ascontiguousarray(y)).to(self.device)
-        t1, t2, l1, l2 = self._split(y)
-        F = self._field(t, y.dtype)
-        rt1, rt2 = self.t_residuals(F, t1, t2)
-        rl1, rl2 = self.lambda_residuals(F, t1, t2, l1, l2)
-        if getattr(self.ccwfn, "local", None) is not None:
-            # the pair-space projection is real-linear: it commutes with
-            # the -i and +i below
-            filter_res = self.ccwfn.Local.filter_res
-            rt1, rt2 = filter_res(rt1, rt2)
-            rl1, rl2 = filter_res(rl1, rl2)
-        out = torch.cat([(rt1 * (-1.0j)).reshape(-1),
-                         (rt2 * (-1.0j)).reshape(-1),
-                         (rl1 * 1.0j).reshape(-1),
-                         (rl2 * 1.0j).reshape(-1),
-                         self._phase(F, t1, t2).reshape(1).to(y.dtype)])
-        return out.cpu().numpy() if host else out
+        with span("rtcc.f"):
+            host = not isinstance(y, torch.Tensor)
+            if host:
+                y = torch.from_numpy(np.ascontiguousarray(y)).to(self.device)
+            t1, t2, l1, l2 = self._split(y)
+            F = self._field(t, y.dtype)
+            with span("rtcc.t_side"):
+                rt1, rt2 = self.t_residuals(F, t1, t2)
+            with span("rtcc.lambda_side"):
+                rl1, rl2 = self.lambda_residuals(F, t1, t2, l1, l2)
+            if getattr(self.ccwfn, "local", None) is not None:
+                # the pair-space projection is real-linear: it commutes
+                # with the -i and +i below
+                filter_res = self.ccwfn.Local.filter_res
+                rt1, rt2 = filter_res(rt1, rt2)
+                rl1, rl2 = filter_res(rl1, rl2)
+            out = torch.cat([(rt1 * (-1.0j)).reshape(-1),
+                             (rt2 * (-1.0j)).reshape(-1),
+                             (rl1 * 1.0j).reshape(-1),
+                             (rl2 * 1.0j).reshape(-1),
+                             self._phase(F, t1, t2).reshape(1).to(y.dtype)])
+            return out.cpu().numpy() if host else out
 
     # ------------------------------------------------------------------
     def collect_amps(self, t1, t2, l1, l2, phase):
