@@ -504,8 +504,8 @@ K2_SHAPES = [
     ((7, 45), "ragged", (0, 6), "all", 5),
     ((24, 114), "(H2O)_6/cc-pVDZ fzc", (0, 23), "all", 5),
     ((DF_NO, DF_NV), "(H2O)_6/aug-cc-pVDZ fzc", (0, 23), ("f64",), 3),
-    # past the one-chunk layout (216 no + 16 nv > 22008 before the
-    # occupied l was chunked): two chunks of l, a ragged 8-wide tile
+    # past one chunk of the occupied l (in float64 a ring slot holds the
+    # Eo rows of 89): two chunks of l, a ragged 8-wide tile
     (K2_CHUNKED, "two l chunks", (0, K2_CHUNKED[0] - 1), ("f64",), 3),
 ]
 # the f64 tolerance there: the chunked X2l sums are held tighter
@@ -615,19 +615,23 @@ def phase_k2(smi, shapes=K2_SHAPES):
                 k2_work(no, nv, label),
                 k2_row_bytes(no, nv, in_bytes, acc_bytes))
             lc = k2.t_row_chunk(no, nv, acc_bytes)
+            staged = k2.t_row_staged_bytes(no, nv, acc_bytes, in_bytes)
             print("[K2] %-20s (no,nv)=(%d,%d) %-9s rows %s  max|err|/max|ref|: "
                   "%s (tol %.0e)  row %d: kernel %.3f ms (%.2f TFLOP/s)  "
                   "bound %.3f ms (%s, %.0f%% of it)  plain %.3f ms  l chunk "
-                  "%d (%d B shared a block)  | %s"
+                  "%d (%d B shared a block)  %.4g TB staged a row (%.2f "
+                  "TB/s)  | %s"
                   % (what, no, nv, label, ",".join(map(str, rows))
                      if len(rows) < no else "all", rels, tol, i, ms,
                      k2_row_flops(no, nv) / (ms * 1e-3) / 1e12, bound_ms,
                      bound_by, 100.0 * bound_ms / ms, plain_ms, lc,
-                     k2.t_row_smem_bytes(no, nv, acc_bytes), smi))
+                     k2.t_row_smem_bytes(no, nv, acc_bytes), staged / 1e12,
+                     staged / (ms * 1e-3) / 1e12, smi))
             cells[(no, nv), label] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None,
-                layout="occupied l in chunks of %d of %d" % (lc, no))
+                layout="occupied l in chunks of %d of %d, %.4g TB staged a "
+                       "row" % (lc, no, staged / 1e12))
             del ops
         del ops64
         torch.cuda.empty_cache()

@@ -41,9 +41,20 @@
 // What bounds it: at (H2O)_6/cc-pVDZ, (no, nv) = (24, 114), one row builds
 // o^2 v^3 = 8.5e8 t3 elements at 6 (v + o) = 828 FMA each (1.4e12 flop)
 // and spends 3 (v + o) FMA more on the projections (0.4e12 flop): 29 ms
-// at the FP64 tensor cores' 67 TFLOP/s.  But every block streams its
-// operands from L2 with a reuse of 8, the tile edge: ~1.2 TB a row, so
-// the copies, not the arithmetic, set the time.  The design:
+// at the FP64 tensor cores' 67 TFLOP/s.  Every block stages its operands
+// from L2 with a reuse of 8, the tile edge: 1.15 TB a row
+// (ops/kernels/triples.t_row_staged_bytes), 4.0 TB/s at the two-stage
+// ring's 287 ms.  Neither sets the time.  On the H100, with the copies of
+// the j-independent segments (70% of the bytes) made zero-size the row
+// took 247 ms, with every copy zero-size 212 ms, with no copy issued at
+// all 152 ms, and without the build's DMMA 286 ms: a block of four warps
+// (two an SM, held there by shared memory and registers) waits out each
+// stage's round trip through L2, its barrier and its copy instructions,
+// 35 stages a k.  So the ring is as deep as shared memory allows, and the
+// bytes are the same.  (Thread-block clusters that multicast the
+// j-independent segments to four blocks by bulk copies read 0.55 TB a row
+// and took 852 ms: one member's handshake and the small bulk copies sit
+// on every stage's path.)  The design:
 //   - the twelve build terms fall into three groups by the tile axis that
 //     their single operand indexes (c, b or a).  Each group is one product
 //     (64 pair rows) x (8 columns) over a contraction axis of 2v + 2o
@@ -58,18 +69,25 @@
 //     (b, c) or (a, b) pairs of the tile, with G and Ev staged so that
 //     consecutive threads read consecutive elements; the four warps'
 //     partial sums meet in shared memory;
-//   - the operands stream through a two-stage cp.async ring in shared
-//     memory, 32 contraction steps (or 32 d) a stage, so the copies of the
-//     next stage overlap the products of this one; when no and nv are
-//     even a copy moves two elements (16 bytes in float64, past L1).
-//     Shared memory (the ring, the tile and the block's sums over k)
-//     allows two blocks an SM at (24, 114);
+//   - the operands stream through a cp.async ring in shared memory, 32
+//     contraction steps (or 32 d) a stage, so the copies of the next
+//     stages overlap the products of this one; when no and nv are even a
+//     copy moves two elements (16 bytes in float64, past L1).  A float64
+//     tile has three stages (Ring<true>): the 8 single rows ride in the
+//     64 pair rows' padding, the Z1 partial sums in the slot of their own
+//     stage, and a k's small operands (Eo, Fov, L) in the slot its last
+//     stages leave free, so that three stages and the block's sums still
+//     allow two blocks an SM at (24, 114) (113152 bytes): 272 ms a row
+//     there, and 3.33 s against 4.28 s at (24, 216), where one block an
+//     SM fits.  A float32 tile keeps two stages (Ring<false>): a third made
+//     its row slower;
 //   - the occupied index l of Eo and of the X2l sums is staged in chunks
-//     of lc: all no when 8 (7048 + 216 no + 16 nv) bytes (float64) fit in
-//     what a block may take, else as many as fit, so no occupied size is
-//     refused.  A later chunk rebuilds the t3 tiles of every k for its
-//     own X2l sums and runs nothing else, so past one chunk a row costs
-//     about no / lc builds;
+//     of lc: all no when they fit in what a block may take (in float64
+//     8 (7712 + 192 lc + 16 nv) bytes, and at most 89, what a ring slot
+//     holds of Eo), else as many as fit, so no occupied size is refused.
+//     A later chunk rebuilds the t3 tiles of every k for its own X2l sums
+//     and runs nothing else, so past one chunk a row costs about no / lc
+//     builds;
 //   - blocks run j fastest, so the blocks resident together share their
 //     k-dependent operands in L2;
 //   - float32 has no tensor-core path at its tolerance (TF32 keeps ~3
@@ -110,10 +128,6 @@ constexpr int DC = 32;               // d values a Z1 stage
 constexpr int MT = DC / 16;          // 16-row d tiles a Z1 stage (two)
 constexpr int PE = T2 + 4;           // pitch of a Z1 stage row
 constexpr int PS = T2 + 4;           // pitch of the t3 tile along a
-constexpr int NSTAGE = 2;            // stages in the ring
-// a stage holds the build's 64 pair rows and 8 single rows, or one
-// (DC, 64) slice of G or Ev for the Z1 products
-constexpr int STAGE = (T2 + T) * PX > DC * PE ? (T2 + T) * PX : DC * PE;
 // copies of VEC consecutive elements: XV threads to a build stage row,
 // RP rows a pass of the block's threads
 template <int VEC>
@@ -128,10 +142,48 @@ struct Copies {
                 "a Z1 stage is a whole number of copies a thread");
 };
 constexpr int NPRE = Copies<1>::BUILD;   // copies a thread (at most)
+// the small operands of a k's projections: Eo on the tile's a, b and c for
+// lc occupied l, then SMALL more: Fov on the three, and two (b, c) and
+// (b, a) slices of L
+constexpr int SMALL = 3 * T + 2 * T2;
+
+// The operand ring, by tile type.  A stage holds the build's 64 pair rows
+// and 8 single rows, or one (DC, 64) slice of G or Ev for the Z1 products.
+// Float64 tiles (DEEP): three stages, so that two are in flight while one
+// is read, in the shared memory of two blocks an SM at (24, 114): the
+// single rows ride in the pair rows' last PX - XC columns (single_at), and
+// a k's small operands in the ring slot that its last stages leave free,
+// so lc is at most LC_SLOT.  Float32 tiles: two stages, the single rows
+// after the pair rows, the small operands in a region of their own.
+template <bool DEEP_>
+struct Ring {
+  static constexpr bool DEEP = DEEP_;
+  static constexpr int NSTAGE = DEEP ? 3 : 2;
+  static constexpr int ROWS = DEEP ? T2 : T2 + T;
+  static constexpr int STAGE = ROWS * PX > DC * PE ? ROWS * PX : DC * PE;
+  // where single row s keeps contraction step x: for DEEP, steps
+  // x .. x + 3 (x a multiple of 4) in the last four columns of pair row
+  // (x / 4) T + s, so that an mma fragment's four k and eight n fall on
+  // distinct banks
+  __host__ __device__ static constexpr int single_at(int s, int x) {
+    return DEEP ? ((x / 4) * T + s) * PX + XC + x % 4 : (T2 + s) * PX + x;
+  }
+  // single_at(s, x + 4 m) = single_at(s, x) + m SQ
+  static constexpr int SQ = DEEP ? T * PX : 4;
+  // the most l whose small operands a slot holds (read for DEEP)
+  static constexpr int LC_SLOT = (STAGE - SMALL) / (3 * T);
+};
 
 static_assert(THREADS == 4 * 32 && T == 8, "four warps, one 16-row slice each");
 static_assert(MT == 2, "a Z1 stage is two d tiles, one accumulator chain each");
+static_assert(PX - XC == 4 && XC / 4 == T,
+              "the pair rows' last columns hold the single rows");
+static_assert(THREADS * 4 * MT <= Ring<true>::STAGE &&
+                  THREADS * 4 * MT <= Ring<false>::STAGE,
+              "the Z1 partial sums fit a slot");
 static_assert(XC % 32 == 0, "a build stage is two bf16 mma steps");
+static_assert(Ring<true>::LC_SLOT >= 1,
+              "a ring slot holds the small operands of one l");
 static_assert(Copies<1>::EV <= NPRE && Copies<2>::BUILD <= NPRE,
               "the stager holds a stage's copies");
 
@@ -259,12 +311,13 @@ __device__ __forceinline__ void mma_k4(Tacc (&c)[4], int g, int t, FA&& A,
 
 // c += A (16 x 16) * B (16 x 8) on the bf16 tensor cores, mma.sync
 // m16n8k16 with float32 accumulation, c in the layout of mma_k4.  The
-// operands are float32 rows of pitch PX in shared memory that hold bf16
-// values, so taking their upper halves is exact: a points at A(g, 2t),
-// b at B(2t, g) (B stored by columns), each pair of consecutive k one
-// 8-byte load.
+// operands are float32 values in shared memory that hold bf16 values, so
+// taking their upper halves is exact: a points at A(g, 2t) (rows of pitch
+// PX), b and b8 at B(2t, g) and B(2t + 8, g), each pair of consecutive k
+// one 8-byte load.
 __device__ __forceinline__ void mma_k16_bf16(float (&c)[4], const float* a,
-                                             const float* b) {
+                                             const float* b,
+                                             const float* b8) {
   auto pack = [](const float* p) {
     const float2 x = *reinterpret_cast<const float2*>(p);
     // the bf16 of k in the low half, of k + 1 in the high half
@@ -272,7 +325,7 @@ __device__ __forceinline__ void mma_k16_bf16(float (&c)[4], const float* a,
   };
   const unsigned a0 = pack(a), a1 = pack(a + 8 * PX), a2 = pack(a + 8),
                  a3 = pack(a + 8 * PX + 8);
-  const unsigned b0 = pack(b), b1 = pack(b + 8);
+  const unsigned b0 = pack(b), b1 = pack(b8);
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
@@ -281,29 +334,27 @@ __device__ __forceinline__ void mma_k16_bf16(float (&c)[4], const float* a,
 }
 
 // Shared-memory layout, in elements of the tile type, for chunks of lc
-// occupied indices l of Eo and of the X2l sums.  The host computes the
-// same size through t_row_smem_bytes.
+// occupied indices l of the X2l sums (and of Eo, when the small operands
+// have a region of their own).  The host computes the same size through
+// t_row_smem_bytes.
 struct Layout {
-  int ps, st, red, eo, fo, lbc, lba, x1a, x1m, z2a, z2m, z1, z1m, x2a, x2b,
-      x2c, total;
-  __host__ __device__ Layout(int lc, int nv) {
+  int ps, st, red, eo, z1, z1m, x2a, x2b, x2c, zx, total;
+  __host__ __device__ Layout(int lc, int nv, bool deep) {
     int o = 0;
     ps = o;  o += T * PS;          // the t3 tile, [a][b * T + c], pitch PS
-    st = o;  o += NSTAGE * STAGE;  // the operand ring
-    red = o; o += THREADS * 4 * MT;  // the warps' Z1 partial sums
-    eo = o;  o += 3 * lc * T;      // Eo[j,k,l,x], x on the a, b, c ranges
-    fo = o;  o += 3 * T;           // Fov[k, x] on the a, b, c ranges
-    lbc = o; o += T2;              // L[j,k,b,c]
-    lba = o; o += T2;              // L[j,k,b,a]
-    x1a = o; o += T;               // the block's sums over k ...
-    x1m = o; o += T;
-    z2a = o; o += T2;
-    z2m = o; o += T2;
-    z1 = o;  o += T * nv;          // Z1[a][d]
+    st = o;                        // the operand ring
+    o += deep ? Ring<true>::NSTAGE * Ring<true>::STAGE
+              : Ring<false>::NSTAGE * Ring<false>::STAGE;
+    red = o;                       // float32 tiles: the Z1 partial sums
+    if (!deep) o += THREADS * 4 * MT;
+    eo = o;                        // and the small operands
+    if (!deep) o += 3 * lc * T + SMALL;
+    z1 = o;  o += T * nv;          // the block's sums over k: Z1[a][d]
     z1m = o; o += T * nv;          // Z1m[c][d]
     x2a = o; o += lc * T2;         // X2l[j,l,a,b] +=
     x2b = o; o += lc * T2;         // X2l[j,l,a,c] +=
     x2c = o; o += lc * T2;         // X2l[j,l,c,b] +=
+    zx = o;  o += 2 * THREADS;     // each thread's Z2 and X1 sums
     total = o;
   }
 };
@@ -313,12 +364,14 @@ struct Layout {
 // to spare.
 constexpr long long SMEM_BUDGET = 232448 - 1024;
 
-// The chunk of occupied l a block stages: all no when they fit, else the
-// most that fit, so that the X2l sums of a chunk stay on chip; 0 when
-// not even one fits (nv too large).
+// The chunk of occupied l a block stages: all no when they fit (and are
+// at most LC_SLOT), else the most that fit, so that the X2l sums of a
+// chunk stay on chip; 0 when not even one fits (nv too large).
 __host__ __device__ inline int chunk_of(int no, int nv, int acc_bytes) {
-  for (int lc = no; lc > 0; --lc)
-    if (static_cast<long long>(Layout(lc, nv).total) * acc_bytes <=
+  const bool deep = acc_bytes == 8;
+  const int cap = deep ? Ring<true>::LC_SLOT : no;
+  for (int lc = no < cap ? no : cap; lc > 0; --lc)
+    if (static_cast<long long>(Layout(lc, nv, deep).total) * acc_bytes <=
         SMEM_BUDGET)
       return lc;
   return 0;
@@ -337,18 +390,11 @@ __global__ void __launch_bounds__(THREADS) t_row_kernel(
     int no, int nv, int lc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Tacc* sm = reinterpret_cast<Tacc*>(smem_raw);
-  const Layout lay(lc, nv);
+  using R = Ring<sizeof(Tacc) == 8>;
+  constexpr int NSTAGE = R::NSTAGE, STAGE = R::STAGE;
+  const Layout lay(lc, nv, R::DEEP);
   Tacc* Ps = sm + lay.ps;
   Tacc* St = sm + lay.st;
-  Tacc* Red = sm + lay.red;
-  Tacc* EoS = sm + lay.eo;
-  Tacc* FoS = sm + lay.fo;
-  Tacc* Lbc = sm + lay.lbc;
-  Tacc* Lba = sm + lay.lba;
-  Tacc* sX1a = sm + lay.x1a;
-  Tacc* sX1m = sm + lay.x1m;
-  Tacc* sZ2a = sm + lay.z2a;
-  Tacc* sZ2m = sm + lay.z2m;
   Tacc* sZ1 = sm + lay.z1;
   Tacc* sZ1m = sm + lay.z1m;
   Tacc* sXa = sm + lay.x2a;
@@ -369,8 +415,11 @@ __global__ void __launch_bounds__(THREADS) t_row_kernel(
   const int b0 = ((tile / nt) % nt) * T;
   const int c0 = (tile % nt) * T;
 
-  for (int x = tid; x < lay.total - lay.x1a; x += THREADS)
-    sm[lay.x1a + x] = Tacc(0);
+  for (int x = tid; x < lay.total - lay.z1; x += THREADS)
+    sm[lay.z1 + x] = Tacc(0);
+  // the thread's sums over k of one Z2 element and one X1 partial
+  Tacc& z2sum = sm[lay.zx + tid];
+  Tacc& x1sum = sm[lay.zx + THREADS + tid];
 
   const int V = nv, O = no, V2 = nv * nv, VO = nv * no;
   const int X = 2 * nv + 2 * no;          // the groups' contraction length
@@ -395,6 +444,7 @@ __global__ void __launch_bounds__(THREADS) t_row_kernel(
   // The occupied l of Eo and the X2l sums come in chunks of lc, one k loop
   // each.  The first chunk also runs the Z1 products and the other
   // projections; a later one rebuilds the t3 tiles for its X2l alone.
+  int gs = 0;                          // stages the block has run
   for (int l0 = 0; l0 < no; l0 += lc) {
     const int nl = min(lc, no - l0);
     const bool first = l0 == 0;
@@ -448,10 +498,17 @@ __global__ void __launch_bounds__(THREADS) t_row_kernel(
       const Tin* Evk = Ev + int64_t(k) * V2;
       const Tacc eijk = eij + eps[k];
       const Tin* Gk = G + int64_t(k) * V2;
+      // the small operands of the projections: for DEEP in the slot of the
+      // ring that the next k's first stage takes, whose last stage here was
+      // k's third-to-last, so it is free from the second-to-last step on
+      Tacc* EoS = R::DEEP ? St + ((gs + NQ) % NSTAGE) * STAGE : sm + lay.eo;
+      Tacc* FoS = EoS + 3 * lc * T;
+      Tacc* Lbc = FoS + 3 * T;
+      Tacc* Lba = Lbc + T2;
 
-      // the small operands of the projections, masked to the tile: with the
-      // first stage of k when they can be copied as they are, else (bf16)
-      // widened at the end of the build
+      // the small operands, masked to the tile: copied as they are (for
+      // DEEP two steps before the end of the build, else with its first
+      // stage), or (bf16) widened at its end
       auto small_operands = [&](bool async) {
         const Tin* Eojk = Eo + (int64_t(j) * O + k) * VO;
         const Tin* Ljk = L + (int64_t(j) * O + k) * V2;
@@ -485,10 +542,10 @@ __global__ void __launch_bounds__(THREADS) t_row_kernel(
         }
       };
 
-      // stage at cursor c into ring slot `slot`
-      auto issue = [&](Cursor c, int slot, St_t& s) {
-        Tacc* buf = St + slot * STAGE;
-        if constexpr (St_t::ASYNC) {
+      // stage at cursor c, the block's gi-th, into ring slot gi % NSTAGE
+      auto issue = [&](Cursor c, int gi, St_t& s) {
+        Tacc* buf = St + (gi % NSTAGE) * STAGE;
+        if constexpr (St_t::ASYNC && !R::DEEP) {
           if (c.part == 0 && c.idx == 0) small_operands(true);
         }
         if (c.part < 3) {
@@ -515,7 +572,7 @@ __global__ void __launch_bounds__(THREADS) t_row_kernel(
                      row + r1 * sr1, valid);
             }
             const bool valid = xin && r2 < seg_n[id][5];
-            s.copy(T * (T / C::RP) + h, buf + (T2 + r2) * PX + xl,
+            s.copy(T * (T / C::RP) + h, buf + R::single_at(r2, xl),
                    seg_q[id] + r2 * seg_n[id][2] + e, valid);
           }
         } else {
@@ -554,13 +611,13 @@ __global__ void __launch_bounds__(THREADS) t_row_kernel(
   #pragma unroll
         for (int q = 0; q < NSTAGE - 1; ++q) {
           if (q < NQ) {
-            issue(ci, q, s);
+            issue(ci, gs + q, s);
             ci.next(NXC, NZ);
           }
           cp_commit();
         }
       } else {
-        issue(ci, 0, s);
+        issue(ci, gs, s);
         ci.next(NXC, NZ);
         s.store();
       }
@@ -570,34 +627,40 @@ __global__ void __launch_bounds__(THREADS) t_row_kernel(
           __syncthreads();
           // the slot filled here was read in step q - 1, before the barrier
           if (q + NSTAGE - 1 < NQ) {
-            issue(ci, (q + NSTAGE - 1) % NSTAGE, s);
+            issue(ci, gs + q + NSTAGE - 1, s);
             ci.next(NXC, NZ);
+          } else if (R::DEEP && q + NSTAGE - 1 == NQ) {
+            small_operands(true);
           }
           cp_commit();
         } else {
           if (q + 1 < NQ) {                  // into registers
-            issue(ci, (q + 1) % NSTAGE, s);
+            issue(ci, gs + q + 1, s);
             ci.next(NXC, NZ);
           }
           __syncthreads();
         }
-        const Tacc* buf = St + (q % NSTAGE) * STAGE;
+        const Tacc* buf = St + ((gs + q) % NSTAGE) * STAGE;
         if (cc.part < 3) {
           // ---- the build: warp w's 16 pair rows of group cc.part ----
           const int grp = cc.part;
           const Tacc* Pr = buf + warp * 16 * PX;
-          const Tacc* Sg = buf + T2 * PX;
+          // the lane's place in the single rows is found once, the steps
+          // are offsets (R::SQ)
           if constexpr (std::is_same_v<Tin, __nv_bfloat16>) {
+            const Tacc* Sg = buf + R::single_at(g, 2 * t);
   #pragma unroll
             for (int kk = 0; kk < XC; kk += 16)
               mma_k16_bf16(acc[(kk / 16) % 2], Pr + g * PX + kk + 2 * t,
-                           Sg + g * PX + kk + 2 * t);
+                           Sg + (kk / 4) * R::SQ, Sg + (kk + 8) / 4 * R::SQ);
           } else {
   #pragma unroll
             for (int kk = 0; kk < XC; kk += 4) {
               mma_k4(acc[(kk / 4) % 2], g, t,
                      [&](int r, int kq) { return Pr[r * PX + kk + kq]; },
-                     [&](int kq, int n) { return Sg[n * PX + kk + kq]; });
+                     [&](int kq, int n) {
+                       return buf[R::single_at(n, kq) + (kk / 4) * R::SQ];
+                     });
             }
           }
           if (cc.idx == NXC - 1) {
@@ -659,6 +722,10 @@ __global__ void __launch_bounds__(THREADS) t_row_kernel(
                        });
             }
           }
+          // the four warps' partial sums meet in this stage's slot once every
+          // warp has read it (DEEP), else in a region of their own
+          Tacc* Red = R::DEEP ? const_cast<Tacc*>(buf) : sm + lay.red;
+          if constexpr (R::DEEP) __syncthreads();
   #pragma unroll
           for (int mt = 0; mt < MT; ++mt)
   #pragma unroll
@@ -683,6 +750,8 @@ __global__ void __launch_bounds__(THREADS) t_row_kernel(
           if (q + 1 < NQ) s.store();
         }
       }
+      gs += NQ;
+      if constexpr (St_t::ASYNC) cp_wait<0>();
       __syncthreads();
       if constexpr (!St_t::ASYNC) {
         // the bf16 small operands, widened once the build is done
@@ -739,8 +808,8 @@ __global__ void __launch_bounds__(THREADS) t_row_kernel(
         }
   #pragma unroll
         for (int o = T / 2; o > 0; o /= 2) x1 += __shfl_xor_sync(~0u, x1, o);
-        (tid < T2 ? sZ2a : sZ2m)[u * T + w] += z;
-        if (w == 0) (tid < T2 ? sX1a : sX1m)[u] += x1;
+        z2sum += z;
+        x1sum += x1;                   // kept where w == 0
       }
       __syncthreads();
     }
@@ -764,19 +833,22 @@ __global__ void __launch_bounds__(THREADS) t_row_kernel(
     __syncthreads();
   }
 
-  // ---- the block's other totals, added once into the row's outputs ----
+  // ---- the block's other totals, added once into the row's outputs:
+  // thread (u, w) of the first 64 holds Z2a[a0 + u, b0 + w] (and, at
+  // w = 0, X1a[a0 + u]), of the others Z2m[b0 + u, c0 + w] (X1m[c0 + u]) ----
   const int64_t jv = int64_t(j) * V;
   const int64_t jvv = int64_t(j) * V2;
-  for (int x = tid; x < T; x += THREADS) {
-    if (a0 + x < nv) atomicAdd(&X1a[jv + a0 + x], sX1a[x]);
-    if (c0 + x < nv) atomicAdd(&X1m[jv + c0 + x], sX1m[x]);
-  }
-  for (int x = tid; x < T2; x += THREADS) {
-    const int u = x / T, w = x % T;
-    if (a0 + u < nv && b0 + w < nv)
-      atomicAdd(&Z2a[jvv + (a0 + u) * V + b0 + w], sZ2a[x]);
-    if (b0 + u < nv && c0 + w < nv)
-      atomicAdd(&Z2m[jvv + (b0 + u) * V + c0 + w], sZ2m[x]);
+  {
+    const int u = (tid % T2) / T, w = tid % T;
+    if (tid < T2) {
+      if (a0 + u < nv && b0 + w < nv)
+        atomicAdd(&Z2a[jvv + (a0 + u) * V + b0 + w], z2sum);
+      if (w == 0 && a0 + u < nv) atomicAdd(&X1a[jv + a0 + u], x1sum);
+    } else {
+      if (b0 + u < nv && c0 + w < nv)
+        atomicAdd(&Z2m[jvv + (b0 + u) * V + c0 + w], z2sum);
+      if (w == 0 && c0 + u < nv) atomicAdd(&X1m[jv + c0 + u], x1sum);
+    }
   }
   for (int x = tid; x < T * nv; x += THREADS) {
     const int u = x / nv, d = x % nv;
@@ -793,7 +865,8 @@ int launch(int i, const void* Wv, const void* t2m, const void* Otm,
            int no, int nv, void* stream) {
   const int lc = chunk_of(no, nv, int(sizeof(Tacc)));
   if (lc < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = size_t(Layout(lc, nv).total) * sizeof(Tacc);
+  const size_t smem =
+      size_t(Layout(lc, nv, sizeof(Tacc) == 8).total) * sizeof(Tacc);
   cudaError_t err = cudaFuncSetAttribute(
       t_row_kernel<Tin, Tacc, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -848,7 +921,8 @@ T_ROW_ENTRY(t_row_bf16, __nv_bfloat16, float)
 // acc_bytes bytes (past SMEM_BUDGET when not even one l fits)
 long long t_row_smem_bytes(int no, int nv, int acc_bytes) {
   const int lc = chunk_of(no, nv, acc_bytes);
-  return static_cast<long long>(Layout(lc > 0 ? lc : 1, nv).total) *
+  return static_cast<long long>(
+             Layout(lc > 0 ? lc : 1, nv, acc_bytes == 8).total) *
          acc_bytes;
 }
 

@@ -50,19 +50,34 @@ def _library():
     return _LIB
 
 
+# the occupied l whose Eo rows fit in a ring slot beside Fov and L in a
+# float64 tile (csrc/t_row.cu `Ring<true>::LC_SLOT`): (64 x 36 - 152) // 24
+_LC_SLOT = 89
+
+
 def t_row_layout_bytes(lc, nv, acc_bytes):
     """Bytes of the kernel's shared-memory layout (csrc/t_row.cu `Layout`)
     for chunks of lc occupied indices: the t3 tile, the operand ring and
-    the fixed sums (7048 elements), Eo and the three X2l sums of the chunk
-    (216 lc), and Z1/Z1m (16 nv)."""
-    return (7048 + 216 * lc + 16 * nv) * acc_bytes
+    each thread's Z2 and X1 sums, the three X2l sums of the chunk
+    (192 lc), and Z1/Z1m (16 nv).  In a float64 tile the ring has three
+    stages of 64 rows (7712 elements with the rest; a k's small operands
+    and the Z1 products' partial sums ride in its slots); in a float32
+    tile two stages of 72 rows, and the partial sums and Eo, Fov and L
+    regions of their own (7160 + 24 lc elements with the rest)."""
+    if acc_bytes == 8:
+        return (7712 + 192 * lc + 16 * nv) * acc_bytes
+    return (7160 + 216 * lc + 16 * nv) * acc_bytes
 
 
 def t_row_chunk(no, nv, acc_bytes):
     """The occupied indices l that one block stages at once: all no when
-    they fit in `_SMEM_BUDGET`, else the most that fit; 0 when not even
+    they fit in `_SMEM_BUDGET` (and, in a float64 tile, a ring slot holds
+    their Eo rows: at most 89), else the most that fit; 0 when not even
     one does (the mirror of csrc/t_row.cu `chunk_of`)."""
-    room = _SMEM_BUDGET // acc_bytes - 7048 - 16 * nv
+    if acc_bytes == 8:
+        room = _SMEM_BUDGET // acc_bytes - 7712 - 16 * nv
+        return max(0, min(no, _LC_SLOT, room // 192))
+    room = _SMEM_BUDGET // acc_bytes - 7160 - 16 * nv
     return max(0, min(no, room // 216))
 
 
@@ -72,6 +87,21 @@ def t_row_smem_bytes(no, nv, acc_bytes):
     t_row_chunk is 0."""
     return t_row_layout_bytes(max(t_row_chunk(no, nv, acc_bytes), 1), nv,
                               acc_bytes)
+
+
+def t_row_staged_bytes(no, nv, acc_bytes, in_bytes=None):
+    """Bytes one row i stages from L2 into the blocks' rings: for each
+    (a, b, c) tile (a ragged one counted whole), j and k, the three build
+    groups' 64 pair rows and 8 single rows over 2v + 2o steps, again for
+    every later l chunk, and in the first chunk the G and Ev slabs of Z1
+    and Z1m, nv d by 64 pairs each.  Elements of in_bytes (default
+    acc_bytes) bytes; Eo, L and Fov, a few kB a tile and k, are left out.
+    The ring's depth moves none of these bytes."""
+    in_bytes = acc_bytes if in_bytes is None else in_bytes
+    nt = -(-nv // 8)
+    chunks = -(-no // t_row_chunk(no, nv, acc_bytes))
+    per_k = chunks * (3 * 64 + 3 * 8) * (2 * nv + 2 * no) + 2 * nv * 64
+    return nt ** 3 * no * no * per_k * in_bytes
 
 
 def _types(dtype, stream_dtype):

@@ -236,16 +236,22 @@ def test_layout_fits_every_shape_up_to_200_occupied_and_900_virtual():
 
 def test_layout_stages_every_occupied_index_where_it_fits():
     """One chunk (the unchunked layout) wherever the whole occupied range
-    fits: (24, 114) and (24, 216) keep their 112448 and 125504 bytes;
-    past the old ceiling (104, 20) takes two chunks, as large as fit."""
+    fits: (24, 114) and (24, 216) take 113152 and 126208 bytes (the
+    three-stage ring; two blocks an SM still fit at (24, 114)); (104, 20)
+    takes two chunks, of the 89 l whose Eo rows a ring slot holds."""
     assert k2.t_row_chunk(24, 114, 8) == 24
-    assert k2.t_row_smem_bytes(24, 114, 8) == 112448
+    assert k2.t_row_smem_bytes(24, 114, 8) == 113152
+    assert 2 * (113152 + 1024 + 1024) <= 233472      # two blocks an SM
     assert k2.t_row_chunk(24, 216, 8) == 24
-    assert k2.t_row_smem_bytes(24, 216, 8) == 125504
+    assert k2.t_row_smem_bytes(24, 216, 8) == 126208
     lc = k2.t_row_chunk(104, 20, 8)
-    assert 52 <= lc < 104
+    assert 52 <= lc < 104 and lc == k2._LC_SLOT
     assert k2.t_row_layout_bytes(lc, 20, 8) <= k2._SMEM_BUDGET
-    assert k2.t_row_layout_bytes(lc + 1, 20, 8) > k2._SMEM_BUDGET
+    # where the budget binds first: (200, 900) in float64
+    lc = k2.t_row_chunk(200, 900, 8)
+    assert lc < k2._LC_SLOT
+    assert k2.t_row_layout_bytes(lc, 900, 8) <= k2._SMEM_BUDGET
+    assert k2.t_row_layout_bytes(lc + 1, 900, 8) > k2._SMEM_BUDGET
     # an nv with no room for even one l is refused, not mis-sized
     assert k2.t_row_chunk(4, 1400, 8) == 0
     assert k2.t_row_smem_bytes(4, 1400, 8) > k2._SMEM_BUDGET
@@ -278,3 +284,24 @@ def test_kernel_past_one_chunk_on_card(cuda_device, dtype, stream_dtype,
         ref = t_energy_row_reference(i, *args, no, stream_dtype=stream_dtype)
         for x, r in zip(out, ref):
             assert ((x - r).abs().max() / r.abs().max()).item() < tol
+
+
+@pytest.mark.parametrize("no,nv", [(24, 114), (24, 216), (104, 20), (7, 45)])
+def test_staged_bytes_follow_the_segment_arithmetic(no, nv):
+    """t_row_staged_bytes: a tile, j and k stage 3 x 64 pair rows and
+    3 x 8 single rows over 2v + 2o steps (again in each later l chunk) and
+    2 x nv x 64 elements of G and Ev; at (24, 114) that is 594 kB a block
+    and k and 1.15 TB a row (15^3 tiles, 24 j, 24 k)."""
+    nt, x = -(-nv // 8), 2 * nv + 2 * no
+    chunks = -(-no // k2.t_row_chunk(no, nv, 8))
+    per_k = (3 * 64 + 3 * 8) * x * chunks + 2 * nv * 64
+    staged = k2.t_row_staged_bytes(no, nv, 8)
+    assert staged == nt ** 3 * no * no * per_k * 8
+    if (no, nv) == (24, 114):
+        assert per_k * 8 == 593664
+        assert abs(staged - 1.154e12) < 1e9
+    if (no, nv) == (104, 20):
+        assert chunks == 2                  # Eo of 89 l fills a ring slot
+    # bf16 elements: half the bytes of the float32 tile's
+    assert (2 * k2.t_row_staged_bytes(no, nv, 4, in_bytes=2)
+            == k2.t_row_staged_bytes(no, nv, 4))
