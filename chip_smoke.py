@@ -615,23 +615,19 @@ def phase_k2(smi, shapes=K2_SHAPES):
                 k2_work(no, nv, label),
                 k2_row_bytes(no, nv, in_bytes, acc_bytes))
             lc = k2.t_row_chunk(no, nv, acc_bytes)
-            staged = k2.t_row_staged_bytes(no, nv, acc_bytes, in_bytes)
             print("[K2] %-20s (no,nv)=(%d,%d) %-9s rows %s  max|err|/max|ref|: "
                   "%s (tol %.0e)  row %d: kernel %.3f ms (%.2f TFLOP/s)  "
                   "bound %.3f ms (%s, %.0f%% of it)  plain %.3f ms  l chunk "
-                  "%d (%d B shared a block)  %.4g TB staged a row (%.2f "
-                  "TB/s)  | %s"
+                  "%d (%d B shared a block)  | %s"
                   % (what, no, nv, label, ",".join(map(str, rows))
                      if len(rows) < no else "all", rels, tol, i, ms,
                      k2_row_flops(no, nv) / (ms * 1e-3) / 1e12, bound_ms,
                      bound_by, 100.0 * bound_ms / ms, plain_ms, lc,
-                     k2.t_row_smem_bytes(no, nv, acc_bytes), staged / 1e12,
-                     staged / (ms * 1e-3) / 1e12, smi))
+                     k2.t_row_smem_bytes(no, nv, acc_bytes), smi))
             cells[(no, nv), label] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None,
-                layout="occupied l in chunks of %d of %d, %.4g TB staged a "
-                       "row" % (lc, no, staged / 1e12))
+                layout="occupied l in chunks of %d of %d" % (lc, no))
             del ops
         del ops64
         torch.cuda.empty_cache()

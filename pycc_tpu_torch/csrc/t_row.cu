@@ -42,19 +42,20 @@
 // o^2 v^3 = 8.5e8 t3 elements at 6 (v + o) = 828 FMA each (1.4e12 flop)
 // and spends 3 (v + o) FMA more on the projections (0.4e12 flop): 29 ms
 // at the FP64 tensor cores' 67 TFLOP/s.  Every block stages its operands
-// from L2 with a reuse of 8, the tile edge: 1.15 TB a row
-// (ops/kernels/triples.t_row_staged_bytes), 4.0 TB/s at the two-stage
-// ring's 287 ms.  Neither sets the time.  On the H100, with the copies of
-// the j-independent segments (70% of the bytes) made zero-size the row
-// took 247 ms, with every copy zero-size 212 ms, with no copy issued at
-// all 152 ms, and without the build's DMMA 286 ms: a block of four warps
-// (two an SM, held there by shared memory and registers) waits out each
-// stage's round trip through L2, its barrier and its copy instructions,
-// 35 stages a k.  So the ring is as deep as shared memory allows, and the
-// bytes are the same.  (Thread-block clusters that multicast the
-// j-independent segments to four blocks by bulk copies read 0.55 TB a row
-// and took 852 ms: one member's handshake and the small bulk copies sit
-// on every stage's path.)  The design:
+// from L2 with a reuse of 8, the tile edge: for each tile, j and k the
+// three groups' 64 pair and 8 single rows over 2 (v + o) steps and 2 v 64
+// elements of G and Ev, 594 kB, so 1.15 TB a row, 4.0 TB/s at the
+// two-stage ring's 287 ms.  Neither sets the time.  On the H100, with the
+// copies of the j-independent segments (70% of the bytes) made zero-size
+// the row took 247 ms, with every copy zero-size 212 ms, with no copy
+// issued at all 152 ms, and without the build's DMMA 286 ms: a block of
+// four warps (two an SM, held there by shared memory and registers) waits
+// out each stage's round trip through L2, its barrier and its copy
+// instructions, 35 stages a k.  So the ring is as deep as shared memory
+// allows, and the bytes are the same.  (Thread-block clusters that
+// multicast the j-independent segments to four blocks by bulk copies read
+// 0.55 TB a row and took 852 ms: one member's handshake and the small
+// bulk copies sit on every stage's path.)  The design:
 //   - the twelve build terms fall into three groups by the tile axis that
 //     their single operand indexes (c, b or a).  Each group is one product
 //     (64 pair rows) x (8 columns) over a contraction axis of 2v + 2o
@@ -79,8 +80,10 @@
 //     stages leave free, so that three stages and the block's sums still
 //     allow two blocks an SM at (24, 114) (113152 bytes): 272 ms a row
 //     there, and 3.33 s against 4.28 s at (24, 216), where one block an
-//     SM fits.  A float32 tile keeps two stages (Ring<false>): a third made
-//     its row slower;
+//     SM fits.  Three stages in the float32 placement (single rows after
+//     the pair rows, the sums and small operands in regions of their own)
+//     take 134080 bytes, one block an SM, and 397 ms a row.  A float32
+//     tile keeps two stages (Ring<false>): a third made its row slower;
 //   - the occupied index l of Eo and of the X2l sums is staged in chunks
 //     of lc: all no when they fit in what a block may take (in float64
 //     8 (7712 + 192 lc + 16 nv) bytes, and at most 89, what a ring slot

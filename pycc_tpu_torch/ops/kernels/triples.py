@@ -89,21 +89,6 @@ def t_row_smem_bytes(no, nv, acc_bytes):
                               acc_bytes)
 
 
-def t_row_staged_bytes(no, nv, acc_bytes, in_bytes=None):
-    """Bytes one row i stages from L2 into the blocks' rings: for each
-    (a, b, c) tile (a ragged one counted whole), j and k, the three build
-    groups' 64 pair rows and 8 single rows over 2v + 2o steps, again for
-    every later l chunk, and in the first chunk the G and Ev slabs of Z1
-    and Z1m, nv d by 64 pairs each.  Elements of in_bytes (default
-    acc_bytes) bytes; Eo, L and Fov, a few kB a tile and k, are left out.
-    The ring's depth moves none of these bytes."""
-    in_bytes = acc_bytes if in_bytes is None else in_bytes
-    nt = -(-nv // 8)
-    chunks = -(-no // t_row_chunk(no, nv, acc_bytes))
-    per_k = chunks * (3 * 64 + 3 * 8) * (2 * nv + 2 * no) + 2 * nv * 64
-    return nt ** 3 * no * no * per_k * in_bytes
-
-
 def _types(dtype, stream_dtype):
     """(streamed operand dtype, tile/output dtype) for operands of `dtype`."""
     sd = dtype if stream_dtype is None else stream_dtype

@@ -257,6 +257,24 @@ def test_layout_stages_every_occupied_index_where_it_fits():
     assert k2.t_row_smem_bytes(4, 1400, 8) > k2._SMEM_BUDGET
 
 
+@pytest.mark.parametrize("no,nv", [(24, 114), (24, 216), (104, 20), (7, 45)])
+def test_float64_chunk_is_held_to_a_ring_slot(no, nv):
+    """A float64 tile keeps a k's Eo, Fov and L in the ring slot its last
+    stages free (csrc/t_row.cu Ring<true>): a chunk is at most the 89 l
+    whose Eo rows fit beside Fov and L in a slot of 64 rows of pitch 36,
+    and otherwise as large as the budget allows.  A float32 tile, whose
+    small operands have a region of their own, stages all no here."""
+    assert k2._LC_SLOT == (64 * 36 - (3 * 8 + 2 * 64)) // (3 * 8)
+    lc = k2.t_row_chunk(no, nv, 8)
+    assert 1 <= lc <= min(no, k2._LC_SLOT)
+    assert k2.t_row_layout_bytes(lc, nv, 8) <= k2._SMEM_BUDGET
+    if lc < no:
+        assert (lc == k2._LC_SLOT
+                or k2.t_row_layout_bytes(lc + 1, nv, 8) > k2._SMEM_BUDGET)
+    assert k2.t_row_chunk(no, nv, 4) == no
+    assert k2.t_row_layout_bytes(no, nv, 4) <= k2._SMEM_BUDGET
+
+
 @pytest.mark.cuda
 def test_layout_mirror_matches_the_library_on_card(cuda_device):
     lib = k2._library()
@@ -284,24 +302,3 @@ def test_kernel_past_one_chunk_on_card(cuda_device, dtype, stream_dtype,
         ref = t_energy_row_reference(i, *args, no, stream_dtype=stream_dtype)
         for x, r in zip(out, ref):
             assert ((x - r).abs().max() / r.abs().max()).item() < tol
-
-
-@pytest.mark.parametrize("no,nv", [(24, 114), (24, 216), (104, 20), (7, 45)])
-def test_staged_bytes_follow_the_segment_arithmetic(no, nv):
-    """t_row_staged_bytes: a tile, j and k stage 3 x 64 pair rows and
-    3 x 8 single rows over 2v + 2o steps (again in each later l chunk) and
-    2 x nv x 64 elements of G and Ev; at (24, 114) that is 594 kB a block
-    and k and 1.15 TB a row (15^3 tiles, 24 j, 24 k)."""
-    nt, x = -(-nv // 8), 2 * nv + 2 * no
-    chunks = -(-no // k2.t_row_chunk(no, nv, 8))
-    per_k = (3 * 64 + 3 * 8) * x * chunks + 2 * nv * 64
-    staged = k2.t_row_staged_bytes(no, nv, 8)
-    assert staged == nt ** 3 * no * no * per_k * 8
-    if (no, nv) == (24, 114):
-        assert per_k * 8 == 593664
-        assert abs(staged - 1.154e12) < 1e9
-    if (no, nv) == (104, 20):
-        assert chunks == 2                  # Eo of 89 l fills a ring slot
-    # bf16 elements: half the bytes of the float32 tile's
-    assert (2 * k2.t_row_staged_bytes(no, nv, 4, in_bytes=2)
-            == k2.t_row_staged_bytes(no, nv, 4))
