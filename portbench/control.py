@@ -52,7 +52,7 @@ def main():
         return 2
     spec = Spec(ROOT)
     workload = spec.workload(args.workload)
-    dev = torch.device("cuda", 0)
+    dev = [torch.device("cuda", i) for i in range(workload["chips"])]
     readings = {"program": {}, "control": {}, "t32": {}}
     runs = ([(s, "program", None) for s in args.seeds]
             + [(s, "control", "SP") for s in args.control_seeds]

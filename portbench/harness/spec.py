@@ -17,7 +17,10 @@ own under the benchmark's folder, found by its name alone:
                             device_idle_pct.rt and device_idle_pct.ccsd)
 
 so a cell, a mix, a kind or a metric is added by adding files and
-entries, never by editing a file that exists.
+entries, never by editing a file that exists.  A cell's `chips` are its
+cards (`devices`, cuda:0 first, handed to its kind's Runner when there
+are more than one); kind 'cc' lays its jobs over a mesh of them
+(kinds/cc.py), so a four-card cell is added by files too.
 """
 
 import importlib.util

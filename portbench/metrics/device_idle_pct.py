@@ -1,6 +1,7 @@
 """device_idle_pct.<cell suffix>: the share of the traced window in which no
-kernel, copy or set ran on the device (the union of the CUDA intervals of
-the profiler trace against the window's length)."""
+kernel, copy or set ran on a card (the union of the card's CUDA intervals
+of the profiler trace against the window's length), the mean over the
+cell's cards."""
 
 
 def read(run):

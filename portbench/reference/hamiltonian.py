@@ -4,7 +4,10 @@ Full storage: F = C^T F_ao C, <pq|rs> = (pr|qs) by one quarter transform
 per index, L = 2 <pq|rs> - <pq|sr>, mu = C^T mu_ao C, all in float64.
 Over factors: `FactorERI` assembles any Dirac block from the MO factors
 B (naux, nact, nact), <pq|rs> = sum_P B[P,p,r] B[P,q,s], once per block.
-Either is indexed like the full tensor with the occupied and virtual
+By blocks from the AO ERI: `SpaceERI` makes any Dirac block by occupied
+and virtual space from the host AO ERI, streamed to the device, so that
+neither the whole MO ERI nor the whole AO ERI sits on the device.
+Each is indexed like the full tensor with the occupied and virtual
 slices (`ERI[o, o, v, v]`).
 """
 
@@ -50,21 +53,56 @@ def _space(s, no):
         return "o"
     if start == no and s.stop is None:
         return "v"
-    raise KeyError("FactorERI takes the occupied or virtual slice, got %r"
+    raise KeyError("a block takes the occupied or virtual slice, got %r"
                    % (s,))
 
 
-class FactorERI:
+def spaces(key, no):
+    """'ovvv' for the slices (o, v, v, v)."""
+    return "".join(_space(s, no) for s in key)
+
+
+def space_slices(sp, no):
+    """(o, v, v, v) for 'ovvv'."""
+    sl = {"o": slice(0, no), "v": slice(no, None)}
+    return tuple(sl[c] for c in sp)
+
+
+class _Blocks:
+    """Dirac blocks by space, each made once on first use (`_piece`) and
+    kept until `drop`; `L=True` makes 2 <pq|rs> - <pq|sr> from the blocks
+    of `eri`."""
+
+    def __init__(self, no, L, eri):
+        self.no = no
+        self.L = L
+        self.eri = eri
+        self.blocks = {}
+
+    def __getitem__(self, key):
+        sp = spaces(key, self.no)
+        if sp not in self.blocks:
+            if self.L:
+                blk = 2.0 * self.eri[key]
+                blk.sub_(self.eri[key[:2] + (key[3], key[2])].swapaxes(2, 3))
+                self.blocks[sp] = blk
+            else:
+                self.blocks[sp] = self._piece(sp)
+        return self.blocks[sp]
+
+    def drop(self, sp):
+        """Free the block of spaces `sp` ('ovvv'), if it is made."""
+        self.blocks.pop(sp, None)
+
+
+class FactorERI(_Blocks):
     """Dirac blocks <pq|rs> = (pr|qs) assembled from MO factors B, each
     made once on first use and kept; `L=True` gives 2 <pq|rs> - <pq|sr>."""
 
     def __init__(self, B, no, L=False, eri=None):
+        super().__init__(no, L, eri if eri is not None else (
+            FactorERI(B, no) if L else None))
         self.B = B
-        self.no = no
-        self.L = L
-        self.eri = eri if eri is not None else (
-            FactorERI(B, no) if L else None)
-        self.blocks = {}
 
     def _piece(self, sp):
         no = self.no
@@ -77,13 +115,56 @@ class FactorERI:
         prqs = (Bpr.reshape(-1, n1 * n3).T @ Bqs.reshape(-1, n2 * n4))
         return prqs.reshape(n1, n3, n2, n4).permute(0, 2, 1, 3).contiguous()
 
-    def __getitem__(self, key):
-        sp = "".join(_space(s, self.no) for s in key)
-        if sp not in self.blocks:
-            if self.L:
-                self.blocks[sp] = (2.0 * self.eri[key]
-                                   - self.eri[key[:2] + (key[3], key[2])]
-                                   .swapaxes(2, 3))
-            else:
-                self.blocks[sp] = self._piece(sp)
+
+class SpaceERI(_Blocks):
+    """Dirac blocks <pq|rs> = sum C[m,p] C[n,r] C[l,q] C[s',s] (mn|ls') from
+    the AO ERI in host memory, each made once on first use (or several in
+    one pass, `make`) and kept until `drop`; `L=True` (with `eri`) gives
+    2 <pq|rs> - <pq|sr> from ERI's blocks.
+
+    A pass streams the AO ERI to C's device in chunks of its first index
+    m, about `chunk_bytes` a chunk: each chunk's other three indices are
+    transformed to every active orbital, and its part of the sum over m is
+    added into each block the pass makes.  No tensor on the device is
+    larger than the largest block asked for, or than a chunk's.  `passes`
+    counts the passes made."""
+
+    def __init__(self, C, ERI_ao, no, L=False, eri=None, chunk_bytes=2 ** 30):
+        super().__init__(no, L, eri)
+        self.C = C
+        self.ERI_ao = ERI_ao
+        self.chunk_bytes = chunk_bytes
+        self.passes = 0
+
+    def _piece(self, sp):
+        self.make([sp])
         return self.blocks[sp]
+
+    def make(self, sps):
+        """Make every block of `sps` (space strings) not made yet, in one
+        pass over the AO ERI."""
+        sps = [sp for sp in dict.fromkeys(sps) if sp not in self.blocks]
+        if not sps:
+            return
+        self.passes += 1
+        C, no = self.C, self.no
+        nbf, nact = C.shape
+        out = {sp: torch.zeros([no if c == "o" else nact - no for c in sp],
+                               dtype=C.dtype, device=C.device)
+               for sp in sps}
+        step = max(1, self.chunk_bytes // (nbf ** 3 * C.element_size()))
+        for m0 in range(0, nbf, step):
+            X = torch.as_tensor(self.ERI_ao[m0:m0 + step]).to(C.device,
+                                                               C.dtype)
+            # (m, n, l, s) -> (m, q, r, s): <.q|rs> of each AO m
+            Y = ein("mnls,sy->mnly", X, C)
+            del X
+            Y = ein("mnly,lq->mnqy", Y, C)
+            Y = ein("mnqy,nr->mqry", Y, C)
+            for sp, blk in out.items():
+                p, q, r, s = space_slices(sp, no)
+                blk.reshape(blk.shape[0], -1).addmm_(
+                    C[m0:m0 + step, p].T,
+                    Y[:, q, r, s].reshape(Y.shape[0], -1))
+            del Y
+        self.blocks.update(out)

@@ -1,19 +1,21 @@
-"""The benchmark of pycc_tpu_torch on one NVIDIA GPU.
+"""The benchmark of pycc_tpu_torch on NVIDIA GPUs.
 
     python portbench/run.py --workload <cell> --seed <n> --seconds <s> \
         --trace <0|1>
 
-runs one cell of BENCHMARK.json from the root of a checkout: the seeded
-inputs, the set-up (every shape the window uses, warmed once), the window
-of `--seconds`, then the judge against the plain reference.  Standard
-output ends in one JSON line: correct, attempted, failed, metrics (the
-cell's end-to-end metrics, or with --trace 1 its per-layer metrics, read
-from a torch.profiler trace of the window), device, with --trace 1 a
-breakdown, and last the checks, each number beside its limit; the line
-before it holds each job's or step's record.  Standard error ends in the
-same checks, a line each.  Without a CUDA device, or
-with fewer than the cell asks for, it exits 2 and prints no result; if
-JAX or pycc_tpu was loaded, it exits 3 and prints no result.
+runs one cell of BENCHMARK.json from the root of a checkout on the
+cell's `chips` cards, cuda:0 ... cuda:<chips - 1> (cuda:0 the home card,
+which holds the inputs and the judge): the seeded inputs, the set-up
+(every shape the window uses, warmed once), the window of `--seconds`,
+then the judge against the plain reference.  Standard output ends in one
+JSON line: correct, attempted, failed, metrics (the cell's end-to-end
+metrics, or with --trace 1 its per-layer metrics, read from a
+torch.profiler trace of the window), device, with --trace 1 a breakdown,
+and last the checks, each number beside its limit; the line before it
+holds each job's or step's record.  Standard error ends in the same
+checks, a line each.  Without a CUDA device, or with fewer than the cell
+asks for, it exits 2 and prints no result; if JAX or pycc_tpu was
+loaded, it exits 3 and prints no result.
 """
 
 import time
@@ -65,9 +67,10 @@ def main(argv=None):
     from portbench.harness.cell import run_cell
     # the solvers' progress lines would bury the result
     pycc_tpu_torch.set_verbosity("quiet")
+    devices = [torch.device("cuda", i) for i in range(workload["chips"])]
     result, rows, units, t_judge = run_cell(
-        spec, workload, args.seed, args.seconds, bool(args.trace),
-        torch.device("cuda", 0), T_START)
+        spec, workload, args.seed, args.seconds, bool(args.trace), devices,
+        T_START)
     bad = forbidden_modules()
     if bad:
         print("portbench: forbidden modules loaded: %s" % ", ".join(bad),

@@ -6,19 +6,23 @@ one fault planted in the program: a step that returns its state
 unchanged; half of the batch left out and the rest doubled (the mean
 taken over it); an answer altered where it is produced; for real-time
 CC, the field term of the Fock matrix dropped, its sign flipped or its
-size doubled.  The exchange between chips has no counterpart: every cell
-runs on one card.
+size doubled; on a four-card cell (a mesh over the CPU), one card's
+piece of the sharded ERI scaled, and the exchange between cards left
+out: one shard's columns of the sharded ladder never copied home.
 """
 
 import pytest
 import torch
 
+import pycc_tpu_torch.models.ccsd as ccsd_model
 import pycc_tpu_torch.ops.kernels.triples as k2
+import pycc_tpu_torch.parallel.mesh as meshmod
 from pycc_tpu_torch.ccwfn import ccwfn
 from pycc_tpu_torch.rt import integrators
 from pycc_tpu_torch.rt.rtcc import rtcc
 
-from portbench.tests.common import run_tiny
+from portbench.tests.common import (MESH_CELL, add_mesh_cell, run_tiny,
+                                    tiny_copy)
 
 CC_CELLS = ["h2o6_vdz.ccsd_t", "h2o6_avdz_df.ccsd", "h2o6_vdz.ccsd"]
 
@@ -115,3 +119,54 @@ def test_rt_field_term_wrong(tiny, monkeypatch, scale):
     result, numbers = run_tiny(tiny, "h2o6_vdz.rt")
     assert not result["correct"], numbers
     assert numbers["step_pulse"] > 1e3 * 1e-10, numbers
+
+
+def test_mesh_eri_piece_scaled(tmp_path, monkeypatch):
+    """One card's piece of the sharded ERI scaled by (1 + 1e-6) where it
+    is laid over the mesh: the blocked judge's ham reads it."""
+    tiny_copy(tmp_path)
+    spec = add_mesh_cell(tmp_path)
+    real = meshmod.shard_hamiltonian
+
+    def scaled(H, mesh, dtype=None):
+        out = real(H, mesh, dtype)
+        out.ERI.pieces[(1, 1)].mul_(1.0 + 1e-6)
+        return out
+    monkeypatch.setattr(meshmod, "shard_hamiltonian", scaled)
+    result, numbers = run_tiny(spec, MESH_CELL)
+    assert not result["correct"], numbers
+    assert numbers["ham"] > spec.limits(MESH_CELL)["ham"], numbers
+
+
+def test_mesh_ladder_shard_left_out(tmp_path, monkeypatch):
+    """The exchange between cards left out: the last shard's (a, b)
+    columns of the sharded CCSD ladder are not copied into the result on
+    the home card (read as zeros).  The solver converges to another
+    fixed point, which the reference residual `res` reads."""
+    tiny_copy(tmp_path)
+    spec = add_mesh_cell(tmp_path)
+    real = ccsd_model.ladder_sharded
+    calls = []
+
+    def dropped(tau, W, fn):
+        out = real(tau, W, fn)
+        sl, _ = list(getattr(W, "ri", W).shards())[-1]
+        out[:, :, sl[-4], sl[-3]] = 0
+        calls.append(1)
+        return out
+    monkeypatch.setattr(ccsd_model, "ladder_sharded", dropped)
+    result, numbers = run_tiny(spec, MESH_CELL)
+    assert calls
+    assert not result["correct"], numbers
+    assert not numbers["res"] <= spec.limits(MESH_CELL)["res"], numbers
+
+
+def test_mesh_float32_control_fails(tmp_path):
+    """On a four-card cell the port's float32 path, the control, fails
+    the blocked judge; the configuration's float64 passes it."""
+    tiny_copy(tmp_path)
+    spec = add_mesh_cell(tmp_path)
+    result, numbers = run_tiny(spec, MESH_CELL)
+    assert result["correct"], numbers
+    control, numbers = run_tiny(spec, MESH_CELL, precision="SP")
+    assert not control["correct"], numbers

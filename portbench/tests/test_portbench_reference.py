@@ -11,6 +11,7 @@ from pycc_tpu_torch.cclambda import lambda_residuals_from_F
 from pycc_tpu_torch.hamiltonian import build_hamiltonian
 from pycc_tpu_torch.models.ccsd import cc_energy, residuals_ccsd
 from pycc_tpu_torch.ops.kernels.vvvv import vvvv_nt_reference
+from pycc_tpu_torch.parallel import Sharded, make_mesh
 from pycc_tpu_torch.rt.lasers import gaussian_laser
 from pycc_tpu_torch.triples import t_vikings_scan
 
@@ -154,3 +155,42 @@ def test_program_passes_and_float32_control_fails(tiny, cell):
     assert all(math.isfinite(x) for x in numbers.values())
     control, numbers = run_tiny(tiny, cell, precision="SP")
     assert not control["correct"], numbers
+
+
+def test_blocked_judge_equals_the_whole_judge(tiny, monkeypatch):
+    """The judge in blocks (the port's ERI and L no tensors, as on a mesh)
+    reads, on one job's output with a block of ERI and one of L altered,
+    what the whole judge reads: ham (not 0), res and e_gap within 1e-12,
+    with every block made in two passes over the AO ERI (none made
+    twice)."""
+    kind = tiny.kind("cc")
+    cfg = tiny.config("h2o6_vdz")
+    traffic = tiny.traffic("ccsd")
+    wfn = make_inputs(cfg, SEED, CPU)
+    runner = kind.Runner(cfg, traffic, wfn, CPU)
+    runner.job()
+    out = runner.outputs()
+    no = out["no"]
+    o, v = slice(0, no), slice(no, None)
+    ERI, L = out["ERI"].clone(), out["L"].clone()
+    ERI[o, v, v, v] *= 1.0 + 1e-6
+    L[v, v, v, v] *= 1.0 + 3e-6
+    mesh = make_mesh(devices=[CPU] * 4)
+    spec4 = (None, None, "va", "vb")
+    sharded = dict(out, ERI=Sharded.put(ERI, mesh, spec4),
+                   L=Sharded.put(L, mesh, spec4))
+    stores = []
+
+    class Counted(kind.SpaceERI):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            stores.append(self)
+    monkeypatch.setattr(kind, "SpaceERI", Counted)
+    whole = kind.judge(cfg, traffic, wfn, dict(out, ERI=ERI, L=L), CPU)
+    assert stores == []
+    blocked = kind.judge(cfg, traffic, wfn, sharded, CPU)
+    assert set(whole) == set(blocked) == {"ham", "res", "e_gap"}
+    for name in whole:
+        assert abs(whole[name] - blocked[name]) < 1e-12, (whole, blocked)
+    assert whole["ham"] > 1e-7
+    assert [st.passes for st in stores] == [2, 0]

@@ -4,11 +4,15 @@ and the harness finds a new configuration, mix and metric by name."""
 import json
 import os
 import re
+import shutil
 
 import pytest
+import torch
 
+from portbench.harness import cell as cellmod
 from portbench.harness.spec import ROOT, Spec
-from portbench.tests.common import TINY, run_tiny, tiny_copy
+from portbench.tests.common import (TINY, add_mesh_cell, run_tiny,
+                                    run_tiny_units, tiny_copy)
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -219,3 +223,56 @@ def test_a_new_kind_needs_no_code(tmp_path):
     assert result["correct"], numbers
     assert result["attempted"] == 1 and set(numbers) == {"mp2_gap"}
     assert "setup_s" in result["metrics"]
+
+
+@pytest.mark.parametrize("config", ["h2o6_vdz", "h2o6_avdz_df"])
+def test_a_four_card_cell_needs_no_code(tmp_path, config):
+    """A cell of "chips": 4, added as files and entries, runs its jobs
+    over a 2 x 2 mesh of four devices (the CPU four times) without a code
+    edit, is judged (full storage: in blocks) and reads correct; its
+    energies are the one-card cell's."""
+    tiny_copy(tmp_path)
+    spec = add_mesh_cell(tmp_path, config)
+    result, rows, units, _ = run_tiny_units(spec, config + ".ccsd_mesh")
+    assert result["correct"], rows
+    assert result["device"]["memory_peak_bytes_by_card"] == [0] * 4
+    assert "setup_s" in result["metrics"]
+    _, _, one, _ = run_tiny_units(spec, config + ".ccsd")
+    assert len(units) == len(one) >= 1
+    for a, b in zip(units, one):
+        assert abs(a["energy"] - b["energy"]) < 1e-12
+
+
+def test_a_kind_of_one_card_refuses_four(tmp_path):
+    """A cell of four chips whose kind runs on one card ('rt', whose
+    Runner takes no `devices`) stops when its Runner is made, rather than
+    leave three cards idle."""
+    tiny_copy(tmp_path)
+    limits = tmp_path / "portbench" / "limits"
+    shutil.copy(limits / "h2o6_vdz.rt.json", limits / "h2o6_vdz.rt4.json")
+    bench = Spec(str(tmp_path)).bench
+    bench["workloads"].append(dict(name="h2o6_vdz.rt4", config="h2o6_vdz",
+                                   traffic="rt", chips=4, why="a test"))
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    with pytest.raises(TypeError, match="devices"):
+        run_tiny(Spec(str(tmp_path)), "h2o6_vdz.rt4")
+
+
+def test_peak_mem_gb_reads_the_fullest_card(monkeypatch):
+    """Each card's peak is read; `peak_mem_gb` and the device line's
+    `memory_peak_bytes` are the fullest card's."""
+    peaks = {0: 5e9, 1: 7.5e9, 2: 6e9, 3: 1e9}
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda d: peaks[d.index])
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda d: "card")
+    cards = [torch.device("cuda", i) for i in range(4)]
+    fullest, by_card = cellmod.card_peaks(cards)
+    assert (fullest, by_card) == (7.5e9, [5e9, 7.5e9, 6e9, 1e9])
+    run = cellmod.Run("cc", {}, {}, [{}], 1.0, 1.0, fullest, None, by_card)
+    assert Spec().reader("peak_mem_gb")(run) == 7.5
+    dev = cellmod._device_info(cards, by_card)
+    assert dev["count"] == 4 and dev["memory_peak_bytes"] == 7.5e9
+    assert dev["memory_peak_bytes_by_card"] == by_card
+    one = cellmod.Run("cc", {}, {}, [{}], 1.0, 1.0, 5e9, None)
+    assert one.peak_bytes_by_card == [5e9]
+    assert Spec().reader("peak_mem_gb")(one) == 5.0

@@ -1,5 +1,6 @@
-"""The trace's reduction: busy time, kernel time by name, idle gaps by
-what the host was doing, on hand-made intervals."""
+"""The trace's reduction: busy time (each card's and their mean), kernel
+time by name, idle gaps by what the host was doing, on hand-made
+intervals."""
 
 import pytest
 
@@ -38,3 +39,35 @@ def test_idle_gaps_by_host_activity():
 def test_no_device_event_is_refused():
     with pytest.raises(NoDeviceEvents):
         Trace((0, 10), [], [("x", 0, 10)])
+
+
+def test_one_card_with_its_index_reads_as_before():
+    """Intervals that name card 0 give exactly what intervals without a
+    card give."""
+    a = _trace()
+    b = Trace((a.t0, a.t1), [r + (0,) for r in a.device], a.host, cards=[0])
+    assert b.busy_s == a.busy_s and b.busy_s_by_card == [a.busy_s]
+    assert b.idle_gaps() == a.idle_gaps()
+    assert b.device_ops() == a.device_ops()
+
+
+def test_two_cards_each_their_own_busy_time():
+    """Each card's busy time is the union of its own intervals; busy_s is
+    their mean; a card of the cell without an interval is idle all the
+    window; kernel time sums over the cards; the idle gaps of every card
+    are summed."""
+    window = (0, 1_000_000)
+    host = [("portbench.solve", 0, 1_000_000)]
+    device = [("f64::kernel<16>", 0, 600_000, 0),
+              ("f64::kernel<16>", 200_000, 500_000, 1),
+              ("copy", 400_000, 700_000, 1)]
+    t = Trace(window, device, host, cards=[0, 1])
+    assert t.busy_s_by_card == [pytest.approx(600e-6),
+                                pytest.approx(500e-6)]
+    assert t.busy_s == pytest.approx(550e-6)
+    assert t.kernel_seconds(("f64::kernel<",)) == pytest.approx(900e-6)
+    assert sum(s for _, s in t.idle_gaps()) == pytest.approx(
+        2e-3 - 1.1e-3)
+    three = Trace(window, device, host, cards=[0, 1, 2])
+    assert three.busy_s_by_card[2] == 0
+    assert three.busy_s == pytest.approx(1.1e-3 / 3)
