@@ -19,9 +19,9 @@ one host: a 2 x 2 mesh of cuda:(i % n) over the n visible cards.
 3. (H2O)_6/cc-pVDZ, (o, v) = (24, 114), CCSD(T) on full storage on the
    mesh against the unsharded run on cuda:0 (E(CCSD) + E(T) at 1e-11),
    with what the mesh init added to each card's peak beside what each
-   card then holds: the integrals are made in host memory and cut into
-   their pieces from there, so no card, the home one included, holds a
-   whole v^4 operand at any point;
+   card then holds: each card's pieces are made on that card from the
+   host AO ERI (parallel/mesh.build_full), so no card, the home one
+   included, holds a whole v^4 operand at any point;
 4. on the same wavefunction the native PNO-CCSD solver (local="PNO",
    local_cutoff 1e-5, it2_opt=False, filter=False) on the mesh against
    the unsharded one on cuda:0 (E at 1e-11), with the bytes its stacks

@@ -57,8 +57,8 @@ import numpy as np
 import torch
 
 from . import triples
-from .hamiltonian import (Hamiltonian, ao_properties, build_hamiltonian,
-                          mo_eri_blocks)
+from .hamiltonian import (Hamiltonian, ao_properties, ao_source,
+                          build_hamiltonian, mo_eri_blocks)
 from .models import cc3
 from .models import ccsd as eqs
 from .models import dfccsd as dfq
@@ -204,17 +204,26 @@ class ccwfn:
         self.nv = self.nmo - self.no - self.nfzc
         self.nact = self.no + self.nv
 
-        # on a mesh the integrals are made in host memory and cut into
-        # their pieces from there (_apply_mesh): the home device never
-        # holds a whole v^4 operand
+        # on a mesh F and the properties are made in host memory; full
+        # storage's ERI, L and <ab|ef> are made on the cards, each card's
+        # pieces on that card, from the host AO ERI (`ao_source`,
+        # parallel/mesh.build_full); the blocked and DF storages are made
+        # in host memory and cut into their pieces from there
+        # (_apply_mesh).  No device holds a whole v^4 operand
         hdev = self.device if mesh is None else torch.device("cpu")
         if local is not None:
             self._init_local(scf_wfn)
         elif storage == "full":
             with self.timers.time("ccwfn.hamiltonian"):
-                self.H = build_hamiltonian(scf_wfn, device=hdev,
-                                           dtype=self.dtype)
-            self._apply_mesh()
+                if mesh is None:
+                    self.H = build_hamiltonian(scf_wfn, device=hdev,
+                                               dtype=self.dtype)
+                else:
+                    self.H = dataclasses.replace(
+                        build_hamiltonian(scf_wfn, device=hdev,
+                                          dtype=self.dtype, eri=False),
+                        ERI=ao_source(scf_wfn, self.dtype))
+                    self._apply_mesh()
             self._set_amplitudes(self.H.ERI[self.o, self.o, self.v, self.v])
         elif storage == "blocked":
             # no nact^4 tensor: F and the properties, then the six blocks
@@ -255,8 +264,9 @@ class ccwfn:
         """On a mesh, lay the storage over it (parallel/mesh.py) from
         wherever it was made, host memory included, each piece cast to
         `dtype` (None: as it is) on its way: the full ERI and L with the
-        ladder's operand, the Dirac blocks or the DF factors, each on its
-        layout, and F and the properties on the home device.  The
+        ladder's operand (made on the cards when H.ERI is an AOSource),
+        the Dirac blocks or the DF factors, each on its layout, and F and
+        the properties on the home device.  The
         amplitudes and the denominators are made on the home device after
         it.  Without a mesh nothing moves."""
         from .parallel.mesh import shard_blocks, shard_df, shard_hamiltonian

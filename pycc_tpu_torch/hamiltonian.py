@@ -3,11 +3,14 @@
 Fock matrix F, Dirac-notation ERI <pq|rs>, spin-adapted L = 2<pq|rs> -
 <pq|sr>, and one-electron property integrals (electric dipole mu, magnetic
 dipole m, linear momentum p, traceless quadrupole Q) over the active MO
-space.  The counterpart of pycc_tpu/hamiltonian.py.
+space.  The counterpart of pycc_tpu/hamiltonian.py.  A mesh solver's full
+storage starts as an `AOSource` (the host AO ERI and C), from which
+parallel/mesh.py makes each card's pieces on that card.
 """
 
 from dataclasses import dataclass
 from functools import cached_property
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -56,6 +59,30 @@ class Hamiltonian:
         F, ERI, L = _tensors((F, ERI, L), dtype, dev)
         return cls(F=F, ERI=ERI, L=L, no=int(no),
                    **_properties(mu, m, p, Q, dtype, dev))
+
+
+class AOSource(NamedTuple):
+    """Full storage not made yet: the AO ERI in host memory (the SCF's
+    `ERI_ao`), the active MO coefficients C (nbf, nact, float64, host)
+    and the dtype of ERI and L.  A mesh solver's Hamiltonian holds one in
+    place of ERI (L None) until `parallel.mesh.shard_hamiltonian` makes
+    each card's pieces on that card."""
+    ERI_ao: object
+    C: torch.Tensor
+    dtype: torch.dtype
+
+
+def ao_source(wfn, dtype=torch.float64):
+    """The AOSource of wfn's active space: its kept AO ERI (computed here
+    when it has none) and C, as build_hamiltonian reads them."""
+    from .scf import integrals as ints
+
+    ERI_ao = getattr(wfn, "ERI_ao", None)
+    if ERI_ao is None:
+        ERI_ao = ints.eri(wfn.basisset())
+    C = torch.as_tensor(np.asarray(wfn.Ca_subset("AO", "ACTIVE")),
+                        dtype=torch.float64)
+    return AOSource(ERI_ao=ERI_ao, C=C, dtype=dtype)
 
 
 def _tensors(arrays, dtype, dev):

@@ -27,15 +27,51 @@ device (`Sharded.__getitem__`), so the equations run verbatim.  No other
 use of the whole operand is allowed: a torch function, an operator or a
 tensor method on a Sharded raises, and a reader that does want the whole
 asks for it (`full`).  `Mesh.gathered_bytes` counts the bytes such reads
-copy out of the shards.
+copy out of the shards.  Program spans (utils/timing.py), each on the
+device its copies land on: 'mesh.gather' around each such read (its bytes
+are the count's increment), 'mesh.ladder' around each sharded ladder,
+and, in `build_full`, 'hamiltonian.h2d' around each chunk's copy from the
+host (its bytes) and 'hamiltonian.shard' around each cell's work on a
+chunk and on its pieces, on that cell's device.
 
-The sharded operands are cut from where they were made, piece by piece:
-ccwfn builds the four-index integrals of a mesh solver in host memory
-(and solve_cc_mixed casts its host masters a piece at a time), so the
-home device holds its own pieces and no whole v^4 tensor.  The formulas
-that run on the pieces (HBAR's Hvvvv, the DF dressings, the ladder) are
-the unsharded code's: `per_piece` and `map_leading` apply them once to a
-plain tensor, with slices that cover it.
+The sharded operands are cut from where they were made, piece by piece,
+or made where they live.  A mesh solver's full storage is made on the
+cards (`build_full`, from the `hamiltonian.AOSource` that ccwfn leaves in
+place of ERI): no host tensor of nact^4 or nbf^4 elements is made beside
+the SCF's own AO ERI, and no card holds a whole ERI, L or <ab|ef>.  The
+blocked and DF storages, and solve_cc_mixed's host masters, are cut from
+host memory a piece at a time.  The formulas that run on the pieces
+(HBAR's Hvvvv, the DF dressings, the ladder) are the unsharded code's:
+`per_piece` and `map_leading` apply them once to a plain tensor, with
+slices that cover it.
+
+`build_full`, one pass over the AO ERI (mn|ls) in chunks of its first
+index m (about 1 GiB a chunk): each chunk is copied from host memory to
+the home device once, and from there to each other device of the mesh
+(card to card), so the AO ERI crosses from the host once a build.  Each
+cell keeps an accumulator acc[p, s', q, r'] = <pq|r's'> for every p and q
+and the columns r' and s' that cover both its ERI/L ranges (r, s) and its
+W ranges (a, b) shifted by o; a chunk adds its part of the sum over m by
+three quarter transforms (s, then q, then r; GEMMs) and one GEMM with
+C[m, p].  From the accumulator, on the cell's device:
+
+  ERI piece   <pq|rs>                            (None, None, va, vb)
+  L piece     2 <pq|rs> - <qp|rs>                (<pq|sr> = <qp|rs> for
+                                                  real orbitals, so no
+                                                  cell reads another's)
+  W piece     W[a, b, e, f] = <ef|ab> = <ab|ef>  (va, vb, None, None)
+
+Arithmetic at (H2O)_6/aug-cc-pVDZ: nbf 246, nact 240, (o, v) = (24,
+216), a 2 x 2 mesh.  The AO ERI is 29.3 GB (28 chunks of 9 values of m),
+so 29.3 GB cross from the host and 3 x 29.3 GB go card to card a build.
+A cell's columns are 132 or 120 a side (ERI's ranges 120 + 120 of nact,
+W's 108 + 108 of v, shifted by 24); the fullest cell, (132, 132), does
+2 x 246 (246^3 132 + 246^2 132 240 + 246 132 240 132 + 240 132 240 132)
+= 2.9 TFLOP in float64 GEMMs (2.6 for (120, 120)), tens of milliseconds
+at the card's rate, and holds its accumulator (8.0 GB), then its pieces:
+ERI and L 6.6 GB each, W 4.35 GB, 17.6 GB in all; the build's peak on it
+is about 19 GB (the accumulator, W and ERI) beside about 3 GB of chunk
+transients.  The host's copy bounds the build.
 
 No process group is made (no NCCL, no DTensor): NCCL refuses two ranks
 on one GPU, so a one-card machine could check nothing past a world size
@@ -72,7 +108,11 @@ contiguous ranges (torch.tensor_split's); pycc_tpu's `_put` drops such an
 axis, since jax refuses uneven shards.
 """
 
+import contextlib
+
 import torch
+
+from ..utils.timing import span
 
 AXES = ("va", "vb")
 
@@ -161,6 +201,14 @@ def make_mesh(n_devices=None, devices=None, shape=None):
             a -= 1
         shape = (a, n // a)
     return Mesh(devices, shape)
+
+
+def _on(device):
+    """A CUDA device's guard (its current stream then takes a span's
+    events), or nothing for another device."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def _copy_to(x, device, dtype=None):
@@ -291,22 +339,24 @@ class Sharded:
         want = _norm(key, self.shape)
         out = torch.empty([hi - lo for lo, hi in want], dtype=self.dtype,
                           device=device)
+        nbytes = out.numel() * out.element_size()
         sources = {}
         for sl, p in self.shards():
             k = tuple((s.start, s.stop) for s in sl)
             if k not in sources or p.device == device:
                 sources[k] = p
-        for k, p in sources.items():
-            inter = [(max(a, c), min(b, d)) for (a, b), (c, d)
-                     in zip(k, want)]
-            if any(lo >= hi for lo, hi in inter):
-                continue
-            src = tuple(slice(lo - a, hi - a) for (lo, hi), (a, _)
-                        in zip(inter, k))
-            dst = tuple(slice(lo - c, hi - c) for (lo, hi), (c, _)
-                        in zip(inter, want))
-            out[dst].copy_(p[src])
-        self.mesh.gathered_bytes += out.numel() * out.element_size()
+        with _on(device), span("mesh.gather", nbytes=nbytes):
+            for k, p in sources.items():
+                inter = [(max(a, c), min(b, d)) for (a, b), (c, d)
+                         in zip(k, want)]
+                if any(lo >= hi for lo, hi in inter):
+                    continue
+                src = tuple(slice(lo - a, hi - a) for (lo, hi), (a, _)
+                            in zip(inter, k))
+                dst = tuple(slice(lo - c, hi - c) for (lo, hi), (c, _)
+                            in zip(inter, want))
+                out[dst].copy_(p[src])
+        self.mesh.gathered_bytes += nbytes
         return out
 
     def full(self, device=None):
@@ -486,17 +536,19 @@ def take(x, *index):
                                     for k in index))
     out = torch.empty(tuple(idx[0].shape) + tuple(x.shape[len(idx):]),
                       dtype=x.dtype, device=home)
+    nbytes = out.numel() * out.element_size()
     seen = set()
-    for sl, p in x.shards():
-        lo, hi = sl[0].start, sl[0].stop
-        if (lo, hi) in seen:
-            continue
-        seen.add((lo, hi))
-        sel = (idx[0] >= lo) & (idx[0] < hi)
-        got = [k[sel].to(p.device) for k in idx]
-        got[0] = got[0] - lo
-        out[sel] = p[tuple(got)].to(home)
-    x.mesh.gathered_bytes += out.numel() * out.element_size()
+    with _on(home), span("mesh.gather", nbytes=nbytes):
+        for sl, p in x.shards():
+            lo, hi = sl[0].start, sl[0].stop
+            if (lo, hi) in seen:
+                continue
+            seen.add((lo, hi))
+            sel = (idx[0] >= lo) & (idx[0] < hi)
+            got = [k[sel].to(p.device) for k in idx]
+            got[0] = got[0] - lo
+            out[sel] = p[tuple(got)].to(home)
+    x.mesh.gathered_bytes += nbytes
     return out
 
 
@@ -593,28 +645,141 @@ def _home(x, mesh, dtype=None):
 def shard_hamiltonian(H, mesh, dtype=None):
     """Full storage over the mesh: ERI and L over their last two axes, and
     the ladder's operand H.vvvv (K1's W, <ab|ef>) over its output columns
-    (a, b), cut from ERI shard by shard; F and the properties on the home
-    device.  H may lie in host memory: every piece is cut from it and cast
-    to `dtype` (None: as it is) on its way to its device.  An H without
-    ERI (blocked or DF storage) only moves to the home device."""
-    from ..hamiltonian import Hamiltonian
+    (a, b); F and the properties on the home device.  Where H.ERI is a
+    `hamiltonian.AOSource` (ccwfn's full storage on a mesh) every piece is
+    made on its own device from the AO ERI (`build_full`).  Otherwise H's
+    ERI is a tensor that may lie in host memory (solve_cc_mixed's
+    masters): every piece is cut from it, W's from ERI's, shard by shard.
+    Pieces are cast to `dtype` (None: the source's dtype, or as they are)
+    on their way to their device.  An H without ERI (blocked or DF
+    storage) only moves to the home device."""
+    from ..hamiltonian import AOSource, Hamiltonian
     tup = lambda ms: tuple(_home(m, mesh, dtype) for m in ms)
     props = dict(F=_home(H.F, mesh, dtype), mu=tup(H.mu), m=tup(H.m),
                  p=tup(H.p), Q=tup(H.Q), no=H.no)
     if H.ERI is None:
         return Hamiltonian(ERI=None, L=None, **props)
     spec4 = (None, None, "va", "vb")
-    no, nv = H.no, H.ERI.shape[0] - H.no
-    v = slice(no, None)
-    ERIvvvv = H.ERI[v, v, v, v]
-    W = Sharded.build(mesh, ("va", "vb"), (nv,) * 4,
-                      lambda sl, dev: _copy_to(ERIvvvv[sl], dev, dtype))
-    out = Hamiltonian(ERI=Sharded.put(H.ERI, mesh, spec4, dtype),
-                      L=Sharded.put(H.L, mesh, spec4, dtype), **props)
+    if isinstance(H.ERI, AOSource):
+        ERI, L, W = build_full(H.ERI, H.no, mesh, dtype)
+    else:
+        no, nv = H.no, H.ERI.shape[0] - H.no
+        v = slice(no, None)
+        ERIvvvv = H.ERI[v, v, v, v]
+        W = Sharded.build(mesh, ("va", "vb"), (nv,) * 4,
+                          lambda sl, dev: _copy_to(ERIvvvv[sl], dev, dtype))
+        ERI = Sharded.put(H.ERI, mesh, spec4, dtype)
+        L = Sharded.put(H.L, mesh, spec4, dtype)
+    out = Hamiltonian(ERI=ERI, L=L, **props)
     # Hamiltonian.vvvv is a cached property: seed its cache with the
     # sharded ladder operand
     out.__dict__["vvvv"] = W
     return out
+
+
+class _Cell:
+    """One distinct piece of `build_full`: the ERI/L ranges (r, s) of
+    nact and the W ranges (a, b) (shifted by o), on `device`, and the
+    accumulator acc[p, s', q, r'] over the columns r' and s' that cover
+    r and a, and s and b."""
+
+    def __init__(self, device, r, s, a, b, C):
+        self.device = device
+        self.r, self.s, self.a, self.b = r, s, a, b
+        self.hr = (min(r[0], a[0]), max(r[1], a[1]))
+        self.hs = (min(s[0], b[0]), max(s[1], b[1]))
+        self.C = C
+        nact = C.shape[1]
+        self.acc = torch.zeros((nact, self.hs[1] - self.hs[0], nact,
+                                self.hr[1] - self.hr[0]),
+                               dtype=torch.float64, device=device)
+
+    def add(self, X, m0):
+        """The chunk X = (m0 + m, n, l, s) of the AO ERI's part of the sum
+        over m, three quarter transforms and one GEMM."""
+        C = self.C
+        Y = torch.tensordot(X, C[:, slice(*self.hs)], dims=([3], [0]))
+        Y = torch.tensordot(Y, C, dims=([2], [0]))
+        Y = torch.tensordot(Y, C[:, slice(*self.hr)], dims=([1], [0]))
+        m = X.shape[0]
+        self.acc.view(C.shape[1], -1).addmm_(C[m0:m0 + m].T,
+                                             Y.reshape(m, -1))
+
+    def pieces(self, no, dtype):
+        """(ERI, L, W) pieces from the accumulator, cast to `dtype`; the
+        accumulator goes before L is made."""
+        acc = self.acc
+        rr = slice(self.r[0] - self.hr[0], self.r[1] - self.hr[0])
+        ss = slice(self.s[0] - self.hs[0], self.s[1] - self.hs[0])
+        aa = slice(self.a[0] - self.hr[0], self.a[1] - self.hr[0])
+        bb = slice(self.b[0] - self.hs[0], self.b[1] - self.hs[0])
+        # W[a, b, e, f] = <ef|ab> = acc[e, b, f, a]
+        W = _copy_to(acc[no:, bb, no:, aa].permute(3, 1, 0, 2),
+                     self.device, dtype)
+        E = acc[:, ss, :, rr].permute(0, 2, 3, 1).contiguous()
+        self.acc = acc = None
+        L = torch.empty_like(E)
+        torch.neg(E.transpose(0, 1), out=L)
+        L.add_(E, alpha=2.0)
+        if dtype != E.dtype:
+            E, L = E.to(dtype), L.to(dtype)
+        return E, L, W
+
+
+def build_full(src, no, mesh, dtype=None, chunk_bytes=2 ** 30):
+    """(ERI, L, W) of full storage, each Sharded on its layout (the
+    module's text), every piece made on its own device from
+    src (`hamiltonian.AOSource`) in one pass over the AO ERI in chunks of
+    its first index, about `chunk_bytes` a chunk: a chunk is copied from
+    the host to the home device once (the span 'hamiltonian.h2d', its
+    bytes) and from there to each other device, where each cell adds it
+    to its accumulator (the span 'hamiltonian.shard' on the cell's
+    device); then each cell makes its pieces (the same span) in float64,
+    cast to `dtype` (None: src.dtype)."""
+    dtype = src.dtype if dtype is None else dtype
+    C = src.C.to(torch.float64)
+    nbf, nact = C.shape
+    nv = nact - no
+    spec4, specw = (None, None, "va", "vb"), ("va", "vb", None, None)
+    cells, where = {}, {}
+    Cs = {}
+    for i, j, dev in mesh.cells():
+        _, _, r, s = _cell_slices(mesh, spec4, (nact,) * 4, i, j)
+        a, b = _cell_slices(mesh, specw, (nv,) * 4, i, j)[:2]
+        key = (dev, (r.start, r.stop), (s.start, s.stop),
+               (no + a.start, no + a.stop), (no + b.start, no + b.stop))
+        if key not in cells:
+            if dev not in Cs:
+                Cs[dev] = C.to(dev)
+            cells[key] = _Cell(*key, Cs[dev])
+        where[(i, j)] = key
+    home = mesh.home
+    step = max(1, chunk_bytes // (nbf ** 3 * 8))
+    for m0 in range(0, nbf, step):
+        X = torch.as_tensor(src.ERI_ao[m0:m0 + step])
+        with _on(home), span("hamiltonian.h2d",
+                             nbytes=X.numel() * X.element_size()):
+            X = X.to(home, torch.float64)
+        on = {home: X}
+        for cell in cells.values():
+            dev = cell.device
+            if dev not in on:
+                on[dev] = X.to(dev)
+            with _on(dev), span("hamiltonian.shard"):
+                cell.add(on[dev], m0)
+        del X, on
+    made = {}
+    for key, cell in cells.items():
+        with _on(cell.device), span("hamiltonian.shard"):
+            made[key] = cell.pieces(no, dtype)
+    del cells
+    out = []
+    for k, (spec, shape) in enumerate(((spec4, (nact,) * 4),
+                                       (spec4, (nact,) * 4),
+                                       (specw, (nv,) * 4))):
+        out.append(Sharded(mesh, spec, shape,
+                           {c: made[key][k] for c, key in where.items()}))
+    return tuple(out)
 
 
 def shard_blocks(blocks, mesh, dtype=None):
@@ -674,25 +839,28 @@ def ladder_sharded(tau, W, fn):
     piece: one K1 launch) a shard, on the shard's device with tau copied
     there once a device, each shard's (a, b) columns copied into the
     result on tau's device.  Every shard is launched before any result is
-    copied back, so shards on different cards run at once."""
+    copied back, so shards on different cards run at once.  The span
+    'mesh.ladder' on tau's device covers it, from the first launch to the
+    last column block copied home."""
     from ..ops.kernels.vvvv import StackedComplex
     stacked = isinstance(W, StackedComplex)
     Wsh = W.ri if stacked else W
     on = {}
     done = []
-    for sl, piece in Wsh.shards():
-        sa, sb = sl[-4], sl[-3]
-        if sa.stop == sa.start or sb.stop == sb.start:
-            continue
-        dev = piece.device
-        if dev not in on:
-            on[dev] = tau.to(dev)
-        done.append((sa, sb, fn(on[dev], StackedComplex(piece) if stacked
-                                else piece)))
-    out = torch.empty(tuple(tau.shape[:2]) + tuple(W.shape[:2]),
-                      dtype=done[0][2].dtype, device=tau.device)
-    for sa, sb, C in done:
-        out[:, :, sa, sb].copy_(C)
+    with _on(tau.device), span("mesh.ladder"):
+        for sl, piece in Wsh.shards():
+            sa, sb = sl[-4], sl[-3]
+            if sa.stop == sa.start or sb.stop == sb.start:
+                continue
+            dev = piece.device
+            if dev not in on:
+                on[dev] = tau.to(dev)
+            done.append((sa, sb, fn(on[dev], StackedComplex(piece)
+                                    if stacked else piece)))
+        out = torch.empty(tuple(tau.shape[:2]) + tuple(W.shape[:2]),
+                          dtype=done[0][2].dtype, device=tau.device)
+        for sa, sb, C in done:
+            out[:, :, sa, sb].copy_(C)
     return out
 
 

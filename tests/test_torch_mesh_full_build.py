@@ -1,0 +1,228 @@
+"""Full storage of a mesh solver made on its devices
+(pycc_tpu_torch/parallel/mesh.build_full): each cell's ERI, L and <ab|ef>
+pieces from the host AO ERI, on meshes of CPU devices, against the
+unsharded build and the plain reference of the benchmark
+(portbench/reference, plain PyTorch).
+
+The wavefunction is the benchmark's seeded SCF output at a tiny size whose
+nact (21) and v (17) split unevenly over the mesh axes.  This file imports
+no JAX.
+"""
+
+import contextlib
+import functools
+import importlib
+import io
+
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+torch.set_num_threads(1)
+
+import pycc_tpu_torch
+import pycc_tpu_torch.hamiltonian as ham
+from pycc_tpu_torch.hamiltonian import ao_source, build_hamiltonian
+from pycc_tpu_torch.parallel import Sharded, make_mesh
+from pycc_tpu_torch.parallel.mesh import build_full, split_ranges
+from pycc_tpu_torch.utils import timing
+
+from portbench.harness.inputs import make_inputs
+from portbench.harness.spec import Spec
+from portbench.reference import ccsd as rcc
+from portbench.reference.hamiltonian import FullERI, mo_eri, spin_adapted
+
+# the module: the package's `ccwfn` is the class
+ccwfn_mod = importlib.import_module("pycc_tpu_torch.ccwfn")
+CPU = torch.device("cpu")
+CONV = 1e-12
+
+
+def _quiet(fn, *a, **kw):
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*a, **kw)
+
+
+@functools.lru_cache(maxsize=None)
+def _wfn(seed=2 ** 31 + 11):
+    cfg = dict(Spec().config("h2o6_avdz_full"), nbf=22, nfzc=1, ndocc=5)
+    cfg["generator"] = dict(cfg["generator"], rank=80, scale=0.5)
+    return make_inputs(cfg, seed, CPU)
+
+
+@functools.lru_cache(maxsize=None)
+def _unsharded(precision="DP"):
+    dtype = torch.float64 if precision == "DP" else torch.float32
+    return build_hamiltonian(_wfn(), device="cpu", dtype=dtype)
+
+
+def _mesh(n=4):
+    return make_mesh(devices=["cpu"] * n)
+
+
+@functools.lru_cache(maxsize=None)
+def _solved(mesh_n=0):
+    kw = {"mesh": _mesh(mesh_n)} if mesh_n else {}
+    cc = _quiet(pycc_tpu_torch.ccwfn, _wfn(), device="cpu", **kw)
+    return cc, _quiet(cc.solve_cc, CONV, CONV)
+
+
+def _no():
+    w = _wfn()
+    return w.doccpi()[0] - w.frzcpi()[0]
+
+
+@pytest.mark.parametrize("n", [4, 8])
+@pytest.mark.parametrize("chunk_bytes", [2 ** 30, 3 * 22 ** 3 * 8],
+                         ids=["one-chunk", "chunks-of-3"])
+def test_pieces_equal_the_unsharded_build(n, chunk_bytes):
+    """Every cell's ERI, L and <ab|ef> piece equals the unsharded build's
+    part at 1e-12, in one chunk of the AO ERI or in chunks of three of
+    its first index, on a 2 x 2 and a 2 x 4 mesh."""
+    H = _unsharded()
+    no = _no()
+    nact = H.ERI.shape[0]
+    assert nact % 2 and (nact - no) % 2
+    m = _mesh(n)
+    ERI, L, W = build_full(ao_source(_wfn()), no, m,
+                           chunk_bytes=chunk_bytes)
+    whole = {id(ERI): H.ERI, id(L): H.L, id(W): H.vvvv}
+    for s in (ERI, L, W):
+        assert isinstance(s, Sharded) and s.dtype == torch.float64
+        for i, j, dev in m.cells():
+            sl = s.cell_slices(i, j)
+            piece = s.pieces[(i, j)]
+            assert piece.device == dev and piece.is_contiguous()
+            gap = (piece - whole[id(s)][sl]).abs().max()
+            assert gap < 1e-12, (i, j, float(gap))
+    assert ERI.spec == L.spec == (None, None, "va", "vb")
+    assert W.spec == ("va", "vb", None, None)
+
+
+def test_no_piece_is_whole():
+    """No piece has the shape of a whole ERI, L or <ab|ef>: each is its
+    cell's ranges, nact split 11 + 10 and v 9 + 8 on a 2 x 2 mesh."""
+    cc, _ = _solved(4)
+    nact, nv = cc.nact, cc.nv
+    assert split_ranges(nact, 2) == [(0, 11), (11, 21)]
+    assert split_ranges(nv, 2) == [(0, 9), (9, 17)]
+    for s, n in ((cc.H.ERI, nact), (cc.H.L, nact), (cc.vvvv(), nv)):
+        shapes = {tuple(p.shape) for p in s.pieces.values()}
+        assert (n,) * 4 not in shapes and len(shapes) == 4
+        assert sum(p.numel() for _, p in s.shards()) == n ** 4
+    assert {tuple(p.shape) for p in cc.H.ERI.pieces.values()} == {
+        (nact, nact, a, b) for a in (11, 10) for b in (11, 10)}
+    assert {tuple(p.shape) for p in cc.vvvv().pieces.values()} == {
+        (a, b, nv, nv) for a in (9, 8) for b in (9, 8)}
+
+
+def test_the_mesh_init_makes_no_host_eri(monkeypatch):
+    """A mesh solver's init calls build_hamiltonian only with eri=False,
+    never runs the host MO transform, and leaves no AO source behind."""
+    calls, transforms = [], []
+    real_build, real_mo = ham.build_hamiltonian, ham._mo_eri_dirac
+
+    def spy(wfn, *a, **kw):
+        calls.append((str(kw.get("device", "cuda")), kw.get("eri", True)))
+        return real_build(wfn, *a, **kw)
+
+    def mo_spy(*a, **kw):
+        transforms.append(1)
+        return real_mo(*a, **kw)
+    monkeypatch.setattr(ccwfn_mod, "build_hamiltonian", spy)
+    monkeypatch.setattr(ham, "_mo_eri_dirac", mo_spy)
+    cc = _quiet(pycc_tpu_torch.ccwfn, _wfn(), device="cpu", mesh=_mesh())
+    assert calls == [("cpu", False)] and not transforms
+    assert isinstance(cc.H.ERI, Sharded) and isinstance(cc.H.L, Sharded)
+    _quiet(pycc_tpu_torch.ccwfn, _wfn(), device="cpu")
+    assert calls[-1] == ("cpu", True) and transforms == [1]
+
+
+def test_energy_matches_unsharded_and_the_reference():
+    """E(CCSD) of the mesh solver equals the unsharded port's at 1e-10;
+    the plain reference's residual vanishes at the mesh solver's
+    amplitudes and its energy there is the solver's, at 1e-10."""
+    cc, e = _solved(4)
+    _, e0 = _solved(0)
+    assert abs(e - e0) < 1e-10
+    w = _wfn()
+    C = torch.as_tensor(w.Ca_subset("AO", "ACTIVE"))
+    F = C.T @ torch.as_tensor(w.Fa()) @ C
+    ERIt = mo_eri(C, torch.as_tensor(w.ERI_ao))
+    no = cc.no
+    v = slice(no, None)
+    ERI, L = FullERI(ERIt), FullERI(spin_adapted(ERIt))
+    r1, r2 = rcc.residuals_ccsd(F, ERI, L, ERIt[v, v, v, v], cc.t1, cc.t2,
+                                no)
+    D1, D2 = rcc.denominators(F, no)
+    res = float(torch.sqrt(((r1 / D1) ** 2).sum() + ((r2 / D2) ** 2).sum()))
+    assert res < 1e-9
+    assert abs(float(rcc.cc_energy(F, L, cc.t1, cc.t2, no)) - e) < 1e-10
+
+
+def test_float32_pieces_are_cast_from_float64():
+    """precision='SP': the pieces are float32, cast from the float64
+    build, so they equal the unsharded float32 build's to its rounding."""
+    cc = _quiet(pycc_tpu_torch.ccwfn, _wfn(), device="cpu", precision="SP",
+                mesh=_mesh())
+    H = _unsharded("SP")
+    for s, ref in ((cc.H.ERI, H.ERI), (cc.H.L, H.L), (cc.vvvv(), H.vvvv)):
+        assert s.dtype == torch.float32
+        full = s.full()
+        assert float((full - ref).abs().max()) <= 1e-6 * float(
+            ref.abs().max())
+
+
+def _traced(fn):
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = fn()
+    return out, timing.spans()
+
+
+def test_build_spans_count_the_host_bytes():
+    """Under a profiler the build records one 'hamiltonian.h2d' a chunk,
+    whose bytes sum to the AO ERI's, and one 'hamiltonian.shard' a cell
+    a chunk and a cell for its pieces."""
+    src = ao_source(_wfn())
+    nbf = src.C.shape[0]
+    step = 3
+    _, rows = _traced(lambda: build_full(src, _no(), _mesh(),
+                                         chunk_bytes=step * nbf ** 3 * 8))
+    chunks = -(-nbf // step)
+    assert rows["hamiltonian.h2d"]["count"] == chunks
+    assert rows["hamiltonian.h2d"]["bytes"] == src.ERI_ao.nbytes
+    assert rows["hamiltonian.shard"]["count"] == 4 * chunks + 4
+    assert rows["hamiltonian.h2d"]["device_s"] is None
+
+
+def test_gather_span_bytes_equal_the_count():
+    """Over one residual the bytes of the spans 'mesh.gather' are the
+    increment of Mesh.gathered_bytes, and the sharded ladder is one
+    'mesh.ladder'."""
+    cc, _ = _solved(4)
+    m = cc.mesh
+    before = m.gathered_bytes
+    _, rows = _traced(lambda: cc.residuals(cc.H.F, cc.t1, cc.t2))
+    grown = m.gathered_bytes - before
+    assert grown > 0 and rows["mesh.gather"]["bytes"] == grown
+    assert rows["mesh.ladder"]["count"] == 1
+    # o v^3 reads: ERI[o,v,v,v] four times, ERI[v,v,v,o] and L[o,v,v,v]
+    # once each
+    no, nv = cc.no, cc.nv
+    assert grown > 6 * no * nv ** 3 * 8
+
+
+def test_spans_change_no_energy():
+    """A mesh solve traced gives the untraced solve's energy and
+    amplitudes bit for bit."""
+    cc, e = _solved(4)
+
+    def solve():
+        c = _quiet(pycc_tpu_torch.ccwfn, _wfn(), device="cpu",
+                   mesh=_mesh())
+        return c, _quiet(c.solve_cc, CONV, CONV)
+    (ct, et), rows = _traced(solve)
+    assert et == e and torch.equal(ct.t2, cc.t2)
+    assert rows["mesh.gather"]["count"] > 0
+    assert rows["mesh.ladder"]["count"] == ct.niter
+    assert rows["ccwfn.residual"]["count"] == ct.niter
