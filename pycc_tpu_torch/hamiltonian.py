@@ -5,9 +5,12 @@ Fock matrix F, Dirac-notation ERI <pq|rs>, spin-adapted L = 2<pq|rs> -
 dipole m, linear momentum p, traceless quadrupole Q) over the active MO
 space.  The counterpart of pycc_tpu/hamiltonian.py.  A mesh solver's full
 storage starts as an `AOSource` (the host AO ERI and C), from which
-parallel/mesh.py makes each card's pieces on that card.
+parallel/mesh.py makes each card's pieces on that card.  The AO ERI goes
+from host memory to a card through an `Uplink`, pinned staging buffers
+filled by several host threads.
 """
 
+import contextlib
 from dataclasses import dataclass
 from functools import cached_property
 from typing import NamedTuple
@@ -85,6 +88,182 @@ def ao_source(wfn, dtype=torch.float64):
     return AOSource(ERI_ao=ERI_ao, C=C, dtype=dtype)
 
 
+# an Uplink's staging buffers: at most STAGE_BYTES each, STAGE_BUFFERS a
+# card; STAGE_BYTES is also a mesh build's default chunk
+STAGE_BYTES = 2 ** 29
+STAGE_BUFFERS = 2
+
+
+class Uplink:
+    """Copies from host memory to one card through a ring of staging
+    buffers.
+
+    From pageable memory CUDA copies through a small pinned buffer of
+    its own, filled by one host thread: about 6 GB/s on an H100's host,
+    whatever the link allows.  An Uplink cuts what it sends
+    into pieces of at most STAGE_BYTES.  The host copies a piece into the
+    ring's next buffer (`copy_` between CPU tensors, on torch's intra-op
+    threads; the span 'hamiltonian.stage', with its bytes).  The card's
+    copy stream then takes it from there (`non_blocking`), and an event
+    after that copy frees the buffer: the host refills a buffer only once
+    its event has completed, so it stages piece k + 1 while piece k
+    crosses the link.  Before its first piece the copy stream waits until
+    the destination may be written; after the last, the card's current
+    stream waits on the copy stream, so no reader there sees a piece that
+    has not landed.  A copy is exact: the destination holds the source's
+    bytes.
+
+    The ring is STAGE_BUFFERS pinned buffers of at most STAGE_BYTES (1 GiB
+    a card, 4 GiB for a mesh of four), made at first use by torch's
+    caching host allocator.  Dropped with the Uplink, they go back to that
+    allocator's cache, which hands them to the next upload of the same
+    size, as the CUDA caching allocator does device memory; nothing in
+    them is read again.  An Uplink keeps no copy of its source and no
+    registration of its memory.
+
+    On a CPU device the buffers are not pinned and every copy ends before
+    the next begins (no stream, no event): the CPU tests run the ring that
+    way, though `uplink` gives a CPU target no Uplink."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.stream = (torch.cuda.Stream(self.device)
+                       if self.device.type == "cuda" else None)
+        self.ring, self.copied = [], []   # buffers; their last copy's event
+        self.slots, self.freed = [], []   # `take`'s; their readers' event
+        self.staged = self.taken = 0
+        self.last = None                  # the last `take`'s slot
+
+    def _current(self):
+        if self.stream is None:
+            return None
+        return torch.cuda.current_stream(self.device)
+
+    def _record(self, stream):
+        """An event at the end of the work queued on `stream` so far."""
+        if stream is None:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(stream)
+        return ev
+
+    def _copying(self):
+        """The copy stream as the current one, on a card."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+    def _dma(self, dst, buf):
+        """Queue the copy of a staged buffer into dst; its event."""
+        if self.stream is None:
+            dst.copy_(buf)
+            return None
+        dst.copy_(buf, non_blocking=True)
+        return self._record(self.stream)
+
+    def _sync(self, ev):
+        """The host waits for the copy that recorded `ev`."""
+        if ev is not None:
+            ev.synchronize()
+
+    def _join(self, ev):
+        """The current stream waits for the copy that recorded `ev`."""
+        if ev is not None:
+            self._current().wait_event(ev)
+
+    def _stage(self, piece, size):
+        """(index, buffer) of the ring's next buffer, of at least `size`
+        elements, holding piece, once its last copy is done."""
+        i = self.staged % STAGE_BUFFERS
+        self.staged += 1
+        if i == len(self.ring):
+            self.ring.append(None)
+            self.copied.append(None)
+        self._sync(self.copied[i])
+        buf = self.ring[i]
+        if buf is None or buf.numel() < piece.numel():
+            buf = self.ring[i] = torch.empty(
+                size, dtype=piece.dtype, pin_memory=self.stream is not None)
+        buf = buf[:piece.numel()]
+        with span("hamiltonian.stage", nbytes=piece.nbytes):
+            buf.copy_(piece)
+        return i, buf
+
+    def send(self, src, dst, ready=None, name=None):
+        """Copy src, a contiguous CPU tensor, into dst, a contiguous tensor
+        of its shape and dtype on this card, piece by piece through the
+        ring.  The copy stream first waits on the event `ready` (None: the
+        current stream's work queued so far), after which dst may be
+        written; each piece's copy is the span `name`, if one is given, on
+        the copy stream."""
+        src, out = src.reshape(-1), dst.view(-1)
+        per = max(1, STAGE_BYTES // src.element_size())
+        size = min(per, src.numel())
+        if ready is None:
+            ready = self._record(self._current())
+        ev = None
+        for a in range(0, src.numel(), per):
+            piece = src[a:a + per]
+            i, buf = self._stage(piece, size)
+            with self._copying():
+                if ready is not None:
+                    self.stream.wait_event(ready)
+                    ready = None
+                with (span(name, nbytes=piece.nbytes) if name
+                      else contextlib.nullcontext()):
+                    ev = self.copied[i] = self._dma(out[a:a + per], buf)
+        self._join(ev)
+
+    def take(self, src, name=None):
+        """src, a contiguous CPU tensor, sent (`send`) to a slot of this
+        card: a device tensor of the ring's, one a buffer, reused in turn.
+        Call `release()` once every reader of the returned tensor is
+        queued: the slot's next copy waits for them."""
+        j = self.taken % STAGE_BUFFERS
+        self.taken += 1
+        if j == len(self.slots):
+            self.slots.append(None)
+            self.freed.append(None)
+        slot = self.slots[j]
+        if slot is None or slot.numel() < src.numel():
+            # a new block may be one that the current stream still reads
+            slot = self.slots[j] = torch.empty(src.numel(), dtype=src.dtype,
+                                               device=self.device)
+            self.freed[j] = None
+        X = slot[:src.numel()].view(src.shape)
+        self.send(src, X, ready=self.freed[j], name=name)
+        self.last = j
+        return X
+
+    def release(self):
+        """The last `take`'s slot may be written again once the current
+        stream's work queued so far is done."""
+        self.freed[self.last] = self._record(self._current())
+
+
+def uplink(device, src):
+    """An Uplink for copies of the CPU tensor src to `device`, or None where
+    a plain copy is as fast: a target other than a CUDA card, or a source
+    already on a device or already pinned."""
+    device = torch.device(device)
+    if device.type != "cuda" or src.device.type != "cpu" or src.is_pinned():
+        return None
+    return Uplink(device)
+
+
+def ao_eri_to(ERI_ao, device):
+    """The AO ERI (host array or tensor) on `device`, equal to
+    torch.as_tensor(ERI_ao, device=device) bit for bit: through an Uplink
+    where `uplink` gives one, else that plain copy."""
+    src = torch.as_tensor(ERI_ao)
+    link = uplink(device, src)
+    if link is None:
+        return torch.as_tensor(src, device=device)
+    out = torch.empty(src.shape, dtype=src.dtype, device=device)
+    link.send(src, out)
+    return out
+
+
 def _tensors(arrays, dtype, dev):
     return tuple(torch.tensor(np.asarray(x), dtype=dtype, device=dev)
                  for x in arrays)
@@ -130,7 +309,7 @@ def mo_eri_blocks(wfn, device="cuda", dtype=torch.float64):
     # <pq|rs> = (pr|qs): block pat transforms the AO indices in the
     # chemists' order p, r, q, s
     chem = [pat[0] + pat[2] + pat[1] + pat[3] for pat in CANONICAL]
-    done = {"": torch.as_tensor(ERI_ao, device=dev)}
+    done = {"": ao_eri_to(ERI_ao, dev)}
     del ERI_ao
     blocks = []
     for k, order in enumerate(chem):
@@ -200,8 +379,9 @@ def build_hamiltonian(wfn, C=None, device="cuda", dtype=torch.float64,
         ERI_ao = getattr(wfn, "ERI_ao", None)
         if ERI_ao is None:
             ERI_ao = ints.eri(basis)
+        # the span ends once the current stream has waited for the copy
         with span("hamiltonian.h2d", nbytes=ERI_ao.nbytes):
-            ERI = torch.as_tensor(ERI_ao, device=dev)
+            ERI = ao_eri_to(ERI_ao, dev)
         del ERI_ao
         ERI = _mo_eri_dirac(ERI, C)
         L = (2.0 * ERI - ERI.swapaxes(2, 3)).to(dtype)

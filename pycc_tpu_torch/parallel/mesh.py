@@ -30,9 +30,11 @@ asks for it (`full`).  `Mesh.gathered_bytes` counts the bytes such reads
 copy out of the shards.  Program spans (utils/timing.py), each on the
 device its copies land on: 'mesh.gather' around each such read (its bytes
 are the count's increment), 'mesh.ladder' around each sharded ladder,
-and, in `build_full`, 'hamiltonian.h2d' around each chunk's copy from the
-host (its bytes) and 'hamiltonian.shard' around each cell's work on a
-chunk and on its pieces, on that cell's device.
+and, in `build_full`, 'hamiltonian.stage' around each chunk's copy into
+a staging buffer (its bytes), 'hamiltonian.h2d' around its copy from there
+to its card, on that card's copy stream (its bytes), and
+'hamiltonian.shard' around each cell's work on a chunk and on its pieces,
+on that cell's device.
 
 The sharded operands are cut from where they were made, piece by piece,
 or made where they live.  A mesh solver's full storage is made on the
@@ -46,9 +48,17 @@ host memory a piece at a time.  The formulas that run on the pieces
 slices that cover it.
 
 `build_full`, one pass over the AO ERI (mn|ls) in chunks of its first
-index m (about 1 GiB a chunk): each chunk is copied from host memory to
-the home device once, and from there to each other device of the mesh
-(card to card), so the AO ERI crosses from the host once a build.  Each
+index m (about 512 MiB a chunk, `hamiltonian.STAGE_BYTES`).  The chunks go
+round the mesh's distinct devices, so each card takes its share from the
+host over its own link: chunk k is copied from host memory to device k mod
+n once, through that card's `hamiltonian.Uplink` (the host stages it in a
+pinned buffer, several threads at once; the card's copy stream takes it
+from there while the host stages the next), and from that card to each
+other device of the mesh (card to card).  The AO ERI thus crosses from the
+host once a build, a quarter of it on each of four links.  Each card
+holds at most two received chunks and one forwarded chunk at a time, and
+the host two pinned buffers a card (1 GiB; 4 GiB for four cards), which
+go back to torch's pinned-memory cache when the build ends.  Each
 cell keeps an accumulator acc[p, s', q, r'] = <pq|r's'> for every p and q
 and the columns r' and s' that cover both its ERI/L ranges (r, s) and its
 W ranges (a, b) shifted by o; a chunk adds its part of the sum over m by
@@ -62,16 +72,17 @@ C[m, p].  From the accumulator, on the cell's device:
   W piece     W[a, b, e, f] = <ef|ab> = <ab|ef>  (va, vb, None, None)
 
 Arithmetic at (H2O)_6/aug-cc-pVDZ: nbf 246, nact 240, (o, v) = (24,
-216), a 2 x 2 mesh.  The AO ERI is 29.3 GB (28 chunks of 9 values of m),
-so 29.3 GB cross from the host and 3 x 29.3 GB go card to card a build.
+216), a 2 x 2 mesh.  The AO ERI is 29.3 GB (62 chunks of 4 values of m,
+476 MB each), so 29.3 GB cross from the host, 7.3 GB on each card's link,
+and 3 x 29.3 GB go card to card a build.
 A cell's columns are 132 or 120 a side (ERI's ranges 120 + 120 of nact,
 W's 108 + 108 of v, shifted by 24); the fullest cell, (132, 132), does
 2 x 246 (246^3 132 + 246^2 132 240 + 246 132 240 132 + 240 132 240 132)
 = 2.9 TFLOP in float64 GEMMs (2.6 for (120, 120)), tens of milliseconds
 at the card's rate, and holds its accumulator (8.0 GB), then its pieces:
 ERI and L 6.6 GB each, W 4.35 GB, 17.6 GB in all; the build's peak on it
-is about 19 GB (the accumulator, W and ERI) beside about 3 GB of chunk
-transients.  The host's copy bounds the build.
+is about 19 GB (the accumulator, W and ERI) beside about 2 GB of chunk
+transients.  The host's staging copies bound the build.
 
 No process group is made (no NCCL, no DTensor): NCCL refuses two ranks
 on one GPU, so a one-card machine could check nothing past a world size
@@ -726,17 +737,23 @@ class _Cell:
         return E, L, W
 
 
-def build_full(src, no, mesh, dtype=None, chunk_bytes=2 ** 30):
+def build_full(src, no, mesh, dtype=None, chunk_bytes=None):
     """(ERI, L, W) of full storage, each Sharded on its layout (the
     module's text), every piece made on its own device from
     src (`hamiltonian.AOSource`) in one pass over the AO ERI in chunks of
-    its first index, about `chunk_bytes` a chunk: a chunk is copied from
-    the host to the home device once (the span 'hamiltonian.h2d', its
-    bytes) and from there to each other device, where each cell adds it
-    to its accumulator (the span 'hamiltonian.shard' on the cell's
-    device); then each cell makes its pieces (the same span) in float64,
-    cast to `dtype` (None: src.dtype)."""
+    its first index, about `chunk_bytes` a chunk (None:
+    `hamiltonian.STAGE_BYTES`).  The chunks go round the mesh's distinct
+    devices: each is copied from the host to one of them once, through
+    its `hamiltonian.Uplink` where `hamiltonian.uplink` gives one (the
+    span 'hamiltonian.h2d', its bytes, one a staged piece on the copy
+    stream; else one a chunk around the plain copy), and from there to
+    each other device, where each cell adds it to its accumulator (the
+    span 'hamiltonian.shard' on the cell's device); then each cell makes
+    its pieces (the same span) in float64, cast to `dtype` (None:
+    src.dtype)."""
+    from ..hamiltonian import STAGE_BYTES, uplink
     dtype = src.dtype if dtype is None else dtype
+    chunk_bytes = STAGE_BYTES if chunk_bytes is None else chunk_bytes
     C = src.C.to(torch.float64)
     nbf, nact = C.shape
     nv = nact - no
@@ -753,21 +770,30 @@ def build_full(src, no, mesh, dtype=None, chunk_bytes=2 ** 30):
                 Cs[dev] = C.to(dev)
             cells[key] = _Cell(*key, Cs[dev])
         where[(i, j)] = key
-    home = mesh.home
-    step = max(1, chunk_bytes // (nbf ** 3 * 8))
-    for m0 in range(0, nbf, step):
-        X = torch.as_tensor(src.ERI_ao[m0:m0 + step])
-        with _on(home), span("hamiltonian.h2d",
-                             nbytes=X.numel() * X.element_size()):
-            X = X.to(home, torch.float64)
-        on = {home: X}
+    eri = torch.as_tensor(src.ERI_ao)
+    links = {dev: uplink(dev, eri) for dev in mesh.distinct}
+    receivers = list(links)
+    step = max(1, chunk_bytes // (nbf ** 3 * eri.element_size()))
+    for k, m0 in enumerate(range(0, nbf, step)):
+        dev = receivers[k % len(receivers)]
+        part, link = eri[m0:m0 + step], links[dev]
+        if link is None:
+            with _on(dev), span("hamiltonian.h2d", nbytes=part.nbytes):
+                X = part.to(dev, torch.float64)
+        else:
+            X = link.take(part, name="hamiltonian.h2d").to(torch.float64)
+        on = {dev: X}
         for cell in cells.values():
-            dev = cell.device
-            if dev not in on:
-                on[dev] = X.to(dev)
-            with _on(dev), span("hamiltonian.shard"):
-                cell.add(on[dev], m0)
-        del X, on
+            d = cell.device
+            if d not in on:
+                on[d] = X.to(d)
+            with _on(d), span("hamiltonian.shard"):
+                cell.add(on[d], m0)
+        if link is not None:
+            link.release()
+        del X, on, link
+    # the device slots go before the pieces are made
+    del links
     made = {}
     for key, cell in cells.items():
         with _on(cell.device), span("hamiltonian.shard"):

@@ -13,6 +13,7 @@ import contextlib
 import functools
 import importlib
 import io
+import weakref
 
 import pytest
 import torch
@@ -24,6 +25,7 @@ import pycc_tpu_torch
 import pycc_tpu_torch.hamiltonian as ham
 from pycc_tpu_torch.hamiltonian import ao_source, build_hamiltonian
 from pycc_tpu_torch.parallel import Sharded, make_mesh
+from pycc_tpu_torch.parallel import mesh as mesh_mod
 from pycc_tpu_torch.parallel.mesh import build_full, split_ranges
 from pycc_tpu_torch.utils import timing
 
@@ -179,20 +181,82 @@ def _traced(fn):
     return out, timing.spans()
 
 
-def test_build_spans_count_the_host_bytes():
+def test_build_spans_count_the_host_bytes(monkeypatch):
     """Under a profiler the build records one 'hamiltonian.h2d' a chunk,
     whose bytes sum to the AO ERI's, and one 'hamiltonian.shard' a cell
-    a chunk and a cell for its pieces."""
+    a chunk and a cell for its pieces.  A CPU mesh takes the plain copy,
+    with no 'hamiltonian.stage'; through the staging ring (unpinned
+    buffers, as on the CPU) it records one a chunk, whose bytes also sum
+    to the AO ERI's, and gives the same pieces bit for bit."""
     src = ao_source(_wfn())
     nbf = src.C.shape[0]
     step = 3
-    _, rows = _traced(lambda: build_full(src, _no(), _mesh(),
-                                         chunk_bytes=step * nbf ** 3 * 8))
+    build = lambda: build_full(src, _no(), _mesh(),
+                               chunk_bytes=step * nbf ** 3 * 8)
+    plain, rows = _traced(build)
     chunks = -(-nbf // step)
     assert rows["hamiltonian.h2d"]["count"] == chunks
     assert rows["hamiltonian.h2d"]["bytes"] == src.ERI_ao.nbytes
     assert rows["hamiltonian.shard"]["count"] == 4 * chunks + 4
     assert rows["hamiltonian.h2d"]["device_s"] is None
+    assert "hamiltonian.stage" not in rows
+    monkeypatch.setattr(ham, "uplink",
+                        lambda dev, x: ham.Uplink(dev))
+    staged, rows = _traced(build)
+    for name in ("hamiltonian.h2d", "hamiltonian.stage"):
+        assert rows[name]["count"] == chunks
+        assert rows[name]["bytes"] == src.ERI_ao.nbytes
+    assert rows["hamiltonian.shard"]["count"] == 4 * chunks + 4
+    for a, b in zip(staged, plain):
+        for c in a.pieces:
+            assert torch.equal(a.pieces[c], b.pieces[c])
+
+
+def test_chunks_go_round_the_cards(monkeypatch):
+    """Over four distinct devices (cpu:0 to cpu:3) chunk k goes from the
+    host to device k mod 4, through that device's own ring: each device
+    takes its share, no chunk crosses twice, every cell still adds every
+    chunk (the pieces equal the unsharded build's), and every ring is
+    gone before the cells make their pieces."""
+    src = ao_source(_wfn())
+    nbf = src.C.shape[0]
+    m = make_mesh(devices=["cpu:%d" % i for i in range(4)])
+    assert len(m.distinct) == 4
+    taken, links, alive = [], [], []
+
+    class Counted(ham.Uplink):
+        def __init__(self, device):
+            super().__init__(device)
+            links.append(weakref.ref(self))
+
+        def take(self, x, name=None):
+            taken.append((self.device, x.data_ptr()))
+            return super().take(x, name)
+    monkeypatch.setattr(ham, "uplink", lambda dev, x: Counted(dev))
+    pieces = mesh_mod._Cell.pieces
+
+    def spy(cell, *a):
+        alive.append(sum(r() is not None for r in links))
+        return pieces(cell, *a)
+    monkeypatch.setattr(mesh_mod._Cell, "pieces", spy)
+    step = 2
+    ERI, L, W = build_full(src, _no(), m, chunk_bytes=step * nbf ** 3 * 8)
+    chunks = -(-nbf // step)
+    eri = torch.as_tensor(src.ERI_ao)
+    assert [p for _, p in taken] == [eri[m0].data_ptr()
+                                     for m0 in range(0, nbf, step)]
+    assert [d for d, _ in taken] == [m.distinct[k % 4]
+                                     for k in range(chunks)]
+    # no uplink, and so no device slot, is left when the pieces are made
+    assert len(links) == 4 and alive == [0] * 4
+    share = {d: sum(1 for e, _ in taken if e == d) for d in m.distinct}
+    assert sorted(share.values()) == [chunks // 4] * (4 - chunks % 4) + [
+        chunks // 4 + 1] * (chunks % 4)
+    H = _unsharded()
+    for s, whole in ((ERI, H.ERI), (L, H.L), (W, H.vvvv)):
+        for i, j, _ in m.cells():
+            gap = (s.pieces[(i, j)] - whole[s.cell_slices(i, j)]).abs().max()
+            assert gap < 1e-12
 
 
 def test_gather_span_bytes_equal_the_count():
