@@ -206,6 +206,9 @@ from pycc_tpu_torch.scf import integrals as ints
 from pycc_tpu_torch.scf import run_rhf
 from pycc_tpu_torch.utils.timing import trace
 
+from portbench.harness.roofline import (HBM_BYTES_S, bound_s, k2_row_bytes,
+                                        k2_row_flops)
+
 DEVICE = "cuda:0"
 
 # name: (E(SCF), Ecorr(CCSD), E(T)), from pycc_tpu in float64 on a CPU host:
@@ -337,12 +340,6 @@ K1_SHAPES = [
     (K1_MESH_DF_SHAPE, "(H2O)_6/aug mesh DF block", ("f64",)),
     (K1_DFRT_SHAPE, "(H2O)_6/aug DF RT complex-W block", ("f64",)),
 ]
-# the H100 SXM data sheet's dense peaks (at its 700 W limit): HBM bytes/s,
-# and flop/s for the arithmetic each kernel does in each type (float64 on
-# the FP64 tensor cores, float32 on the CUDA cores, bf16 on the tensor cores)
-HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {"f64": 67e12, "f32": 67e12, "bf16->f32": 989e12}
-
 # (label, operand dtype, bf16 mode, tolerance on max|err| / max|ref|)
 K1_TYPES = [
     ("f64", torch.float64, False, 1e-12),
@@ -368,12 +365,12 @@ def phase_device():
 
 
 def bound(work, nbytes):
-    """(bound_ms, bound_by): the least time the card could take, the larger
-    of the bytes over the HBM rate and the flop over the peaks; work is
-    [(flop, type label)], each part at its type's peak."""
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = sum(flops / PEAK_FLOPS[label] for flops, label in work) * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    """(bound_ms, bound_by): the benchmark's roofline bound (`bound_s`,
+    the H100 SXM data sheet's dense peaks) and which of the operations or
+    the bytes set it."""
+    t = bound_s(work, nbytes)
+    return t * 1e3, ("operations" if t > nbytes / HBM_BYTES_S
+                     else "bytes")
 
 
 def _sass_mma(name):
@@ -519,12 +516,6 @@ K2_TYPES = [
 K2_OUTPUTS = ("X1a", "X1m", "Z1", "Z1m", "Z2a", "Z2m", "X2l")
 
 
-def k2_row_flops(no, nv):
-    """The kernel's arithmetic for one row: o^2 v^3 t3 elements, each
-    built with 6 (v + o) FMA and projected with 2 v + 3 o more."""
-    return 2.0 * no ** 2 * nv ** 3 * (8 * nv + 9 * no)
-
-
 def k2_build_flops(no, nv):
     """The t3 build's share of k2_row_flops: 6 (v + o) FMA an element."""
     return 2.0 * no ** 2 * nv ** 3 * 6 * (nv + no)
@@ -538,16 +529,6 @@ def k2_work(no, nv, label):
         return [(k2_row_flops(no, nv), label)]
     build = k2_build_flops(no, nv)
     return [(build, label), (k2_row_flops(no, nv) - build, "f32")]
-
-
-def k2_row_bytes(no, nv, in_bytes, acc_bytes):
-    """One row's operands read once (Wv, Ot, Ev, Eo, L and t2 in the
-    streamed type, Fov and eps in the tile type) and its seven outputs
-    written once."""
-    streamed = (2 * no * nv ** 3 + 2 * no ** 3 * nv + no ** 2 * nv ** 2 * 2)
-    small = no * nv + no + nv
-    outs = 2 * no * nv + 4 * no * nv ** 2 + no ** 2 * nv ** 2
-    return streamed * in_bytes + (small + outs) * acc_bytes
 
 
 def _k2_inputs(no, nv, gen):
@@ -1887,7 +1868,7 @@ def _ladder_split(cc):
     apart, then one whole `ladder_df` and one whole residual."""
     dfb, t1, t2, no, nv = cc.dfb, cc.t1, cc.t2, cc.no, cc.nv
     blk = -(-nv // dfccsd._ladder_blocks(nv, cc.naux))
-    tau2 = dfccsd._tau(t1, t2).reshape(no * no, nv * nv)
+    tau2 = build_tau(t1, t2).reshape(no * no, nv * nv)
     BL = 0.5 * dfb.Bvv - torch.einsum("ma,Pme->Pae", t1, dfb.Bov)
     assembly = k1 = 0.0
     for a0 in range(0, nv, blk):

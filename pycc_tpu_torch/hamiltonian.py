@@ -3,11 +3,46 @@
 Fock matrix F, Dirac-notation ERI <pq|rs>, spin-adapted L = 2<pq|rs> -
 <pq|sr>, and one-electron property integrals (electric dipole mu, magnetic
 dipole m, linear momentum p, traceless quadrupole Q) over the active MO
-space.  The counterpart of pycc_tpu/hamiltonian.py.  A mesh solver's full
-storage starts as an `AOSource` (the host AO ERI and C), from which
-parallel/mesh.py makes each card's pieces on that card.  The AO ERI goes
-from host memory to a card through an `Uplink`, pinned staging buffers
-filled by several host threads.
+space.  The counterpart of pycc_tpu/hamiltonian.py.
+
+Every four-index MO integral of the port is made by one transform,
+`mo_eri_cells`: one pass over the AO ERI (mn|ls) in chunks of its first
+index m (about 512 MiB a chunk, STAGE_BYTES), into the accumulators of a
+list of cells.  A cell (`Cell`) is a device and the windows of the MO
+indices (p, q, r, s) of <pq|rs> = (pr|qs) that it needs.  One device's
+full storage is one cell that covers every index (build_hamiltonian),
+the blocked storage six, one a canonical block (mo_eri_blocks), and a
+mesh's full storage one a distinct piece (parallel/mesh.build_full).
+A mesh solver's full storage starts as an `AOSource` (the host AO ERI
+and C), from which build_full makes each card's pieces on that card.
+
+The chunks go round the cells' distinct devices, so each card takes its
+share from the host over its own link: chunk k is copied from host
+memory to device k mod n once, through that card's `Uplink` (pinned
+staging buffers filled by several host threads; the card's copy stream
+takes a chunk from there while the host stages the next), and from that
+card to each other device (card to card).  Each card holds at most two
+received chunks and one forwarded chunk at a time, and the host two
+pinned buffers a card (1 GiB), which go back to torch's pinned-memory
+cache when the transform ends.  Each cell keeps an accumulator
+acc[p, s, q, r] over the hull of its windows; a chunk adds its part of
+the sum over m by three quarter transforms (s, then q, then r; GEMMs)
+and one GEMM with C[m, p].  No device ever holds the whole AO ERI.
+
+Arithmetic: at (H2O)_6/cc-pVDZ (nbf 144, nact 138) one cell, 7 chunks of
+22 values of m; the accumulator is 2.9 GB, and the card's peak is about
+two nact^4 tensors (the accumulator and ERI, then ERI and L), where the
+four whole-tensor quarter transforms held the AO ERI and two
+intermediates (9.9 GB).  At (H2O)_6/aug-cc-pVDZ (nbf 246, nact 240,
+(o, v) = (24, 216)) on a 2 x 2 mesh the AO ERI is 29.3 GB (62 chunks of
+4 values of m, 476 MB each): 7.3 GB on each card's link and 3 x 29.3 GB
+card to card.  A mesh cell's columns r and s are 132 or 120 a side
+(ERI's ranges 120 + 120 of nact, W's 108 + 108 of v, shifted by 24); the
+fullest, (132, 132), does 2 x 246 (246^3 132 + 246^2 132 240 + 246 132
+240 132 + 240 132 240 132) = 2.9 TFLOP in float64 GEMMs, and holds its
+accumulator (8.0 GB), then its pieces: ERI and L 6.6 GB each, W 4.35 GB;
+its peak is about 19 GB beside about 2 GB of chunk transients.  The
+host's staging copies bound the transform.
 """
 
 import contextlib
@@ -18,7 +53,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .utils.device import init_device
+from .utils.device import init_device, on_device
 from .utils.timing import span
 
 
@@ -75,21 +110,23 @@ class AOSource(NamedTuple):
     dtype: torch.dtype
 
 
-def ao_source(wfn, dtype=torch.float64):
-    """The AOSource of wfn's active space: its kept AO ERI (computed here
-    when it has none) and C, as build_hamiltonian reads them."""
+def ao_source(wfn, dtype=torch.float64, C=None):
+    """The AOSource of wfn's active space, or of the columns C (AO x
+    active) in its place: its kept AO ERI (computed here when it has
+    none) and C."""
     from .scf import integrals as ints
 
     ERI_ao = getattr(wfn, "ERI_ao", None)
     if ERI_ao is None:
         ERI_ao = ints.eri(wfn.basisset())
-    C = torch.as_tensor(np.asarray(wfn.Ca_subset("AO", "ACTIVE")),
-                        dtype=torch.float64)
-    return AOSource(ERI_ao=ERI_ao, C=C, dtype=dtype)
+    if C is None:
+        C = np.asarray(wfn.Ca_subset("AO", "ACTIVE"))
+    return AOSource(ERI_ao=ERI_ao, C=torch.as_tensor(C, dtype=torch.float64),
+                    dtype=dtype)
 
 
 # an Uplink's staging buffers: at most STAGE_BYTES each, STAGE_BUFFERS a
-# card; STAGE_BYTES is also a mesh build's default chunk
+# card; STAGE_BYTES is also mo_eri_cells' default chunk
 STAGE_BYTES = 2 ** 29
 STAGE_BUFFERS = 2
 
@@ -251,16 +288,124 @@ def uplink(device, src):
     return Uplink(device)
 
 
-def ao_eri_to(ERI_ao, device):
-    """The AO ERI (host array or tensor) on `device`, equal to
-    torch.as_tensor(ERI_ao, device=device) bit for bit: through an Uplink
-    where `uplink` gives one, else that plain copy."""
-    src = torch.as_tensor(ERI_ao)
-    link = uplink(device, src)
-    if link is None:
-        return torch.as_tensor(src, device=device)
-    out = torch.empty(src.shape, dtype=src.dtype, device=device)
-    link.send(src, out)
+class Cell(NamedTuple):
+    """What one cell of `mo_eri_cells` makes on `device`: the Dirac piece
+    <pq|rs> on the windows `eri`, one (start, stop) of nact for each of p,
+    q, r and s; with L=True also 2 <pq|rs> - <qp|rs> on them (which is
+    2 <pq|rs> - <pq|sr> for real orbitals where the p and q windows are
+    one); with `W`, windows (p, q, r, s) too, that Dirac piece laid out
+    as (r, s, p, q): the ladder's W[a, b, e, f] = <ef|ab>."""
+    device: torch.device
+    eri: tuple
+    L: bool = False
+    W: tuple = None
+
+
+class _Cell:
+    """A cell's accumulator acc[p, s, q, r] over the hull of its windows,
+    on its device."""
+
+    def __init__(self, spec, C):
+        self.spec = spec
+        self.device = torch.device(spec.device)
+        wins = (spec.eri,) if spec.W is None else (spec.eri, spec.W)
+        self.hull = tuple((min(w[k][0] for w in wins),
+                           max(w[k][1] for w in wins)) for k in range(4))
+        hp, hq, hr, hs = (hi - lo for lo, hi in self.hull)
+        self.C = C
+        self.acc = torch.zeros((hp, hs, hq, hr), dtype=torch.float64,
+                               device=self.device)
+
+    def add(self, X, m0):
+        """The chunk X = (m0 + m, n, l, s) of the AO ERI's part of the sum
+        over m, three quarter transforms and one GEMM."""
+        C = self.C
+        hp, hq, hr, hs = (slice(*h) for h in self.hull)
+        Y = torch.tensordot(X, C[:, hs], dims=([3], [0]))
+        Y = torch.tensordot(Y, C[:, hq], dims=([2], [0]))
+        Y = torch.tensordot(Y, C[:, hr], dims=([1], [0]))
+        m = X.shape[0]
+        self.acc.view(self.acc.shape[0], -1).addmm_(C[m0:m0 + m, hp].T,
+                                                    Y.reshape(m, -1))
+
+    def _cut(self, windows, order, dtype):
+        """A contiguous copy, in `dtype`, of the accumulator's part on the
+        windows (p, q, r, s), its axes in `order` of acc's (p, s, q, r)."""
+        p, q, r, s = (slice(lo - h[0], hi - h[0])
+                      for (lo, hi), h in zip(windows, self.hull))
+        x = self.acc[p, s, q, r].permute(order)
+        return torch.empty(x.shape, dtype=dtype,
+                           device=self.device).copy_(x)
+
+    def pieces(self, dtype):
+        """(ERI, L, W) pieces from the accumulator, cast to `dtype`, None
+        where the cell asks for none; the accumulator goes before L is
+        made."""
+        W = None
+        if self.spec.W is not None:
+            W = self._cut(self.spec.W, (3, 1, 0, 2), dtype)
+        E = self._cut(self.spec.eri, (0, 2, 3, 1), torch.float64)
+        self.acc = None
+        L = None
+        if self.spec.L:
+            L = torch.empty_like(E)
+            torch.neg(E.transpose(0, 1), out=L)
+            L.add_(E, alpha=2.0)
+        if dtype != E.dtype:
+            E = E.to(dtype)
+            L = None if L is None else L.to(dtype)
+        return E, L, W
+
+
+def mo_eri_cells(src, cells, chunk_bytes=None):
+    """[(ERI, L, W)] of each `Cell` in `cells`, on its device, from src
+    (an `AOSource`) in one pass over the AO ERI in chunks of its first
+    index, about `chunk_bytes` a chunk (None: STAGE_BYTES), in float64,
+    then cast to src.dtype (the module's text).  The chunks go round the
+    cells' distinct devices: each is copied from the host to one of them
+    once, through its `Uplink` where `uplink` gives one (the span
+    'hamiltonian.h2d', its bytes, one a staged piece on the copy stream;
+    else one a chunk around the plain copy), and from there to each other
+    device, where each cell adds it to its accumulator (the span
+    'hamiltonian.shard' on the cell's device); then each cell makes its
+    pieces (the same span)."""
+    chunk_bytes = STAGE_BYTES if chunk_bytes is None else chunk_bytes
+    C = src.C.to(torch.float64)
+    nbf = C.shape[0]
+    Cs, made = {}, []
+    for spec in cells:
+        dev = torch.device(spec.device)
+        if dev not in Cs:
+            Cs[dev] = C.to(dev)
+        made.append(_Cell(spec, Cs[dev]))
+    eri = torch.as_tensor(src.ERI_ao)
+    links = {d: uplink(d, eri) for d in dict.fromkeys(c.device for c in made)}
+    receivers = list(links)
+    step = max(1, chunk_bytes // (nbf ** 3 * eri.element_size()))
+    for k, m0 in enumerate(range(0, nbf, step)):
+        dev = receivers[k % len(receivers)]
+        part, link = eri[m0:m0 + step], links[dev]
+        if link is None:
+            with on_device(dev), span("hamiltonian.h2d", nbytes=part.nbytes):
+                X = part.to(dev, torch.float64)
+        else:
+            X = link.take(part, name="hamiltonian.h2d").to(torch.float64)
+        on = {dev: X}
+        for cell in made:
+            d = cell.device
+            if d not in on:
+                on[d] = X.to(d)
+            with on_device(d), span("hamiltonian.shard"):
+                cell.add(on[d], m0)
+        if link is not None:
+            link.release()
+        del X, on, link
+    # the device slots go before the pieces are made
+    del links
+    out = []
+    for cell in made:
+        with on_device(cell.device), span("hamiltonian.shard"):
+            out.append(cell.pieces(src.dtype))
     return out
 
 
@@ -276,54 +421,20 @@ def _properties(mu, m, p, Q, dtype, dev):
                 Q=_tensors(Q, dtype, dev))
 
 
-def _mo_eri_dirac(ERI_ao, C):
-    """AO (ab|cd) -> MO <pq|rs> (physicists') by four quarter transforms.
-    Each tensordot contracts the leading AO index and appends the new MO
-    index last, so after four the order is (pr|qs)."""
-    t = ERI_ao
-    for _ in range(4):
-        t = torch.tensordot(t, C, dims=([0], [0]))
-    return t.swapaxes(1, 2).contiguous()
-
-
 def mo_eri_blocks(wfn, device="cuda", dtype=torch.float64):
     """The six canonical Dirac blocks of the active-space ERI
     (models/blocked.ERIBlocks: oooo, ooov, oovv, ovov, ovvv, vvvv), each
-    transformed straight from the AO ERI by four quarter transforms with
-    the occupied or the virtual columns of C, in float64 on `device`, then
-    cast to `dtype`.  The nact^4 MO ERI is never formed.  A partial
-    transform that several blocks share is made once, and dropped as soon
-    as no block left needs it.  The AO ERI is the wavefunction's (`ERI_ao`), or
-    is computed here."""
+    one cell of `mo_eri_cells` on `device`, in float64, then cast to
+    `dtype`.  The nact^4 MO ERI is never formed.  The AO ERI is the
+    wavefunction's (`ERI_ao`), or is computed here."""
     from .models.blocked import CANONICAL, ERIBlocks
-    from .scf import integrals as ints
 
     dev = init_device(device)
+    src = ao_source(wfn, dtype)
     no = wfn.doccpi()[0] - wfn.frzcpi()[0]
-    C = torch.as_tensor(np.asarray(wfn.Ca_subset("AO", "ACTIVE")),
-                        dtype=torch.float64, device=dev)
-    cols = {"o": C[:, :no], "v": C[:, no:]}
-    ERI_ao = getattr(wfn, "ERI_ao", None)
-    if ERI_ao is None:
-        ERI_ao = ints.eri(wfn.basisset())
-    # <pq|rs> = (pr|qs): block pat transforms the AO indices in the
-    # chemists' order p, r, q, s
-    chem = [pat[0] + pat[2] + pat[1] + pat[3] for pat in CANONICAL]
-    done = {"": ao_eri_to(ERI_ao, dev)}
-    del ERI_ao
-    blocks = []
-    for k, order in enumerate(chem):
-        for depth in range(1, 5):
-            key = order[:depth]
-            if key not in done:
-                done[key] = torch.tensordot(done[key[:-1]], cols[key[-1]],
-                                            dims=([0], [0]))
-            # a partial transform goes as soon as no later block needs it
-            if not any(c.startswith(key[:-1]) for c in chem[k + 1:]):
-                done.pop(key[:-1], None)
-        blocks.append(done.pop(order).permute(0, 2, 1, 3).to(dtype)
-                      .contiguous())
-    return ERIBlocks(*blocks)
+    space = {"o": (0, no), "v": (no, src.C.shape[1])}
+    cells = [Cell(dev, tuple(space[c] for c in pat)) for pat in CANONICAL]
+    return ERIBlocks(*(E for E, _, _ in mo_eri_cells(src, cells)))
 
 
 def ao_properties(wfn):
@@ -353,8 +464,9 @@ def build_hamiltonian(wfn, C=None, device="cuda", dtype=torch.float64,
     occupied orbitals: F, ERI, L and every property integral are then in
     that basis, as in pycc_tpu's build_hamiltonian(wfn, C=).  The AO
     property integrals are `ao_properties(wfn)`.  The AO integrals come
-    from the host engine; the four-index MO transform runs in float64 on
-    `device`, and F/ERI/L are then cast to `dtype`, as are the real
+    from the host engine; the four-index MO transform is one cell of
+    `mo_eri_cells` on `device` that covers every index, in float64, and
+    F/ERI/L are then cast to `dtype`, as are the real
     property integrals (mu, Q); the complex ones (m, p) stay complex128,
     as in pycc_tpu.  A Hamiltonian without property integrals holds the
     empty tuple `()` for each of them (never None): the response code
@@ -365,27 +477,17 @@ def build_hamiltonian(wfn, C=None, device="cuda", dtype=torch.float64,
     tensors entirely (ERI = L = None) and never computes the AO ERI:
     ccwfn(storage='df') carries the two-electron integrals as Cholesky
     factors instead."""
-    from .scf import integrals as ints
-
     dev = init_device(device)
     f64 = torch.float64
     C_np = np.asarray(wfn.Ca_subset("AO", "ACTIVE") if C is None else C)
     C = torch.as_tensor(C_np, dtype=f64, device=dev)
     F = C.T @ torch.as_tensor(np.asarray(wfn.Fa()), dtype=f64, device=dev) @ C
 
-    basis = wfn.basisset()
     ERI = L = None
     if eri:
-        ERI_ao = getattr(wfn, "ERI_ao", None)
-        if ERI_ao is None:
-            ERI_ao = ints.eri(basis)
-        # the span ends once the current stream has waited for the copy
-        with span("hamiltonian.h2d", nbytes=ERI_ao.nbytes):
-            ERI = ao_eri_to(ERI_ao, dev)
-        del ERI_ao
-        ERI = _mo_eri_dirac(ERI, C)
-        L = (2.0 * ERI - ERI.swapaxes(2, 3)).to(dtype)
-        ERI = ERI.to(dtype)
+        whole = ((0, C.shape[1]),) * 4
+        ERI, L, _ = mo_eri_cells(ao_source(wfn, dtype, C),
+                                 [Cell(dev, whole, L=True)])[0]
 
     def mo(M):
         return C_np.T @ M @ C_np

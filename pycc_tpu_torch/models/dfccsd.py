@@ -38,6 +38,7 @@ import torch
 from ..ops.contract import contract, seed
 from ..ops.kernels.vvvv import vvvv_nt
 from ..parallel.mesh import dense, per_piece
+from .ccsd import build_tau
 
 
 class DFERI(NamedTuple):
@@ -97,17 +98,13 @@ def _eri_ovoo(df):   # <mb|ij> = (mi|bj)
 # one-particle intermediates
 # ---------------------------------------------------------------------------
 
-def _tau(t1, t2, f1=1.0, f2=1.0):
-    return f1 * t2 + f2 * (t1[:, None, :, None] * t1[None, :, None, :])
-
-
 def build_Fae_df(F, df, Loovv, t1, t2, no):
     # contract('mf,mafe->ae', t1, L[o,v,v,v]) with L[mafe] = 2(mf|ae)-(me|af)
     dP = contract("Pmf,mf->P", df.Bov, t1)
     Cam = contract("Paf,mf->Pam", df.Bvv, t1)
     ovvv_term = (2.0 * contract("P,Pae->ae", dP, df.Bvv)
                  - contract("Pam,Pme->ae", Cam, df.Bov))
-    tau_h = _tau(t1, t2, 1.0, 0.5)
+    tau_h = build_tau(t1, t2, 1.0, 0.5)
     o, v = slice(0, no), slice(no, None)
     return (F[v, v]
             - 0.5 * contract("me,ma->ae", F[o, v], t1)
@@ -117,7 +114,7 @@ def build_Fae_df(F, df, Loovv, t1, t2, no):
 
 def build_Fmi_df(F, Looov, Loovv, t1, t2, no):
     o, v = slice(0, no), slice(no, None)
-    tau_h = _tau(t1, t2, 1.0, 0.5)
+    tau_h = build_tau(t1, t2, 1.0, 0.5)
     return (F[o, o]
             + 0.5 * contract("ie,me->mi", t1, F[o, v])
             + contract("ne,mnie->mi", t1, Looov)
@@ -134,7 +131,7 @@ def build_Fme_df(F, Loovv, t1, no):
 # ---------------------------------------------------------------------------
 
 def build_Wmnij_df(eri_oooo, eri_ooov, eri_oovv, t1, t2):
-    tau = _tau(t1, t2)
+    tau = build_tau(t1, t2)
     return (eri_oooo
             + contract("je,mnie->mnij", t1, eri_ooov)
             # <mn|ej> = <nm|je>: reuse the ooov assembly transposed
@@ -146,7 +143,7 @@ def build_Wmbej_df(df, eri_ovvo, eri_oovv, Loovv, eri_ooov, t1, t2):
     # contract('jf,mbef->mbej', t1, <mb|ef>=(me|bf)) without the ovvv tensor
     Cbj = contract("Pbf,jf->Pbj", df.Bvv, t1)
     ovvv_term = contract("Pme,Pbj->mbej", df.Bov, Cbj)
-    tau_x = _tau(t1, t2, 0.5, 1.0)
+    tau_x = build_tau(t1, t2, 0.5, 1.0)
     return (eri_ovvo
             + ovvv_term
             # <mn|ej> = <nm|je>
@@ -159,7 +156,7 @@ def build_Wmbje_df(df, eri_ovov, eri_oovv, eri_ooov, t1, t2):
     # contract('jf,mbfe->mbje', t1, <mb|fe>=(mf|be)) without the ovvv tensor
     Dmj = contract("Pmf,jf->Pmj", df.Bov, t1)
     ovvv_term = contract("Pmj,Pbe->mbje", Dmj, df.Bvv)
-    tau_x = _tau(t1, t2, 0.5, 1.0)
+    tau_x = build_tau(t1, t2, 0.5, 1.0)
     return (-eri_ovov
             - ovvv_term
             + contract("nb,mnje->mbje", t1, eri_ooov)
@@ -222,7 +219,7 @@ def ladder_df(df, t1, t2, nblocks=None, ladder=vvvv_nt):
     BL = per_piece(df.Bvv, lambda p, sl: 0.5 * p - contract(
         "ma,Pme->Pae", t1[:, sl[1]].to(p.device),
         df.Bov[:, :, sl[2]].to(p.device)))
-    return ladder_apply(BL, df.Bvv, _tau(t1, t2), nblocks=nblocks,
+    return ladder_apply(BL, df.Bvv, build_tau(t1, t2), nblocks=nblocks,
                         ladder=ladder)
 
 
@@ -277,7 +274,7 @@ def residuals_ccsd_df(F, df, t1, t2, no, nblocks=None, ladder=vvvv_nt):
     Wmnij = build_Wmnij_df(eri_oooo, eri_ooov, eri_oovv, t1, t2)
     Wmbej = build_Wmbej_df(df, eri_ovvo, eri_oovv, Loovv, eri_ooov, t1, t2)
     Wmbje = build_Wmbje_df(df, eri_ovov, eri_oovv, eri_ooov, t1, t2)
-    tau = _tau(t1, t2)
+    tau = build_tau(t1, t2)
 
     r1 = _r_T1_df(F, df, eri_oovv, Loovv, eri_ooov, t1, t2,
                   Fae, Fme, Fmi, no)
@@ -400,4 +397,4 @@ def cc_energy_df(F, df, t1, t2, no):
     eri_oovv = _eri_oovv(df)
     Loovv = 2.0 * eri_oovv - eri_oovv.swapaxes(2, 3)
     ecc = 2.0 * contract("ia,ia->", F[o, v], t1)
-    return ecc + contract("ijab,ijab->", _tau(t1, t2), Loovv)
+    return ecc + contract("ijab,ijab->", build_tau(t1, t2), Loovv)

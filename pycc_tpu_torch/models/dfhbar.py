@@ -45,9 +45,10 @@ from ..ops.kernels.vvvv import (ladder_product, stack_rows,
                                 unstack_product, vvvv_nt)
 from ..parallel.mesh import Sharded, dense, per_piece, region, split_ranges
 from ..utils.timing import span
+from .ccsd import build_tau, pair_symmetric
 from .dfccsd import (DFERI, LADDER_MAX_ELEMS, _block_count, _eri_oooo,
                      _eri_ooov, _eri_oovv, _eri_ovoo, _eri_ovov, _eri_ovvo,
-                     _ladder_blocks, _tau, ladder_W, whole_bvv)
+                     _ladder_blocks, ladder_W, whole_bvv)
 
 
 class DFHBar(NamedTuple):
@@ -75,11 +76,6 @@ def dress_factors(df, t1):
         df.Bov[:, :, sl[2]].to(p.device)))
     Bd_mi = df.Boo + contract("if,Pmf->Pmi", t1, df.Bov)
     return Bd_ae, Bd_mi
-
-
-def _pair_sym(x):
-    """x[..., i, j, a, b] + x[..., j, i, b, a]."""
-    return x + x.transpose(-4, -3).transpose(-2, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -265,7 +261,7 @@ def build_hbar_df(F, dfb, t1, t2, no, model="CCSD"):
     Bd_ae, Bd_mi = dress_factors(dfb, t1)
     df = whole_bvv(dfb)
     cc2 = model == "CC2"
-    tau = _tau(t1, t2)
+    tau = build_tau(t1, t2)
 
     eri_oovv = _eri_oovv(df)
     Loovv = 2.0 * eri_oovv - eri_oovv.swapaxes(2, 3)
@@ -413,7 +409,7 @@ def r1_l2_hvvvo(dfh, t1, t2, l2, Hov, cc2=False):
     dfh = whole_factors(dfh)
     df = dfh.df
     Bov, Boo, Bvv = df.Bov, df.Boo, df.Bvv
-    tau = _tau(t1, t2)
+    tau = build_tau(t1, t2)
 
     # (1) <ef|am> = (ea|fm):  Z[P,i,e] = l2[imef] Bov[P,m,f]
     Z = contract("imef,Pmf->Pie", l2, Bov)
@@ -500,7 +496,7 @@ def s2_c1_hvvvo(dfh, t1, t2, C1, Hov):
     dfh = whole_factors(dfh)
     df = dfh.df
     Bov, Boo, Bvv = df.Bov, df.Boo, df.Bvv
-    tau = _tau(t1, t2)
+    tau = build_tau(t1, t2)
     Eia = contract("...ie,Pae->...Pia", C1, Bvv)      # C1-dressed vv factor
     CB = contract("...ie,Pme->...Pim", C1, Bov)
 
@@ -609,7 +605,7 @@ def lambda_residuals_df(dfh, t1, t2, l1, l2, no, S1=None, S2=None,
     r2 -= contract("mieb,jeam->ijab", l2, dfh.Hovvo)
     r2 += contract("ae,ijeb->ijab", Gvv, Loovv)
     r2 -= contract("mi,mjab->ijab", Goo, Loovv)
-    return r1, _pair_sym(r2)
+    return r1, 2 * pair_symmetric(r2)
 
 
 def _lambda_residuals_cc2_df(dfh, F, t1, t2, l1, l2, no, S1=None, S2=None):
@@ -621,7 +617,7 @@ def _lambda_residuals_cc2_df(dfh, F, t1, t2, l1, l2, no, S1=None, S2=None):
         raise ValueError("CC2 DF Lambda residuals need the Fock matrix F "
                          "(the dense CC2 r2 uses bare-Fock one-body terms)")
     o, v = slice(0, no), slice(no, None)
-    tau = _tau(t1, t2)
+    tau = build_tau(t1, t2)
     eri_oovv = _eri_oovv(dfh.df)
     Loovv = 2.0 * eri_oovv - eri_oovv.swapaxes(2, 3)
     Hovvo_s = 2.0 * dfh.Hovvo - dfh.Hovov.swapaxes(2, 3)
@@ -652,7 +648,7 @@ def _lambda_residuals_cc2_df(dfh, F, t1, t2, l1, l2, no, S1=None, S2=None):
                    F[v, v] - contract("me,ma->ae", F[o, v], t1))
     r2 -= contract("mjab,im->ijab", l2,
                    F[o, o] + contract("ie,me->mi", t1, F[o, v]))
-    return r1, _pair_sym(r2)
+    return r1, 2 * pair_symmetric(r2)
 
 
 # ---------------------------------------------------------------------------
@@ -697,4 +693,4 @@ def sigma2_df(dfh, C1, C2, Loovv, t1, t2, no, nblocks=None, ladder=vvvv_nt):
     s2 -= contract("...imea,mbej->...ijab", C2, dfh.Hovvo)
     s2 += 2.0 * contract("...miea,mbej->...ijab", C2, dfh.Hovvo)
     s2 -= contract("...miea,mbje->...ijab", C2, dfh.Hovov)
-    return _pair_sym(s2)
+    return 2 * pair_symmetric(s2)

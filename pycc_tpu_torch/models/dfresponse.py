@@ -27,7 +27,8 @@ import torch
 from ..ops.contract import contract
 from ..ops.kernels.vvvv import vvvv_nt
 from ..parallel.mesh import dense
-from .dfhbar import (_ea_layout, _pair_sym, hvvvv_x2_df, ladder_apply,
+from .ccsd import pair_symmetric
+from .dfhbar import (_ea_layout, hvvvv_x2_df, ladder_apply,
                      r1_gvv_hvovv, r1_l2_hvvvo, r2_l1_hvovv, sigma1_df,
                      sigma2_df, zvv_c1_hvovv)
 
@@ -53,8 +54,8 @@ def rX_df(dfh, Loovv, t1, t2, Ad, omega, X1, X2, no, nblocks=None,
     r1 = Ad["Avo"].T - omega * X1 + sigma1_df(dfh, X1, X2, Loovv, no)
     r2 = sigma2_df(dfh, X1, X2, Loovv, t1, t2, no, nblocks=nblocks,
                    ladder=ladder)
-    r2 = r2 + _pair_sym(Ad["Avvoo"])
-    r2 = r2 - 0.5 * omega * _pair_sym(X2)
+    r2 = r2 + 2 * pair_symmetric(Ad["Avvoo"])
+    r2 = r2 - omega * pair_symmetric(X2)
     return r1, r2
 
 
@@ -96,7 +97,7 @@ def rY_df(dfh, Loovv, t1, t2, imY1, imY2, omega, Y1, Y2, no, nblocks=None,
     r2 -= contract("mieb,jeam->ijab", Y2, dfh.Hovvo)
     r2 += contract("ijeb,ae->ijab", Loovv, Gvv)
     r2 -= contract("mi,mjab->ijab", Goo, Loovv)
-    return r1, _pair_sym(r2)
+    return r1, 2 * pair_symmetric(r2)
 
 
 # ---------------------------------------------------------------------------

@@ -29,12 +29,9 @@ tensor method on a Sharded raises, and a reader that does want the whole
 asks for it (`full`).  `Mesh.gathered_bytes` counts the bytes such reads
 copy out of the shards.  Program spans (utils/timing.py), each on the
 device its copies land on: 'mesh.gather' around each such read (its bytes
-are the count's increment), 'mesh.ladder' around each sharded ladder,
-and, in `build_full`, 'hamiltonian.stage' around each chunk's copy into
-a staging buffer (its bytes), 'hamiltonian.h2d' around its copy from there
-to its card, on that card's copy stream (its bytes), and
-'hamiltonian.shard' around each cell's work on a chunk and on its pieces,
-on that cell's device.
+are the count's increment) and 'mesh.ladder' around each sharded ladder;
+`build_full`'s are hamiltonian.mo_eri_cells' ('hamiltonian.stage',
+'hamiltonian.h2d', 'hamiltonian.shard').
 
 The sharded operands are cut from where they were made, piece by piece,
 or made where they live.  A mesh solver's full storage is made on the
@@ -47,42 +44,17 @@ host memory a piece at a time.  The formulas that run on the pieces
 `per_piece` and `map_leading` apply them once to a plain tensor, with
 slices that cover it.
 
-`build_full`, one pass over the AO ERI (mn|ls) in chunks of its first
-index m (about 512 MiB a chunk, `hamiltonian.STAGE_BYTES`).  The chunks go
-round the mesh's distinct devices, so each card takes its share from the
-host over its own link: chunk k is copied from host memory to device k mod
-n once, through that card's `hamiltonian.Uplink` (the host stages it in a
-pinned buffer, several threads at once; the card's copy stream takes it
-from there while the host stages the next), and from that card to each
-other device of the mesh (card to card).  The AO ERI thus crosses from the
-host once a build, a quarter of it on each of four links.  Each card
-holds at most two received chunks and one forwarded chunk at a time, and
-the host two pinned buffers a card (1 GiB; 4 GiB for four cards), which
-go back to torch's pinned-memory cache when the build ends.  Each
-cell keeps an accumulator acc[p, s', q, r'] = <pq|r's'> for every p and q
-and the columns r' and s' that cover both its ERI/L ranges (r, s) and its
-W ranges (a, b) shifted by o; a chunk adds its part of the sum over m by
-three quarter transforms (s, then q, then r; GEMMs) and one GEMM with
-C[m, p].  From the accumulator, on the cell's device:
+`build_full` lays full storage out as cells of hamiltonian.mo_eri_cells
+(the AO ERI crosses from the host once, a quarter of it on each of four
+links; the arithmetic is that module's), one a distinct piece: every p
+and q, and the columns that cover both the ERI/L ranges (r, s) and the W
+ranges (a, b) shifted by o.  From its accumulator, on the cell's device:
 
   ERI piece   <pq|rs>                            (None, None, va, vb)
   L piece     2 <pq|rs> - <qp|rs>                (<pq|sr> = <qp|rs> for
                                                   real orbitals, so no
                                                   cell reads another's)
   W piece     W[a, b, e, f] = <ef|ab> = <ab|ef>  (va, vb, None, None)
-
-Arithmetic at (H2O)_6/aug-cc-pVDZ: nbf 246, nact 240, (o, v) = (24,
-216), a 2 x 2 mesh.  The AO ERI is 29.3 GB (62 chunks of 4 values of m,
-476 MB each), so 29.3 GB cross from the host, 7.3 GB on each card's link,
-and 3 x 29.3 GB go card to card a build.
-A cell's columns are 132 or 120 a side (ERI's ranges 120 + 120 of nact,
-W's 108 + 108 of v, shifted by 24); the fullest cell, (132, 132), does
-2 x 246 (246^3 132 + 246^2 132 240 + 246 132 240 132 + 240 132 240 132)
-= 2.9 TFLOP in float64 GEMMs (2.6 for (120, 120)), tens of milliseconds
-at the card's rate, and holds its accumulator (8.0 GB), then its pieces:
-ERI and L 6.6 GB each, W 4.35 GB, 17.6 GB in all; the build's peak on it
-is about 19 GB (the accumulator, W and ERI) beside about 2 GB of chunk
-transients.  The host's staging copies bound the build.
 
 No process group is made (no NCCL, no DTensor): NCCL refuses two ranks
 on one GPU, so a one-card machine could check nothing past a world size
@@ -119,10 +91,9 @@ contiguous ranges (torch.tensor_split's); pycc_tpu's `_put` drops such an
 axis, since jax refuses uneven shards.
 """
 
-import contextlib
-
 import torch
 
+from ..utils.device import on_device
 from ..utils.timing import span
 
 AXES = ("va", "vb")
@@ -212,14 +183,6 @@ def make_mesh(n_devices=None, devices=None, shape=None):
             a -= 1
         shape = (a, n // a)
     return Mesh(devices, shape)
-
-
-def _on(device):
-    """A CUDA device's guard (its current stream then takes a span's
-    events), or nothing for another device."""
-    if device.type == "cuda":
-        return torch.cuda.device(device)
-    return contextlib.nullcontext()
 
 
 def _copy_to(x, device, dtype=None):
@@ -356,7 +319,7 @@ class Sharded:
             k = tuple((s.start, s.stop) for s in sl)
             if k not in sources or p.device == device:
                 sources[k] = p
-        with _on(device), span("mesh.gather", nbytes=nbytes):
+        with on_device(device), span("mesh.gather", nbytes=nbytes):
             for k, p in sources.items():
                 inter = [(max(a, c), min(b, d)) for (a, b), (c, d)
                          in zip(k, want)]
@@ -549,7 +512,7 @@ def take(x, *index):
                       dtype=x.dtype, device=home)
     nbytes = out.numel() * out.element_size()
     seen = set()
-    with _on(home), span("mesh.gather", nbytes=nbytes):
+    with on_device(home), span("mesh.gather", nbytes=nbytes):
         for sl, p in x.shards():
             lo, hi = sl[0].start, sl[0].stop
             if (lo, hi) in seen:
@@ -688,124 +651,35 @@ def shard_hamiltonian(H, mesh, dtype=None):
     return out
 
 
-class _Cell:
-    """One distinct piece of `build_full`: the ERI/L ranges (r, s) of
-    nact and the W ranges (a, b) (shifted by o), on `device`, and the
-    accumulator acc[p, s', q, r'] over the columns r' and s' that cover
-    r and a, and s and b."""
-
-    def __init__(self, device, r, s, a, b, C):
-        self.device = device
-        self.r, self.s, self.a, self.b = r, s, a, b
-        self.hr = (min(r[0], a[0]), max(r[1], a[1]))
-        self.hs = (min(s[0], b[0]), max(s[1], b[1]))
-        self.C = C
-        nact = C.shape[1]
-        self.acc = torch.zeros((nact, self.hs[1] - self.hs[0], nact,
-                                self.hr[1] - self.hr[0]),
-                               dtype=torch.float64, device=device)
-
-    def add(self, X, m0):
-        """The chunk X = (m0 + m, n, l, s) of the AO ERI's part of the sum
-        over m, three quarter transforms and one GEMM."""
-        C = self.C
-        Y = torch.tensordot(X, C[:, slice(*self.hs)], dims=([3], [0]))
-        Y = torch.tensordot(Y, C, dims=([2], [0]))
-        Y = torch.tensordot(Y, C[:, slice(*self.hr)], dims=([1], [0]))
-        m = X.shape[0]
-        self.acc.view(C.shape[1], -1).addmm_(C[m0:m0 + m].T,
-                                             Y.reshape(m, -1))
-
-    def pieces(self, no, dtype):
-        """(ERI, L, W) pieces from the accumulator, cast to `dtype`; the
-        accumulator goes before L is made."""
-        acc = self.acc
-        rr = slice(self.r[0] - self.hr[0], self.r[1] - self.hr[0])
-        ss = slice(self.s[0] - self.hs[0], self.s[1] - self.hs[0])
-        aa = slice(self.a[0] - self.hr[0], self.a[1] - self.hr[0])
-        bb = slice(self.b[0] - self.hs[0], self.b[1] - self.hs[0])
-        # W[a, b, e, f] = <ef|ab> = acc[e, b, f, a]
-        W = _copy_to(acc[no:, bb, no:, aa].permute(3, 1, 0, 2),
-                     self.device, dtype)
-        E = acc[:, ss, :, rr].permute(0, 2, 3, 1).contiguous()
-        self.acc = acc = None
-        L = torch.empty_like(E)
-        torch.neg(E.transpose(0, 1), out=L)
-        L.add_(E, alpha=2.0)
-        if dtype != E.dtype:
-            E, L = E.to(dtype), L.to(dtype)
-        return E, L, W
-
-
 def build_full(src, no, mesh, dtype=None, chunk_bytes=None):
     """(ERI, L, W) of full storage, each Sharded on its layout (the
-    module's text), every piece made on its own device from
-    src (`hamiltonian.AOSource`) in one pass over the AO ERI in chunks of
-    its first index, about `chunk_bytes` a chunk (None:
-    `hamiltonian.STAGE_BYTES`).  The chunks go round the mesh's distinct
-    devices: each is copied from the host to one of them once, through
-    its `hamiltonian.Uplink` where `hamiltonian.uplink` gives one (the
-    span 'hamiltonian.h2d', its bytes, one a staged piece on the copy
-    stream; else one a chunk around the plain copy), and from there to
-    each other device, where each cell adds it to its accumulator (the
-    span 'hamiltonian.shard' on the cell's device); then each cell makes
-    its pieces (the same span) in float64, cast to `dtype` (None:
-    src.dtype)."""
-    from ..hamiltonian import STAGE_BYTES, uplink
+    module's text), every piece made on its own device from src
+    (`hamiltonian.AOSource`) by `hamiltonian.mo_eri_cells`, one cell a
+    distinct piece: the ERI/L ranges (r, s) of nact and the W ranges
+    (a, b) of v, shifted by o, on the cell's device, in chunks of about
+    `chunk_bytes` (None: `hamiltonian.STAGE_BYTES`), cast to `dtype`
+    (None: src.dtype)."""
+    from .. import hamiltonian as ham
     dtype = src.dtype if dtype is None else dtype
-    chunk_bytes = STAGE_BYTES if chunk_bytes is None else chunk_bytes
-    C = src.C.to(torch.float64)
-    nbf, nact = C.shape
+    nact = src.C.shape[1]
     nv = nact - no
     spec4, specw = (None, None, "va", "vb"), ("va", "vb", None, None)
     cells, where = {}, {}
-    Cs = {}
     for i, j, dev in mesh.cells():
         _, _, r, s = _cell_slices(mesh, spec4, (nact,) * 4, i, j)
         a, b = _cell_slices(mesh, specw, (nv,) * 4, i, j)[:2]
-        key = (dev, (r.start, r.stop), (s.start, s.stop),
-               (no + a.start, no + a.stop), (no + b.start, no + b.stop))
-        if key not in cells:
-            if dev not in Cs:
-                Cs[dev] = C.to(dev)
-            cells[key] = _Cell(*key, Cs[dev])
-        where[(i, j)] = key
-    eri = torch.as_tensor(src.ERI_ao)
-    links = {dev: uplink(dev, eri) for dev in mesh.distinct}
-    receivers = list(links)
-    step = max(1, chunk_bytes // (nbf ** 3 * eri.element_size()))
-    for k, m0 in enumerate(range(0, nbf, step)):
-        dev = receivers[k % len(receivers)]
-        part, link = eri[m0:m0 + step], links[dev]
-        if link is None:
-            with _on(dev), span("hamiltonian.h2d", nbytes=part.nbytes):
-                X = part.to(dev, torch.float64)
-        else:
-            X = link.take(part, name="hamiltonian.h2d").to(torch.float64)
-        on = {dev: X}
-        for cell in cells.values():
-            d = cell.device
-            if d not in on:
-                on[d] = X.to(d)
-            with _on(d), span("hamiltonian.shard"):
-                cell.add(on[d], m0)
-        if link is not None:
-            link.release()
-        del X, on, link
-    # the device slots go before the pieces are made
-    del links
-    made = {}
-    for key, cell in cells.items():
-        with _on(cell.device), span("hamiltonian.shard"):
-            made[key] = cell.pieces(no, dtype)
-    del cells
-    out = []
-    for k, (spec, shape) in enumerate(((spec4, (nact,) * 4),
-                                       (spec4, (nact,) * 4),
-                                       (specw, (nv,) * 4))):
-        out.append(Sharded(mesh, spec, shape,
-                           {c: made[key][k] for c, key in where.items()}))
-    return tuple(out)
+        cell = ham.Cell(dev, ((0, nact), (0, nact), (r.start, r.stop),
+                              (s.start, s.stop)), L=True,
+                        W=((no, nact), (no, nact), (no + a.start, no + a.stop),
+                           (no + b.start, no + b.stop)))
+        where[(i, j)] = cells.setdefault(cell, len(cells))
+    made = ham.mo_eri_cells(src._replace(dtype=dtype), list(cells),
+                            chunk_bytes)
+    return tuple(Sharded(mesh, spec, shape,
+                         {c: made[k][n] for c, k in where.items()})
+                 for n, (spec, shape) in enumerate(((spec4, (nact,) * 4),
+                                                    (spec4, (nact,) * 4),
+                                                    (specw, (nv,) * 4))))
 
 
 def shard_blocks(blocks, mesh, dtype=None):
@@ -873,7 +747,7 @@ def ladder_sharded(tau, W, fn):
     Wsh = W.ri if stacked else W
     on = {}
     done = []
-    with _on(tau.device), span("mesh.ladder"):
+    with on_device(tau.device), span("mesh.ladder"):
         for sl, piece in Wsh.shards():
             sa, sb = sl[-4], sl[-3]
             if sa.stop == sa.start or sb.stop == sb.start:

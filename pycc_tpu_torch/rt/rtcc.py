@@ -55,14 +55,8 @@ from ..models.ccsd import build_tau, slices
 from ..ops.contract import contract
 from ..ops.kernels.vvvv import vvvv_nt
 from ..parallel.mesh import mesh_vvvv
+from ..utils.checkpoint import host_array
 from ..utils.timing import span
-
-
-def _host(x):
-    """x as a host numpy array (a tensor copied back once)."""
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
 
 
 class rtcc:
@@ -377,7 +371,8 @@ class rtcc:
                     ret_t = pk.load(ampf)
             else:
                 ret_t = {key: None}
-            t1, t2, l1, l2, phase = (_host(x) for x in self.extract_amps(yi))
+            t1, t2, l1, l2, phase = (host_array(x)
+                                     for x in self.extract_amps(yi))
             ret_t[key] = {"t1": t1, "t2": t2, "l1": l1, "l2": l2,
                           "phase": phase}
 
@@ -392,14 +387,15 @@ class rtcc:
             ret[key] = props
             yi = y
             if chk:
-                chkp["y"] = _host(y)
+                chkp["y"] = host_array(y)
                 chkp["time"] = t
                 with open(ofile, "wb") as of:
                     pk.dump(ret, of, pk.HIGHEST_PROTOCOL)
                 with open(cfile, "wb") as cf:
                     pk.dump(chkp, cf, pk.HIGHEST_PROTOCOL)
             if save_t and (point % tchk < 0.0001):
-                t1, t2, l1, l2, _ = (_host(x) for x in self.extract_amps(y))
+                t1, t2, l1, l2, _ = (host_array(x)
+                                     for x in self.extract_amps(y))
                 ret_t[key] = {"t1": t1, "t2": t2, "l1": l1, "l2": l2}
                 with open(tfile, "wb") as ampf:
                     pk.dump(ret_t, ampf, pk.HIGHEST_PROTOCOL)

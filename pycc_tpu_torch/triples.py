@@ -32,18 +32,15 @@ the JAX versions have no counterpart here.
 import torch
 
 from .models.blocked import eri_views
+from .models.ccsd import slices
 from .models.dfccsd import whole_bvv
 from .parallel.mesh import dense
 from .ops.contract import contract
 
 
-def _slices(no):
-    return slice(0, no), slice(no, None)
-
-
 def t3_denom(F, no):
     """D[ijkabc] = f_ii + f_jj + f_kk - f_aa - f_bb - f_cc."""
-    o, v = _slices(no)
+    o, v = slices(no)
     eps = F.diagonal()
     Fo, Fv = eps[o], eps[v]
     return (Fo[:, None, None, None, None, None]
@@ -73,7 +70,7 @@ def t3c_full(Wvvvo, Wovoo, t2, F, no):
 
 def t3d_full(t1, t2, Woovv, F, no):
     """Disconnected T3 over the full index space."""
-    o, v = _slices(no)
+    o, v = slices(no)
     Fov = F[o, v]
     t3 = contract("ijab,kc->ijkabc", Woovv, t1)
     t3 += contract("ikac,jb->ijkabc", Woovv, t1)
@@ -94,7 +91,7 @@ def _swap_bc(t3):
 
 def _vikings_X(F, ERI, L, t2, t3, no):
     """X1/X2 contractions of the occupied-driven (T)."""
-    o, v = _slices(no)
+    o, v = slices(no)
     td = t3 - _swap_ac(t3)
     T = 2.0 * t3 - _swap_bc(t3) - _swap_ac(t3)
     X1 = contract("ijkabc,jkbc->ia", td, L[o, o, v, v])
@@ -109,7 +106,7 @@ def t_vikings(cc):
     no = cc.no
     F, (ERI, L) = cc.H.F, eri_views(cc)
     t1, t2 = cc.t1, cc.t2
-    o, v = _slices(no)
+    o, v = slices(no)
     t3 = t3c_full(ERI[v, v, v, o], ERI[o, v, o, o], t2, F, no)
     X1, X2 = _vikings_X(F, ERI, L, t2, t3, no)
     ET = 2.0 * contract("ia,ia->", t1, X1)
@@ -123,7 +120,7 @@ def t_vikings_inverted(cc):
     no = cc.no
     F, (ERI, L) = cc.H.F, eri_views(cc)
     t1, t2 = cc.t1, cc.t2
-    o, v = _slices(no)
+    o, v = slices(no)
     t3 = t3c_full(ERI[v, v, v, o], ERI[o, v, o, o], t2, F, no)
     td = t3 - _swap_ac(t3)
     T = 2.0 * t3 - _swap_bc(t3) - _swap_ac(t3)
@@ -146,7 +143,7 @@ def t_tjl(cc):
     no, nv = cc.no, cc.nv
     F, ERI = cc.H.F, eri_views(cc)[0]
     t1, t2 = cc.t1, cc.t2
-    o, v = _slices(no)
+    o, v = slices(no)
     dt, dev = F.dtype, F.device
 
     a_ = torch.arange(nv, device=dev)
@@ -268,7 +265,7 @@ def t3_density(cc):
     no = cc.no
     F, (ERI, L) = cc.H.F, eri_views(cc)
     t1, t2 = cc.t1, cc.t2
-    o, v = _slices(no)
+    o, v = slices(no)
     M = t3c_full(ERI[v, v, v, o], ERI[o, v, o, o], t2, F, no)
     N = t3d_full(t1, t2, ERI[o, o, v, v], F, no)
     X3 = _X3_v(M)
@@ -535,7 +532,7 @@ def scan_slices(cc):
     full ERI/L, or under storage='blocked' from the block views, as
     contiguous tensors on cc's device: (Wvvvo_o, Wovoo_t, Evovv, Eooov,
     Loovv, Fov, eps)."""
-    o, v = _slices(cc.no)
+    o, v = slices(cc.no)
     (ERI, L), F = eri_views(cc), cc.H.F
     Wvvvo_o, Wovoo_t = slab_layouts(ERI[v, v, v, o], ERI[o, v, o, o])
     return (Wvvvo_o, Wovoo_t, ERI[v, o, v, v].contiguous(),
@@ -548,7 +545,7 @@ def t_scan_df_slices(F, Boo, Bov, Bvv, no):
     consumes, assembled from Cholesky/DF factors as contiguous tensors on
     the factors' device, in the layouts `scan_slices` cuts from the full
     ERI: Dirac <pq|rs> = (pr|qs) = sum_P B[P,p,r] B[P,q,s]."""
-    o, v = _slices(no)
+    o, v = slices(no)
     Bvv = dense(Bvv)            # whole (assembled on a mesh)
     Wvvvo_o = contract("Pac,Pib->iabc", Bvv, Bov).contiguous()
     Wovoo_t = contract("Pij,Pka->jkia", Boo, Bov).contiguous()
@@ -636,7 +633,7 @@ def density_slices(cc):
     Fov, eps), cut once from the full ERI/L or the blocked views or,
     under storage='df',
     assembled from the factors (`t_scan_df_slices` and <oo|vv>)."""
-    o, v = _slices(cc.no)
+    o, v = slices(cc.no)
     if getattr(cc, "storage", "full") == "df":
         Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps = t_scan_df_slices(
             cc.H.F, *cc.dfb, cc.no)

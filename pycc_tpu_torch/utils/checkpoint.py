@@ -12,7 +12,8 @@ import numpy as np
 import torch
 
 
-def _host(x):
+def host_array(x):
+    """x as a host numpy array (a tensor copied back once)."""
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
@@ -29,7 +30,7 @@ def save_amps(path, **amps):
     tmp = path + ".tmp"
     # a file handle: np.savez_compressed appends '.npz' to a bare path
     with open(tmp, "wb") as fh:
-        np.savez_compressed(fh, **{k: _host(v) for k, v in amps.items()})
+        np.savez_compressed(fh, **{k: host_array(v) for k, v in amps.items()})
     os.replace(tmp, path)
 
 

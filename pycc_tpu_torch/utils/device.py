@@ -1,5 +1,7 @@
 """Device resolution for the port's public entry points."""
 
+import contextlib
+
 import torch
 
 
@@ -16,3 +18,11 @@ def init_device(device):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def on_device(device):
+    """A CUDA device's guard (its current stream then takes a span's
+    events), or nothing for another device."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

@@ -13,6 +13,7 @@ import contextlib
 import functools
 import importlib
 import io
+import math
 import weakref
 
 import pytest
@@ -25,7 +26,6 @@ import pycc_tpu_torch
 import pycc_tpu_torch.hamiltonian as ham
 from pycc_tpu_torch.hamiltonian import ao_source, build_hamiltonian
 from pycc_tpu_torch.parallel import Sharded, make_mesh
-from pycc_tpu_torch.parallel import mesh as mesh_mod
 from pycc_tpu_torch.parallel.mesh import build_full, split_ranges
 from pycc_tpu_torch.utils import timing
 
@@ -101,6 +101,41 @@ def test_pieces_equal_the_unsharded_build(n, chunk_bytes):
     assert W.spec == ("va", "vb", None, None)
 
 
+def _storages(kind):
+    """[(built tensor, the reference's part)] of one storage: one CPU
+    device's ERI and L, the six blocks, or a 2 x 2 CPU mesh's pieces."""
+    w, no = _wfn(), _no()
+    C = torch.as_tensor(w.Ca_subset("AO", "ACTIVE"))
+    ref = mo_eri(C, torch.as_tensor(w.ERI_ao))
+    if kind == "one-device":
+        H = build_hamiltonian(w, device="cpu")
+        return [(H.ERI, ref), (H.L, spin_adapted(ref))]
+    if kind == "blocks":
+        sl = {"o": slice(0, no), "v": slice(no, None)}
+        B = ham.mo_eri_blocks(w, device="cpu")
+        return [(b, ref[tuple(sl[c] for c in name)])
+                for name, b in zip(B._fields, B)]
+    m = _mesh()
+    v = slice(no, None)
+    out = []
+    for s, whole in zip(build_full(ao_source(w), no, m),
+                        (ref, spin_adapted(ref), ref[v, v, v, v])):
+        for i, j, _ in m.cells():
+            out.append((s.pieces[(i, j)], whole[s.cell_slices(i, j)]))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["one-device", "blocks", "mesh"])
+def test_every_storage_equals_the_reference(kind):
+    """Each storage's integrals, made by the one transform, equal the
+    plain reference's (portbench/reference/hamiltonian.mo_eri) at 1e-13
+    relative."""
+    for x, ref in _storages(kind):
+        assert x.shape == ref.shape
+        gap = float((x - ref).abs().max())
+        assert gap <= 1e-13 * float(ref.abs().max()), (kind, gap)
+
+
 def test_no_piece_is_whole():
     """No piece has the shape of a whole ERI, L or <ab|ef>: each is its
     cell's ranges, nact split 11 + 10 and v 9 + 8 on a 2 x 2 mesh."""
@@ -120,24 +155,33 @@ def test_no_piece_is_whole():
 
 def test_the_mesh_init_makes_no_host_eri(monkeypatch):
     """A mesh solver's init calls build_hamiltonian only with eri=False,
-    never runs the host MO transform, and leaves no AO source behind."""
+    runs the one MO transform (mo_eri_cells) on cells none of which is a
+    whole nact^4 tensor, and leaves no AO source behind; the one-device
+    init runs the same transform on one cell that covers every index."""
     calls, transforms = [], []
-    real_build, real_mo = ham.build_hamiltonian, ham._mo_eri_dirac
+    real_build, real_mo = ham.build_hamiltonian, ham.mo_eri_cells
 
     def spy(wfn, *a, **kw):
         calls.append((str(kw.get("device", "cuda")), kw.get("eri", True)))
         return real_build(wfn, *a, **kw)
 
-    def mo_spy(*a, **kw):
-        transforms.append(1)
-        return real_mo(*a, **kw)
+    def mo_spy(src, cells, *a, **kw):
+        transforms.append(list(cells))
+        return real_mo(src, cells, *a, **kw)
     monkeypatch.setattr(ccwfn_mod, "build_hamiltonian", spy)
-    monkeypatch.setattr(ham, "_mo_eri_dirac", mo_spy)
+    monkeypatch.setattr(ham, "mo_eri_cells", mo_spy)
     cc = _quiet(pycc_tpu_torch.ccwfn, _wfn(), device="cpu", mesh=_mesh())
-    assert calls == [("cpu", False)] and not transforms
+    nact = cc.nact
+    assert calls == [("cpu", False)] and len(transforms) == 1
+    assert len(transforms[0]) == 4
+    for cell in transforms[0]:
+        assert math.prod(hi - lo for lo, hi in cell.eri) < nact ** 4
+        assert cell.W is not None
     assert isinstance(cc.H.ERI, Sharded) and isinstance(cc.H.L, Sharded)
     _quiet(pycc_tpu_torch.ccwfn, _wfn(), device="cpu")
-    assert calls[-1] == ("cpu", True) and transforms == [1]
+    assert calls[-1] == ("cpu", True) and len(transforms) == 2
+    (cell,) = transforms[1]
+    assert cell.eri == ((0, nact),) * 4 and cell.L and cell.W is None
 
 
 def test_energy_matches_unsharded_and_the_reference():
@@ -233,12 +277,12 @@ def test_chunks_go_round_the_cards(monkeypatch):
             taken.append((self.device, x.data_ptr()))
             return super().take(x, name)
     monkeypatch.setattr(ham, "uplink", lambda dev, x: Counted(dev))
-    pieces = mesh_mod._Cell.pieces
+    pieces = ham._Cell.pieces
 
     def spy(cell, *a):
         alive.append(sum(r() is not None for r in links))
         return pieces(cell, *a)
-    monkeypatch.setattr(mesh_mod._Cell, "pieces", spy)
+    monkeypatch.setattr(ham._Cell, "pieces", spy)
     step = 2
     ERI, L, W = build_full(src, _no(), m, chunk_bytes=step * nbf ** 3 * 8)
     chunks = -(-nbf // step)
@@ -257,6 +301,28 @@ def test_chunks_go_round_the_cards(monkeypatch):
         for i, j, _ in m.cells():
             gap = (s.pieces[(i, j)] - whole[s.cell_slices(i, j)]).abs().max()
             assert gap < 1e-12
+
+
+def test_each_accumulator_goes_before_its_l(monkeypatch):
+    """A cell's accumulator is freed before its L piece is allocated, on
+    a 2 x 2 mesh (whose cells also cut W from it) and on one device: no
+    view of it outlives the pieces cut from it."""
+    current, freed = [], []
+    pieces, empty_like = ham._Cell.pieces, torch.empty_like
+
+    def spy_pieces(cell, *a):
+        current[:] = [weakref.ref(cell.acc)]
+        return pieces(cell, *a)
+
+    def spy_empty_like(x, *a, **kw):
+        if current:
+            freed.append(current[0]() is None)
+        return empty_like(x, *a, **kw)
+    monkeypatch.setattr(ham._Cell, "pieces", spy_pieces)
+    monkeypatch.setattr(torch, "empty_like", spy_empty_like)
+    build_full(ao_source(_wfn()), _no(), _mesh())
+    build_hamiltonian(_wfn(), device="cpu")
+    assert freed == [True] * 5
 
 
 def test_gather_span_bytes_equal_the_count():
