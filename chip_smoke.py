@@ -397,20 +397,17 @@ def phase_build():
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print("[build] %s: %s" % (name, line.strip()))
     # K2's shared-memory layout against its Python mirror, which the CPU
-    # tests hold to no <= 200, nv <= 900
+    # tests hold to no <= 200 (no size depends on nv)
     lib = k2._library()
-    for no, nv in ((4, 19), (24, 114), (24, 216), K2_CHUNKED, (200, 900),
-                   (4, 1400)):
+    for no in (4, 24, K2_CHUNKED[0], 200):
         for acc in (8, 4):
-            got = (lib.t_row_chunk(no, nv, acc),
-                   lib.t_row_smem_bytes(no, nv, acc))
-            want = (k2.t_row_chunk(no, nv, acc),
-                    k2.t_row_smem_bytes(no, nv, acc))
+            got = (lib.t_row_chunk(no, acc), lib.t_row_smem_bytes(no, acc))
+            want = (k2.t_row_chunk(no, acc), k2.t_row_smem_bytes(no, acc))
             if got != want:
-                raise AssertionError("K2 layout at (%d, %d) x %d B: library "
-                                     "%s, mirror %s" % (no, nv, acc, got,
-                                                        want))
-    print("[build] t_row layout = its Python mirror at 6 shapes x 2 types")
+                raise AssertionError("K2 layout at no = %d x %d B: library "
+                                     "%s, mirror %s" % (no, acc, got, want))
+    print("[build] t_row layout = its Python mirror at 4 occupied sizes x 2 "
+          "types")
     for name, _ in mods:
         mma = _sass_mma(name)
         print("[build] %s SASS tensor-core instructions: %s" % (name, mma))
@@ -559,8 +556,13 @@ def phase_k2(smi, shapes=K2_SHAPES):
             worst = dict.fromkeys(K2_OUTPUTS, 0.0)
             err = 0.0
             for i in rows:
+                pairs = t_energy_row.pairs_built
                 out = t_energy_row(i, *ops, no, stream_dtype=sd)
                 torch.cuda.synchronize()
+                if t_energy_row.pairs_built - pairs != no * (no + 1) // 2:
+                    raise AssertionError("K2 %s %s: %d pairs built a launch"
+                                         % (label, (no, nv), t_energy_row.
+                                            pairs_built - pairs))
                 ref = t_energy_row_reference(i, *ops, no, stream_dtype=sd)
                 for name, a, b in zip(K2_OUTPUTS, out, ref):
                     if a.shape != b.shape or a.dtype != b.dtype:
@@ -595,7 +597,7 @@ def phase_k2(smi, shapes=K2_SHAPES):
             bound_ms, bound_by = bound(
                 k2_work(no, nv, label),
                 k2_row_bytes(no, nv, in_bytes, acc_bytes))
-            lc = k2.t_row_chunk(no, nv, acc_bytes)
+            lc = k2.t_row_chunk(no, acc_bytes)
             print("[K2] %-20s (no,nv)=(%d,%d) %-9s rows %s  max|err|/max|ref|: "
                   "%s (tol %.0e)  row %d: kernel %.3f ms (%.2f TFLOP/s)  "
                   "bound %.3f ms (%s, %.0f%% of it)  plain %.3f ms  l chunk "
@@ -604,7 +606,7 @@ def phase_k2(smi, shapes=K2_SHAPES):
                      if len(rows) < no else "all", rels, tol, i, ms,
                      k2_row_flops(no, nv) / (ms * 1e-3) / 1e12, bound_ms,
                      bound_by, 100.0 * bound_ms / ms, plain_ms, lc,
-                     k2.t_row_smem_bytes(no, nv, acc_bytes), smi))
+                     k2.t_row_smem_bytes(no, acc_bytes), smi))
             cells[(no, nv), label] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None,
@@ -1161,9 +1163,10 @@ def phase_real_size(smi, name=REAL_SIZE):
     init = dict(seconds=t_init, peak=torch.cuda.max_memory_allocated(),
                 held=torch.cuda.memory_allocated() - base)
     vvvv_nt.launches = 0
-    t_energy_row.launches = 0
+    k2.reset_launches()
     e, t_solve = _solve(cc, 1e-10, 1e-10)
     launches = {"vvvv_nt": vvvv_nt.launches, "t_row": t_energy_row.launches}
+    pairs = t_energy_row.pairs_built
     peak = torch.cuda.max_memory_allocated()
     t_t = cc.timers.total["ccwfn.triples"]
     eccsd = float(cc.cc_energy(cc.t1, cc.t2))
@@ -1174,9 +1177,9 @@ def phase_real_size(smi, name=REAL_SIZE):
           % (wfn.energy(), abs(wfn.energy() - escf_ref), t_scf))
     print("[real] Hamiltonian + ccwfn init %.1f s  CCSD solve %.1f s  %d "
           "iterations  %.3f s/iter  (T) %.1f s  peak device memory %.2f GB  "
-          "K1 launches %d  K2 launches %d"
+          "K1 launches %d  K2 launches %d (%d (j, k) pairs built)"
           % (t_init, t_solve - t_t, cc.niter, (t_solve - t_t) / cc.niter,
-             t_t, peak / 1e9, launches["vvvv_nt"], launches["t_row"]))
+             t_t, peak / 1e9, launches["vvvv_nt"], launches["t_row"], pairs))
     print("[real] Ecorr(CCSD) = %.12f  |dE| = %.2e" % (eccsd,
                                                       abs(eccsd - eccsd_ref)))
     print("[real] E(T) = %.12f  |dE| = %.2e" % (et, abs(et - et_ref)))
@@ -1215,10 +1218,12 @@ def phase_real_size(smi, name=REAL_SIZE):
         raise AssertionError("Ecorr(CCSD) missed the frozen value")
     if not abs(et - et_ref) < 1e-9:
         raise AssertionError("E(T) missed the frozen value")
-    if launches["vvvv_nt"] < cc.niter or launches["t_row"] != cc.no:
+    if (launches["vvvv_nt"] < cc.niter or launches["t_row"] != cc.no
+            or pairs != cc.no * cc.no * (cc.no + 1) // 2):
         raise AssertionError("%d K1 launches in %d iterations, %d K2 launches "
-                             "for no = %d" % (launches["vvvv_nt"], cc.niter,
-                                              launches["t_row"], cc.no))
+                             "(%d pairs built) for no = %d"
+                             % (launches["vvvv_nt"], cc.niter,
+                                launches["t_row"], pairs, cc.no))
     # test_004's two conditions on the bf16 (T)
     if not (n16 == {"f64": 0, "f32": 0, "bf16": cc.no}
             and e16_dtype == torch.float32

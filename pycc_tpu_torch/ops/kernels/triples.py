@@ -2,16 +2,19 @@
 
 For a row i, `t_energy_row` returns the seven projections of the connected
 triples t3[i, j, k] that the (T) energy needs (X1a, X1m, Z1, Z1m, Z2a, Z2m,
-X2l; defined in `pycc_tpu_torch/csrc/t_row.cu`), and `t_row_finalize` turns
-them into the row's energy.  On CUDA tensors the projections come from the
+X2l; defined in `pycc_tpu_torch/csrc/t_row.cu`; X1a, X1m and X2l summed over
+j, the others per j), and `t_row_finalize` turns them into the row's
+energy.  On CUDA tensors the projections come from the
 hand-written kernel in `csrc/t_row.cu`, which replaces the TPU kernel
 pycc_tpu/ops/kernels/triples.py::t_energy_row_pallas and never writes t3
 to device memory; `t_energy_row_reference` beside it is the plain version,
 and CPU tensors take it.  `t_vikings_rows` is the whole (T) energy through
 them, one launch per row.
 
-Against the Pallas kernel, X1a and X1m come out as (o, v), already summed
-over the axis that its Mosaic lowering kept and `t_row_finalize` summed.
+Against the Pallas kernel, X1a and X1m come out as (v,) and X2l as
+(o, v, v): summed over j, whose weights in the energy carry no j, and X1a
+and X1m also over the axis that its Mosaic lowering kept and
+`t_row_finalize` summed.
 """
 
 import ctypes
@@ -43,9 +46,9 @@ def _library():
         _LIB = _build.load("t_row", tuple(_ENTRIES.values()),
                            [ctypes.c_int] + [p] * 17
                            + [ctypes.c_int] * 3 + [p])
-        _LIB.t_row_smem_bytes.argtypes = [ctypes.c_int] * 3
+        _LIB.t_row_smem_bytes.argtypes = [ctypes.c_int] * 2
         _LIB.t_row_smem_bytes.restype = ctypes.c_longlong
-        _LIB.t_row_chunk.argtypes = [ctypes.c_int] * 3
+        _LIB.t_row_chunk.argtypes = [ctypes.c_int] * 2
         _LIB.t_row_chunk.restype = ctypes.c_int
     return _LIB
 
@@ -55,38 +58,55 @@ def _library():
 _LC_SLOT = 89
 
 
-def t_row_layout_bytes(lc, nv, acc_bytes):
+def t_row_layout_bytes(lc, acc_bytes):
     """Bytes of the kernel's shared-memory layout (csrc/t_row.cu `Layout`)
-    for chunks of lc occupied indices: the t3 tile, the operand ring and
-    each thread's Z2 and X1 sums, the three X2l sums of the chunk
-    (192 lc), and Z1/Z1m (16 nv).  In a float64 tile the ring has three
-    stages of 64 rows (7712 elements with the rest; a k's small operands
-    and the Z1 products' partial sums ride in its slots); in a float32
-    tile two stages of 72 rows, and the partial sums and Eo, Fov and L
-    regions of their own (7160 + 24 lc elements with the rest)."""
+    for chunks of lc occupied indices: two t3 tiles, the operand ring, and
+    the four X2l sums of the chunk (256 lc).  In a float64 tile the ring
+    has three stages of 64 rows (8000 elements with the tiles; a pair's
+    small operands, of row j and of the image, and the Z1 products'
+    partial sums ride in its slots); in a float32 tile two stages of 72
+    rows, and the partial sums and the two sets of Eo, Fov and L regions
+    of their own (8624 + 48 lc elements with the rest).  No size depends
+    on nv."""
     if acc_bytes == 8:
-        return (7712 + 192 * lc + 16 * nv) * acc_bytes
-    return (7160 + 216 * lc + 16 * nv) * acc_bytes
+        return (8000 + 256 * lc) * acc_bytes
+    return (8624 + 304 * lc) * acc_bytes
 
 
-def t_row_chunk(no, nv, acc_bytes):
+def t_row_chunk(no, acc_bytes):
     """The occupied indices l that one block stages at once: all no when
     they fit in `_SMEM_BUDGET` (and, in a float64 tile, a ring slot holds
-    their Eo rows: at most 89), else the most that fit; 0 when not even
-    one does (the mirror of csrc/t_row.cu `chunk_of`)."""
+    their Eo rows: at most 89), else the most that fit (the mirror of
+    csrc/t_row.cu `chunk_of`)."""
     if acc_bytes == 8:
-        room = _SMEM_BUDGET // acc_bytes - 7712 - 16 * nv
-        return max(0, min(no, _LC_SLOT, room // 192))
-    room = _SMEM_BUDGET // acc_bytes - 7160 - 16 * nv
-    return max(0, min(no, room // 216))
+        room = _SMEM_BUDGET // acc_bytes - 8000
+        return min(no, _LC_SLOT, room // 256)
+    room = _SMEM_BUDGET // acc_bytes - 8624
+    return min(no, room // 304)
 
 
-def t_row_smem_bytes(no, nv, acc_bytes):
+def t_row_smem_bytes(no, acc_bytes):
     """Bytes of dynamic shared memory one block takes (the mirror of the
-    library's t_row_smem_bytes): past `_SMEM_BUDGET` only when
-    t_row_chunk is 0."""
-    return t_row_layout_bytes(max(t_row_chunk(no, nv, acc_bytes), 1), nv,
-                              acc_bytes)
+    library's t_row_smem_bytes)."""
+    return t_row_layout_bytes(t_row_chunk(no, acc_bytes), acc_bytes)
+
+
+def t_row_pairs(no):
+    """The (j, k) pairs, j <= k, whose t3 tiles each block of a tile builds,
+    in order (the mirror of csrc/t_row.cu's schedule): block rp owns rows
+    rp and no - 1 - rp (rp alone in the middle of an odd no), and builds
+    row rp's pairs for k from no - 1 down to rp, then row no - 1 - rp's
+    for k from no - 1 - rp up to no - 1, projecting each tile into row j
+    and its (j<->k, b<->c) image into row k.  So every unordered pair is
+    built once, and every block builds no + 1 pairs (the middle block of
+    an odd no (no + 1) / 2)."""
+    blocks = []
+    for rp in range((no + 1) // 2):
+        pairs = [(rp, k) for k in range(no - 1, rp - 1, -1)]
+        if no - 1 - rp != rp:
+            pairs += [(no - 1 - rp, k) for k in range(no - 1 - rp, no)]
+        blocks.append(pairs)
+    return blocks
 
 
 def _types(dtype, stream_dtype):
@@ -101,7 +121,8 @@ def _types(dtype, stream_dtype):
 def t_energy_row_reference(i, Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov,
                            eps, t2, no, stream_dtype=None):
     """The plain version: for each j, the (k, a, b, c) slab of t3[i, j]
-    from `triples._t3c_slab_ij`, then the seven projections by einsum.
+    from `triples._t3c_slab_ij`, then the seven projections by einsum
+    (X1a, X1m and X2l summed over j).
     stream_dtype=torch.bfloat16 rounds the streamed operands (Wv, Wo, Ev,
     Eo, L, t2) to bfloat16 and computes in float32, with Fov and eps in
     float32, as the Pallas kernel does."""
@@ -121,7 +142,8 @@ def t_energy_row_reference(i, Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov,
                      contract("kabc,kc->ab", t3, Fov),
                      contract("kabc,ka->bc", t3, Fov),
                      contract("kabc,klc->lab", T, Eo[j])))
-    return tuple(torch.stack(x) for x in zip(*rows))
+    X1a, X1m, Z1, Z1m, Z2a, Z2m, X2l = (torch.stack(x) for x in zip(*rows))
+    return X1a.sum(0), X1m.sum(0), Z1, Z1m, Z2a, Z2m, X2l.sum(0)
 
 
 def t_row_derived(Wovoo_t, Evovv, t2, stream_dtype=None):
@@ -141,7 +163,7 @@ def t_row_derived(Wovoo_t, Evovv, t2, stream_dtype=None):
 
 def t_energy_row(i, Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps, t2, no,
                  stream_dtype=None, derived=None):
-    """(X1a (o,v), X1m (o,v), Z1, Z1m, Z2a, Z2m (o,v,v), X2l (o,o,v,v)) of
+    """(X1a (v,), X1m (v,), Z1, Z1m, Z2a, Z2m (o,v,v), X2l (o,v,v)) of
     row i.  Operands of one dtype, float64 or float32; stream_dtype=None
     keeps it, float32 or bfloat16 streams them in that type (bfloat16 is
     accumulated in float32, with Fov and eps in float32).  The cast is
@@ -150,7 +172,8 @@ def t_energy_row(i, Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps, t2, no,
     the accumulate type.  CPU tensors take the plain version; CUDA tensors
     launch the kernel (`t_energy_row.launches` counts the launches,
     `t_energy_row.launches_by_stream` them by streamed type: "f64", "f32"
-    or "bf16")."""
+    or "bf16", and `t_energy_row.pairs_built` the unordered (j, k) pairs
+    whose tiles they built, no (no + 1) / 2 a launch)."""
     ops = (Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps, t2)
     if all(x.device.type == "cpu" for x in ops):
         return t_energy_row_reference(i, *ops, no, stream_dtype=stream_dtype)
@@ -178,11 +201,6 @@ def t_energy_row(i, Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps, t2, no,
         raise ValueError("t_energy_row: row %d outside [0, %d)" % (i, no))
     sd, acc = _types(Wvvvo_o.dtype, stream_dtype)
     lib = _library()
-    smem = lib.t_row_smem_bytes(no, nv, torch.finfo(acc).bits // 8)
-    if smem > _SMEM_BUDGET:
-        raise ValueError("t_energy_row: nv = %d needs %d bytes of shared "
-                         "memory a block for one occupied index (the "
-                         "kernel has %d)" % (nv, smem, _SMEM_BUDGET))
     if derived is None:
         derived = t_row_derived(Wovoo_t, Evovv, t2, stream_dtype)
     want = ((no, nv, nv, no), (no, no, nv, no), (nv, no, nv, nv))
@@ -196,8 +214,8 @@ def t_energy_row(i, Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps, t2, no,
                                              t2))
     Fa, ea = Fov.to(acc), eps.to(acc)
     outs = tuple(torch.zeros(s, dtype=acc, device=dev) for s in
-                 ((no, nv), (no, nv), (no, nv, nv), (no, nv, nv),
-                  (no, nv, nv), (no, nv, nv), (no, no, nv, nv)))
+                 ((nv,), (nv,), (no, nv, nv), (no, nv, nv),
+                  (no, nv, nv), (no, nv, nv), (no, nv, nv)))
     # two elements a copy when every staged row starts on an even element
     pair = 2 * Wv.element_size()
     vec = 2 if (no % 2 == 0 and nv % 2 == 0 and all(
@@ -214,6 +232,7 @@ def t_energy_row(i, Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps, t2, no,
                            % lib.t_row_error_string(rc).decode())
     t_energy_row.launches += 1
     t_energy_row.launches_by_stream[_STREAM_LABELS[sd]] += 1
+    t_energy_row.pairs_built += sum(map(len, t_row_pairs(no)))
     return outs
 
 
@@ -221,11 +240,14 @@ _STREAM_LABELS = {torch.float64: "f64", torch.float32: "f32",
                   torch.bfloat16: "bf16"}
 t_energy_row.launches = 0
 t_energy_row.launches_by_stream = {"f64": 0, "f32": 0, "bf16": 0}
+t_energy_row.pairs_built = 0
 
 
 def reset_launches():
-    """Set K2's launch counts (total and by streamed type) to 0."""
+    """Set K2's launch counts (total and by streamed type) and its count
+    of pairs built to 0."""
     t_energy_row.launches = 0
+    t_energy_row.pairs_built = 0
     for k in t_energy_row.launches_by_stream:
         t_energy_row.launches_by_stream[k] = 0
 
@@ -236,10 +258,10 @@ def t_row_finalize(i, outs, t1, t2w):
     X1a, X1m, Z1, Z1m, Z2a, Z2m, X2l = outs
     t1i, t2wi = t1[i].to(X1a.dtype), t2w[i].to(X1a.dtype)
     X2 = (Z1 - Z1m) + (Z2a - Z2m.swapaxes(1, 2))
-    e = 2.0 * contract("a,ja->", t1i, X1a - X1m)
+    e = 2.0 * contract("a,a->", t1i, X1a - X1m)
     e = e + contract("jab,jab->", t2wi, X2)
-    # the X2l term pairs t2w[i, l] with X2l[j, l]
-    return e - contract("lab,jlab->", t2wi, X2l)
+    # the X2l term pairs t2w[i, l] with X2l[l], summed over j
+    return e - contract("lab,lab->", t2wi, X2l)
 
 
 def t_vikings_rows(Wvvvo_o, Wovoo_t, Evovv, Eooov, Loovv, Fov, eps, t1, t2,

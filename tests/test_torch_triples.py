@@ -58,7 +58,10 @@ def test_row_projections_match_the_pallas_kernel(no, nv):
                                                    eps, t1, t2)),
         no, interpret=True)
     ref = [np.asarray(x, np.float64) for x in ref]
-    ref[0], ref[1] = ref[0].sum(axis=2), ref[1].sum(axis=2)
+    # the port's X1a, X1m and X2l are summed over j (and X1a and X1m over
+    # the axis that the Mosaic lowering kept)
+    ref[0], ref[1] = ref[0].sum(axis=(0, 2)), ref[1].sum(axis=(0, 2))
+    ref[6] = ref[6].sum(axis=0)
     out = t_energy_row_reference(
         i, *_torch((Wv, Wo, Ev, Eo, L, Fov, eps, t2), torch.float32), no)
     names = ("X1a", "X1m", "Z1", "Z1m", "Z2a", "Z2m", "X2l")

@@ -51,12 +51,13 @@ def _row_args(ops):
 def test_cpu_tensors_take_the_plain_version(stream_dtype):
     no, nv = 3, 10
     ops = _operands(no, nv)
-    launches = t_energy_row.launches
+    launches, pairs = t_energy_row.launches, t_energy_row.pairs_built
     out = t_energy_row(1, *_row_args(ops), no, stream_dtype=stream_dtype)
     ref = t_energy_row_reference(1, *_row_args(ops), no,
                                  stream_dtype=stream_dtype)
     assert t_energy_row.launches == launches
-    want = ((no, nv), (no, nv)) + ((no, nv, nv),) * 4 + ((no, no, nv, nv),)
+    assert t_energy_row.pairs_built == pairs
+    want = ((nv,), (nv,)) + ((no, nv, nv),) * 5
     assert tuple(tuple(x.shape) for x in out) == want
     acc = torch.float64 if stream_dtype is None else torch.float32
     for x, r in zip(out, ref):
@@ -112,6 +113,72 @@ def test_grouped_products_build_the_t3_slab():
         assert ((got - want).abs().max() / want.abs().max()).item() < 1e-12
 
 
+@pytest.mark.parametrize("no", [1, 2, 5, 24, 104])
+def test_schedule_builds_every_unordered_pair_once(no):
+    """csrc/t_row.cu's blocks of a tile: rows rp and no - 1 - rp, each with
+    its pairs (j, k >= j); no + 1 pairs a block, (no + 1) / 2 for the
+    middle block of an odd no."""
+    blocks = k2.t_row_pairs(no)
+    assert len(blocks) == (no + 1) // 2
+    pairs = [jk for b in blocks for jk in b]
+    assert sorted(pairs) == [(j, k) for j in range(no) for k in range(j, no)]
+    assert len(pairs) == no * (no + 1) // 2
+    for rp, b in enumerate(blocks):
+        assert len(b) == (no + 1 if 2 * rp + 1 != no else (no + 1) // 2)
+
+
+def _row_by_symmetric_build(i, Wv, Wo, Ev, Eo, L, Fov, eps, t2, no):
+    """The seven projections of row i as csrc/t_row.cu forms them: the t3
+    tile P = t3[i, j, k] (a, b, c) only for j <= k, block by block in
+    `t_row_pairs`' schedule, projected into row j as the plain version
+    does and, for j < k, its image t3[i, k, j] (a, c, b) = P into row k
+    through the kernel's relabelled sums, with the j-indexed operands in
+    place of the k-indexed ones.  X1a, X1m and X2l come out summed over
+    j, as the kernel's do."""
+    nv = t2.shape[-1]
+    z = torch.zeros
+    X1a, X1m = z(no, nv, dtype=Wv.dtype), z(no, nv, dtype=Wv.dtype)
+    Z1, Z1m, Z2a, Z2m = (z(no, nv, nv, dtype=Wv.dtype) for _ in range(4))
+    X2l = z(no, no, nv, nv, dtype=Wv.dtype)
+    G = 2.0 * Ev - Ev.swapaxes(2, 3)
+    e = torch.einsum
+    for block in k2.t_row_pairs(no):
+        for j, k in block:
+            P = triples._t3c_slab_ij(i, j, Wv, Wo, t2, eps[:no], eps[no:])[k]
+            # row j's sums over its partner k
+            X1a[j] += e("abc,bc->a", P, L[j, k])
+            X1m[j] += e("abc,ba->c", P, L[j, k])
+            Z1[j] += e("abc,dbc->ad", P, G[:, k])
+            Z1m[j] += e("abc,dba->cd", P, Ev[:, k])
+            Z2a[j] += e("abc,c->ab", P, Fov[k])
+            Z2m[j] += e("abc,a->bc", P, Fov[k])
+            Pw = 2.0 * P - P.swapaxes(1, 2) - P.swapaxes(0, 2)
+            X2l[j] += e("abc,lc->lab", Pw, Eo[j, k])
+            if j == k:
+                continue
+            # the image's, into row k
+            X1a[k] += e("abc,cb->a", P, L[k, j])
+            X1m[k] += e("abc,ca->b", P, L[k, j])
+            Z1[k] += e("abc,dcb->ad", P, G[:, j])
+            Z1m[k] += e("abc,dca->bd", P, Ev[:, j])
+            Z2a[k] += e("abc,b->ac", P, Fov[j])
+            Z2m[k] += e("abc,a->cb", P, Fov[j])
+            X2l[k] -= e("abc,lc->lab", P, Eo[k, j])
+            X2l[k] += 2.0 * e("abc,lb->lac", P, Eo[k, j])
+            X2l[k] -= e("abc,la->lbc", P, Eo[k, j])
+    return X1a.sum(0), X1m.sum(0), Z1, Z1m, Z2a, Z2m, X2l.sum(0)
+
+
+@pytest.mark.parametrize("no,nv", [(5, 7), (4, 9)])
+def test_symmetric_build_matches_the_plain_version(no, nv):
+    Wv, Wo, Ev, Eo, L, Fov, eps, t1, t2 = _operands(no, nv)
+    for i in range(no):
+        got = _row_by_symmetric_build(i, Wv, Wo, Ev, Eo, L, Fov, eps, t2, no)
+        want = t_energy_row_reference(i, Wv, Wo, Ev, Eo, L, Fov, eps, t2, no)
+        for x, r in zip(got, want):
+            assert ((x - r).abs().max() / r.abs().max()).item() < 1e-12
+
+
 @pytest.mark.parametrize("stream_dtype", [None, torch.bfloat16])
 def test_derived_operands(stream_dtype):
     no, nv = 3, 5
@@ -135,17 +202,18 @@ def test_tensors_off_cpu_and_cuda_raise():
 @pytest.mark.parametrize("dtype,stream_dtype,tol", [
     (torch.float64, None, 1e-12), (torch.float32, None, 1e-5),
     (torch.float32, torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("no,nv", [(4, 19), (7, 45), (5, 130)])
+@pytest.mark.parametrize("no,nv", [(4, 19), (7, 45), (5, 130), (3, 27)])
 def test_kernel_matches_plain_version_on_card(cuda_device, no, nv, dtype,
                                               stream_dtype, tol):
     ops = _operands(no, nv, cuda_device, dtype)
     args = _row_args(ops)
     i = no // 2
-    launches = t_energy_row.launches
+    launches, pairs = t_energy_row.launches, t_energy_row.pairs_built
     out = t_energy_row(i, *args, no, stream_dtype=stream_dtype)
     torch.cuda.synchronize()
     ref = t_energy_row_reference(i, *args, no, stream_dtype=stream_dtype)
     assert t_energy_row.launches == launches + 1
+    assert t_energy_row.pairs_built == pairs + no * (no + 1) // 2
     for x, r in zip(out, ref):
         assert x.dtype == r.dtype and x.shape == r.shape
         assert ((x - r).abs().max() / r.abs().max()).item() < tol
@@ -156,18 +224,22 @@ def test_kernel_matches_plain_version_on_card(cuda_device, no, nv, dtype,
 
 # nv off the 8-wide tiles, the 32-step build stages and the 32-d Z1
 # stages, and no = 2 (a contraction axis of 2 nv + 4); even no and nv
-# (4, 38) take the two-element copies
+# (4, 38) take the two-element copies; odd no (3, 7) give a block a
+# middle row of its own
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,stream_dtype,tol", [
     (torch.float64, None, 1e-12), (torch.float32, None, 1e-5),
     (torch.float32, torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("no,nv", [(2, 13), (2, 37), (3, 50), (4, 38)])
+@pytest.mark.parametrize("no,nv", [(2, 13), (2, 37), (3, 50), (4, 38),
+                                   (7, 29)])
 def test_kernel_ragged_tiles_and_stages_on_card(cuda_device, no, nv, dtype,
                                                 stream_dtype, tol):
     args = _row_args(_operands(no, nv, cuda_device, dtype, seed=7))
     for i in range(no):
+        pairs = t_energy_row.pairs_built
         out = t_energy_row(i, *args, no, stream_dtype=stream_dtype)
         torch.cuda.synchronize()
+        assert t_energy_row.pairs_built == pairs + no * (no + 1) // 2
         ref = t_energy_row_reference(i, *args, no, stream_dtype=stream_dtype)
         for x, r in zip(out, ref):
             assert x.dtype == r.dtype and x.shape == r.shape
@@ -223,67 +295,60 @@ def test_kernel_with_derived_operands_on_card(cuda_device, stream_dtype):
 
 
 def test_layout_fits_every_shape_up_to_200_occupied_and_900_virtual():
-    """The occupied index l is staged in chunks (csrc/t_row.cu): every
-    (no, nv) with no <= 200 and nv <= 900 fits a block's shared memory,
-    in float64 and float32 tiles, with at least one l a chunk."""
+    """The occupied index l is staged in chunks (csrc/t_row.cu), and no
+    size depends on nv: every (no, nv) with no <= 200 and nv <= 900 fits a
+    block's shared memory, in float64 and float32 tiles, with at least one
+    l a chunk."""
     for acc in (8, 4):
         for no in range(1, 201):
-            for nv in range(1, 901):
-                assert k2.t_row_chunk(no, nv, acc) >= 1
-                assert (k2.t_row_smem_bytes(no, nv, acc)
-                        <= k2._SMEM_BUDGET < k2._SMEM_MAX)
+            assert k2.t_row_chunk(no, acc) >= 1
+            assert (k2.t_row_smem_bytes(no, acc)
+                    <= k2._SMEM_BUDGET < k2._SMEM_MAX)
 
 
 def test_layout_stages_every_occupied_index_where_it_fits():
     """One chunk (the unchunked layout) wherever the whole occupied range
-    fits: (24, 114) and (24, 216) take 113152 and 126208 bytes (the
-    three-stage ring; two blocks an SM still fit at (24, 114)); (104, 20)
-    takes two chunks, of the 89 l whose Eo rows a ring slot holds."""
-    assert k2.t_row_chunk(24, 114, 8) == 24
-    assert k2.t_row_smem_bytes(24, 114, 8) == 113152
-    assert 2 * (113152 + 1024 + 1024) <= 233472      # two blocks an SM
-    assert k2.t_row_chunk(24, 216, 8) == 24
-    assert k2.t_row_smem_bytes(24, 216, 8) == 126208
-    lc = k2.t_row_chunk(104, 20, 8)
-    assert 52 <= lc < 104 and lc == k2._LC_SLOT
-    assert k2.t_row_layout_bytes(lc, 20, 8) <= k2._SMEM_BUDGET
-    # where the budget binds first: (200, 900) in float64
-    lc = k2.t_row_chunk(200, 900, 8)
-    assert lc < k2._LC_SLOT
-    assert k2.t_row_layout_bytes(lc, 900, 8) <= k2._SMEM_BUDGET
-    assert k2.t_row_layout_bytes(lc + 1, 900, 8) > k2._SMEM_BUDGET
-    # an nv with no room for even one l is refused, not mis-sized
-    assert k2.t_row_chunk(4, 1400, 8) == 0
-    assert k2.t_row_smem_bytes(4, 1400, 8) > k2._SMEM_BUDGET
+    fits: no = 24 takes 113152 bytes in float64, so two blocks an SM fit
+    at (24, 114) and (24, 216); no = 104 takes two chunks of the 81 l
+    that the budget allows."""
+    assert k2.t_row_chunk(24, 8) == 24
+    assert k2.t_row_smem_bytes(24, 8) == 113152
+    assert 2 * (113152 + 480 + 1024) <= 233472      # two blocks an SM
+    lc = k2.t_row_chunk(104, 8)
+    assert 52 <= lc < 104 and lc < k2._LC_SLOT
+    assert k2.t_row_layout_bytes(lc, 8) <= k2._SMEM_BUDGET
+    assert k2.t_row_layout_bytes(lc + 1, 8) > k2._SMEM_BUDGET
+    assert k2.t_row_chunk(200, 4) < 200
+    assert k2.t_row_layout_bytes(k2.t_row_chunk(200, 4), 4) <= k2._SMEM_BUDGET
 
 
 @pytest.mark.parametrize("no,nv", [(24, 114), (24, 216), (104, 20), (7, 45)])
 def test_float64_chunk_is_held_to_a_ring_slot(no, nv):
-    """A float64 tile keeps a k's Eo, Fov and L in the ring slot its last
-    stages free (csrc/t_row.cu Ring<true>): a chunk is at most the 89 l
-    whose Eo rows fit beside Fov and L in a slot of 64 rows of pitch 36,
-    and otherwise as large as the budget allows.  A float32 tile, whose
-    small operands have a region of their own, stages all no here."""
+    """A float64 tile keeps a pair's Eo, Fov and L, of row j and of the
+    image, in two ring slots its last stages free (csrc/t_row.cu
+    Ring<true>): a chunk is at most the 89 l whose Eo rows fit beside Fov
+    and L in a slot of 64 rows of pitch 36, and otherwise as large as the
+    budget allows.  A float32 tile, whose small operands have regions of
+    their own, stages all no here.  At these callers' shapes the chunk
+    depends on no alone."""
     assert k2._LC_SLOT == (64 * 36 - (3 * 8 + 2 * 64)) // (3 * 8)
-    lc = k2.t_row_chunk(no, nv, 8)
+    lc = k2.t_row_chunk(no, 8)
     assert 1 <= lc <= min(no, k2._LC_SLOT)
-    assert k2.t_row_layout_bytes(lc, nv, 8) <= k2._SMEM_BUDGET
+    assert k2.t_row_layout_bytes(lc, 8) <= k2._SMEM_BUDGET
     if lc < no:
         assert (lc == k2._LC_SLOT
-                or k2.t_row_layout_bytes(lc + 1, nv, 8) > k2._SMEM_BUDGET)
-    assert k2.t_row_chunk(no, nv, 4) == no
-    assert k2.t_row_layout_bytes(no, nv, 4) <= k2._SMEM_BUDGET
+                or k2.t_row_layout_bytes(lc + 1, 8) > k2._SMEM_BUDGET)
+    assert k2.t_row_chunk(no, 4) == no
+    assert k2.t_row_layout_bytes(no, 4) <= k2._SMEM_BUDGET
 
 
 @pytest.mark.cuda
 def test_layout_mirror_matches_the_library_on_card(cuda_device):
     lib = k2._library()
-    for no, nv in ((4, 19), (24, 114), (24, 216), (104, 20), (200, 900),
-                   (4, 1400)):
+    for no in (4, 24, 104, 200):
         for acc in (8, 4):
-            assert lib.t_row_chunk(no, nv, acc) == k2.t_row_chunk(no, nv, acc)
-            assert (lib.t_row_smem_bytes(no, nv, acc)
-                    == k2.t_row_smem_bytes(no, nv, acc))
+            assert lib.t_row_chunk(no, acc) == k2.t_row_chunk(no, acc)
+            assert lib.t_row_smem_bytes(no, acc) == k2.t_row_smem_bytes(no, acc)
 
 
 @pytest.mark.cuda
