@@ -16,7 +16,10 @@ angular-momentum and nabla AO integrals.
 
 Over factors (`SeededFactors`): MO factors B (naux, nact, nact) symmetric
 in their two orbital indices and the diagonal active-space MO Fock
-matrix, the input of `ccwfn.from_df_factors`.
+matrix, the input of `ccwfn.from_df_factors`; where the configuration's
+generator has `property_scale`, three symmetric (nact, nact) MO dipole
+matrices too, drawn after B from the same generator, so that B is the
+same with them or without.
 
 `generator.scale` sets the size of the two-electron integrals against
 the orbital-energy gaps, and with it how many iterations CCSD takes.
@@ -102,10 +105,11 @@ class SeededSCF:
 
 class SeededFactors:
     """MO factors B (naux, nact, nact) and the active MO Fock matrix F,
-    host numpy arrays, and the occupied count no."""
+    host numpy arrays, the occupied count no, and the MO dipole matrices
+    mu (3, nact, nact) or None."""
 
-    def __init__(self, B, F, no):
-        self.B, self.F, self.no = B, F, no
+    def __init__(self, B, F, no, mu=None):
+        self.B, self.F, self.no, self.mu = B, F, no, mu
 
 
 def make_inputs(cfg, seed, device):
@@ -152,6 +156,11 @@ def _factors(cfg, seed, device):
                     dtype=torch.float64)
     B = _sym(B)
     B *= gen["scale"] / cfg["naux"] ** 0.5
+    mu = None
+    if "property_scale" in gen:
+        mu = _host(_sym(torch.randn((3, nact, nact), generator=g,
+                                    device=device, dtype=torch.float64))
+                   * gen["property_scale"])
     eps = orbital_energies(cfg)[cfg["nfzc"]:]
     return SeededFactors(_host(B), np.diag(eps),
-                         cfg["ndocc"] - cfg["nfzc"])
+                         cfg["ndocc"] - cfg["nfzc"], mu)

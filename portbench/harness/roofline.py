@@ -39,6 +39,17 @@ def k1_ladders_rt(no, nv):
             (2 * no * no, 2 * nv * nv, nv * nv)]
 
 
+def k1_ladders_rt_df(no, nv):
+    """K1's products in one real-time CCSD right-hand side over factors:
+    the T ladder (complex tau against the complex t1-dressed W) and the
+    Lambda ladder (complex l2 against the complex Bd_ae W), each as one
+    product (2 o^2, 2 v^2, v^2): the rows of the amplitudes stacked [Re;
+    Im], and W as [Re W; Im W].  The port launches each a-block of W
+    apart; the a-blocks together are the same product, and at these
+    shapes the flops bound it, so the count of blocks does not matter."""
+    return [(2 * no * no, 2 * nv * nv, nv * nv)] * 2
+
+
 def k2_row_flops(no, nv):
     """One (T) row: o^2 v^3 t3 elements, each built with 6 (v + o) FMA and
     projected with 2 v + 3 o more."""

@@ -7,7 +7,10 @@ Set-up solves CCSD and Lambda once and makes `rtcc` under the pulse; the
 window takes integrator steps of `rtcc.f` from t = 0 and reads the dipole
 on the host after each, until its seconds have passed and the step that
 reaches the pulse's centre is done.  That step's start and end are kept
-on the host for the judge, as are the last step's.
+on the host for the judge, in two buffers made in set-up (pinned on a
+card, where the copies run on a stream of their own beside the steps, so
+that the window pays for no host copy); the last step's stay where they
+are.
 
 The judge (`judge`) holds the window's output to the plain reference:
 
@@ -42,8 +45,18 @@ from portbench.reference.hamiltonian import (FullERI, mo_property,
 from portbench.reference.rt import RT, Gaussian
 
 
-def _host(y):
-    return y.to("cpu", copy=True)
+def _keep(y, buf, stream):
+    """buf, which y is copied into: on a card by `stream` once the current
+    stream has made y, without waiting for the copy, which the window's
+    closing synchronisation waits for."""
+    if stream is None:
+        return buf.copy_(y)
+    stream.wait_stream(torch.cuda.current_stream(y.device))
+    with torch.cuda.stream(stream):
+        buf.copy_(y, non_blocking=True)
+    # y's memory is not handed out again before the copy has read it
+    y.record_stream(stream)
+    return buf
 
 
 class Runner:
@@ -57,13 +70,18 @@ class Runner:
         self.units = []
         self.window_s = None
 
+    def make(self):
+        """A ccwfn of the run's inputs (a kind over other storage, such as
+        kinds/rt_df.py, makes its own)."""
+        return pycc_tpu_torch.ccwfn(self.inputs, model=self.traffic["model"],
+                                    precision=self.precision,
+                                    device=self.device,
+                                    storage=self.cfg["storage"])
+
     def setup(self):
         t = self.traffic
         conv = t["setup_conv"]
-        cc = pycc_tpu_torch.ccwfn(self.inputs, model=t["model"],
-                                  precision=self.precision,
-                                  device=self.device,
-                                  storage=self.cfg["storage"])
+        cc = self.make()
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             cc.solve_cc(conv, conv, t["maxiter"])
@@ -77,6 +95,11 @@ class Runner:
         self.start = dict(t1=cc.t1, t2=cc.t2, l1=lam.l1, l2=lam.l2)
         self.y0 = self.rt.collect_amps(cc.t1, cc.t2, lam.l1, lam.l2, 0)
         self.ode = getattr(integrators, t["integrator"])(t["h"])
+        # the host buffers of the pulse step's start and end
+        card = self.y0.is_cuda
+        self._bufs = [torch.empty(self.y0.shape, dtype=self.y0.dtype,
+                                  pin_memory=card) for _ in range(2)]
+        self._stream = torch.cuda.Stream(self.y0.device) if card else None
         # one right-hand side and one dipole read: every shape of a step
         self.rt.f(0.0, self.y0)
         self.rt.dipole(*self.rt.extract_amps(self.y0)[:4])
@@ -100,8 +123,10 @@ class Runner:
             self.units.append(dict(t=t, mu=mu, rhs=len(ode.C)))
             if self._pulse is None and t >= center:
                 with span("keep"):
-                    self._pulse = dict(y_prev=_host(y_prev), t_prev=t_prev,
-                                       y=_host(y), mu=mu)
+                    kept = [_keep(x, buf, self._stream)
+                            for x, buf in zip((y_prev, y), self._bufs)]
+                    self._pulse = dict(y_prev=kept[0], t_prev=t_prev,
+                                       y=kept[1], mu=mu)
         sync(self.device)
         self.window_s = time.perf_counter() - t0
         self._end = dict(y_prev=y_prev, t_prev=t_prev, y=y,
@@ -117,11 +142,14 @@ class Runner:
         reaches the pulse's centre and the last step (each its start, its
         end and the dipole after it)."""
         cc = self.rt.ccwfn
-        out = dict(F=cc.H.F, ERI=cc.H.ERI, L=cc.H.L, mu=cc.H.mu, no=cc.no,
-                   h=self.ode.h, pulse=self._pulse, end=self._end,
-                   **self.start)
+        out = dict(self.hamiltonian(cc), mu=cc.H.mu, no=cc.no, h=self.ode.h,
+                   pulse=self._pulse, end=self._end, **self.start)
         self.rt = None
         return out
+
+    def hamiltonian(self, cc):
+        """What of cc's Hamiltonian the judge compares, besides mu."""
+        return dict(F=cc.H.F, ERI=cc.H.ERI, L=cc.H.L)
 
 
 def _step_numbers(ref, s, h, device):
@@ -149,9 +177,21 @@ def judge(cfg, traffic, inputs, out, device):
     Lt = spin_adapted(ERIt)
     ham = max(ham, gap(out.pop("L"), Lt))
     vvvv = ERIt[v, v, v, v].contiguous()
+    ref = RT(F, FullERI(ERIt), FullERI(Lt), vvvv, mu, no, pulse(traffic))
+    return dict(ham=ham, **judge_steps(ref, out, device))
+
+
+def pulse(traffic):
+    """The reference's field of the traffic's pulse."""
     p = traffic["pulse"]
-    V = Gaussian(p["F_str"], p["omega"], p["sigma"], p["center"])
-    ref = RT(F, FullERI(ERIt), FullERI(Lt), vvvv, mu, no, V)
+    return Gaussian(p["F_str"], p["omega"], p["sigma"], p["center"])
+
+
+def judge_steps(ref, out, device):
+    """{res0, step_pulse, mu_pulse, step, mu_gap} of the window's output
+    (see the module's text), redone by `ref` (reference/rt.RT)."""
+    no = out["no"]
+    V = ref.V
     c128 = torch.complex128
 
     # the start: the field-free right-hand side at the set-up's state
@@ -161,7 +201,7 @@ def judge(cfg, traffic, inputs, out, device):
     ref.V = None
     r = ref.split(ref.f(0.0, y0))
     ref.V = V
-    D1, D2 = rcc.denominators(F, no)
+    D1, D2 = rcc.denominators(ref.F0, no)
     res0 = norm(zip(r[:4], (D1, D2, D1, D2)))
     del r, y0
 
@@ -170,5 +210,5 @@ def judge(cfg, traffic, inputs, out, device):
     step_pulse, mu_pulse = _step_numbers(ref, out.pop("pulse"), out["h"],
                                          device)
     step, mu_gap = _step_numbers(ref, out.pop("end"), out["h"], device)
-    return dict(ham=ham, res0=res0, step_pulse=step_pulse,
-                mu_pulse=mu_pulse, step=step, mu_gap=mu_gap)
+    return dict(res0=res0, step_pulse=step_pulse, mu_pulse=mu_pulse,
+                step=step, mu_gap=mu_gap)

@@ -29,7 +29,11 @@ def matmul_nt(A, B):
 
 
 def ladder(tau, W):
-    """'ijef,abef->ijab' as one (o^2, v^2) x (v^2, v^2)^T product."""
+    """'ijef,abef->ijab' as one (o^2, v^2) x (v^2, v^2)^T product; a W
+    that is no tensor (a v^4 operand held in blocks, reference/rt_df.py)
+    takes it by its own `ladder`."""
+    if not isinstance(W, torch.Tensor):
+        return W.ladder(tau)
     no1, no2, nv, _ = tau.shape
     out = matmul_nt(tau.reshape(no1 * no2, nv * nv),
                     W.reshape(W.shape[0] * W.shape[1], nv * nv))
@@ -37,7 +41,10 @@ def ladder(tau, W):
 
 
 def ladder_left(l2, W):
-    """'ijef,efab->ijab' as one product."""
+    """'ijef,efab->ijab' as one product; a W that is no tensor by its own
+    `ladder_left`."""
+    if not isinstance(W, torch.Tensor):
+        return W.ladder_left(l2)
     no1, no2, nv, _ = l2.shape
     A = l2.reshape(no1 * no2, nv * nv)
     B = W.reshape(nv * nv, W.shape[2] * W.shape[3])

@@ -2,11 +2,33 @@
 
 `build_hbar` is rebuilt from any F (real-time CC dresses F with the
 field), so it takes F, ERI, L, vvvv and the amplitudes and returns the
-eleven blocks in a dict.  `lambda_residuals` takes that dict.
+eleven blocks in a dict.  `lambda_residuals` takes that dict.  A vvvv
+that is no tensor (reference/rt_df.py: <ab|ef> made from factors a block
+of a at a time) gives an Hvvvv of its own kind (`vvvv.hbar`), which makes
+its blocks by `hbar_vvvv` and takes Hvvvo's t1 term (`t1_term`) and the
+Lambda ladder (`ladder_left`) block by block.
 """
+
+import torch
 
 from .ccsd import build_tau, slices
 from .ein import ein, ladder_left, promote
+
+
+def hbar_vvvv(vvvv, vovv, eri_oovv, t1, tau, a=slice(None)):
+    """Hvvvv[a, b, e, f] over the range `a` of its first index, `vvvv`
+    that range of <ab|ef>."""
+    return (vvvv
+            - ein("mb,amef->abef", t1, vovv[a])
+            - ein("ma,bmfe->abef", t1[:, a], vovv)
+            + ein("mnab,mnef->abef", tau[:, :, a], eri_oovv))
+
+
+def _t1_hvvvv(t1, Hvvvv):
+    """'if,abef->abei' of t1 and Hvvvv (Hvvvo's t1 term)."""
+    if not isinstance(Hvvvv, torch.Tensor):
+        return Hvvvv.t1_term(t1)
+    return ein("if,abef->abei", t1, Hvvvv)
 
 
 def build_hbar(F, ERI, L, vvvv, t1, t2, no):
@@ -28,10 +50,10 @@ def build_hbar(F, ERI, L, vvvv, t1, t2, no):
                  + ein("ijef,mnef->mnij", tau, ERI[o, o, v, v]))
 
     vovv = ERI[v, o, v, v]
-    H["vvvv"] = (vvvv
-                 - ein("mb,amef->abef", t1, vovv)
-                 - ein("ma,bmfe->abef", t1, vovv)
-                 + ein("mnab,mnef->abef", tau, ERI[o, o, v, v]))
+    if isinstance(vvvv, torch.Tensor):
+        H["vvvv"] = hbar_vvvv(vvvv, vovv, ERI[o, o, v, v], t1, tau)
+    else:
+        H["vvvv"] = vvvv.hbar(vovv, ERI[o, o, v, v], t1, tau)
 
     H["vovv"] = vovv - ein("na,nmef->amef", t1, ERI[o, o, v, v])
     H["ooov"] = ERI[o, o, o, v] + ein("if,nmef->mnie", t1, ERI[o, o, v, v])
@@ -48,7 +70,7 @@ def build_hbar(F, ERI, L, vvvv, t1, t2, no):
 
     Hvvvo = (ERI[v, v, v, o]
              - ein("me,miab->abei", H["ov"], t2)
-             + ein("if,abef->abei", t1, H["vvvv"])
+             + _t1_hvvvv(t1, H["vvvv"])
              + ein("mnab,mnei->abei", tau, ERI[o, o, v, o])
              - ein("imfa,bmfe->abei", t2, ERI[v, o, v, v])
              - ein("imfb,amef->abei", t2, ERI[v, o, v, v])

@@ -14,7 +14,8 @@ from portbench.harness.spec import ROOT, Spec
 
 # (nbf, nfzc, ndocc): (o, v) = (4, 15) full, (4, 17) over factors
 TINY = {"h2o6_vdz": dict(nbf=20, nfzc=1, ndocc=5),
-        "h2o6_avdz_df": dict(nbf=22, nfzc=1, ndocc=5, naux=60)}
+        "h2o6_avdz_df": dict(nbf=22, nfzc=1, ndocc=5, naux=60),
+        "h2o6_avdz_full": dict(nbf=20, nfzc=1, ndocc=5)}
 SEED = 2 ** 31 + 7
 
 

@@ -5,7 +5,7 @@ Each test drives everything of a run but the command's look for a card
 one fault planted in the program: a step that returns its state
 unchanged; half of the batch left out and the rest doubled (the mean
 taken over it); an answer altered where it is produced; for real-time
-CC, the field term of the Fock matrix dropped, its sign flipped or its
+CC (on full storage and over factors), the field term of the Fock matrix dropped, its sign flipped or its
 size doubled; on a four-card cell (a mesh over the CPU), one card's
 piece of the sharded ERI scaled, and the exchange between cards left
 out: one shard's columns of the sharded ladder never copied home.
@@ -25,6 +25,7 @@ from portbench.tests.common import (MESH_CELL, add_mesh_cell, run_tiny,
                                     tiny_copy)
 
 CC_CELLS = ["h2o6_vdz.ccsd_t", "h2o6_avdz_df.ccsd", "h2o6_vdz.ccsd"]
+RT_CELLS = ["h2o6_vdz.rt", "h2o6_avdz_df.rt_df"]
 
 
 def _half_batch(r):
@@ -79,44 +80,48 @@ def test_cc_energy_altered(tiny, monkeypatch, cell):
     assert not result["correct"], numbers
 
 
-def test_rt_step_returns_state_unchanged(tiny, monkeypatch):
+@pytest.mark.parametrize("cell", RT_CELLS)
+def test_rt_step_returns_state_unchanged(tiny, monkeypatch, cell):
     monkeypatch.setattr(integrators.rk4, "__call__",
                         lambda self, f, t, y: y)
-    result, numbers = run_tiny(tiny, "h2o6_vdz.rt")
+    result, numbers = run_tiny(tiny, cell)
     assert not result["correct"], numbers
 
 
-def test_rt_half_of_the_pairs_left_out(tiny, monkeypatch):
+@pytest.mark.parametrize("cell", RT_CELLS)
+def test_rt_half_of_the_pairs_left_out(tiny, monkeypatch, cell):
     real = rtcc.lambda_residuals
 
     def half(self, *args):
         r1, r2 = real(self, *args)
         return r1, _half_batch(r2)
     monkeypatch.setattr(rtcc, "lambda_residuals", half)
-    result, numbers = run_tiny(tiny, "h2o6_vdz.rt")
+    result, numbers = run_tiny(tiny, cell)
     assert not result["correct"], numbers
 
 
-def test_rt_dipole_altered(tiny, monkeypatch):
+@pytest.mark.parametrize("cell", RT_CELLS)
+def test_rt_dipole_altered(tiny, monkeypatch, cell):
     real = rtcc.dipole
 
     def altered(self, *args, **kw):
         mu = real(self, *args, **kw)
         return (mu[0] + 1e-6,) + tuple(mu[1:])
     monkeypatch.setattr(rtcc, "dipole", altered)
-    result, numbers = run_tiny(tiny, "h2o6_vdz.rt")
+    result, numbers = run_tiny(tiny, cell)
     assert not result["correct"], numbers
 
 
+@pytest.mark.parametrize("cell", RT_CELLS)
 @pytest.mark.parametrize("scale", [0.0, -1.0, 2.0],
                          ids=["dropped", "sign-flipped", "doubled"])
-def test_rt_field_term_wrong(tiny, monkeypatch, scale):
+def test_rt_field_term_wrong(tiny, monkeypatch, scale, cell):
     """F0 + scale mu_tot V(t) in place of F0 + mu_tot V(t)."""
     def field(self, t, dtype):
         F0 = self.ccwfn.H.F.to(dtype)
         return F0 + scale * self.mu_tot.to(dtype) * float(self.V(t))
     monkeypatch.setattr(rtcc, "_field", field)
-    result, numbers = run_tiny(tiny, "h2o6_vdz.rt")
+    result, numbers = run_tiny(tiny, cell)
     assert not result["correct"], numbers
     assert numbers["step_pulse"] > 1e3 * 1e-10, numbers
 

@@ -61,3 +61,19 @@ def test_repeatable_per_seed(cfg):
     a, b, c = arrays(SEED), arrays(SEED), arrays(SEED + 1)
     assert all(np.array_equal(x, y) for x, y in zip(a, b))
     assert not np.array_equal(a[0], c[0])
+
+
+def test_df_dipoles_leave_the_factors_as_they_were():
+    """With generator.property_scale the factors also carry three
+    symmetric MO dipole matrices of that scale, drawn after B, so that B
+    and F are the same, bit for bit, with them or without."""
+    plain = make_inputs(DF, SEED, CPU)
+    gen = dict(DF["generator"], property_scale=0.5)
+    x = make_inputs(dict(DF, generator=gen), SEED, CPU)
+    assert plain.mu is None
+    assert torch.equal(torch.as_tensor(x.B), torch.as_tensor(plain.B))
+    assert torch.equal(torch.as_tensor(x.F), torch.as_tensor(plain.F))
+    assert x.mu.shape == (3, 12, 12)
+    np.testing.assert_allclose(x.mu, x.mu.transpose(0, 2, 1), atol=0)
+    other = make_inputs(dict(DF, generator=gen), SEED + 1, CPU)
+    assert not np.array_equal(x.mu, other.mu)

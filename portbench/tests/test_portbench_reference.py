@@ -22,6 +22,7 @@ from portbench.reference.hamiltonian import (FactorERI, FullERI, mo_eri,
                                              mo_fock, spin_adapted)
 from portbench.reference.lam import build_hbar, lambda_residuals
 from portbench.reference.rt import RT, Gaussian
+from portbench.reference.rt_df import factor_rt
 from portbench.tests.common import SEED, run_tiny
 
 CPU = torch.device("cpu")
@@ -144,8 +145,48 @@ def test_rt_rhs_and_dipole_agree(system):
     assert max(abs(a - b) for a, b in zip(mu_port, mu_ref)) < 1e-14
 
 
+@pytest.mark.parametrize("blk", [3, 5, 17])
+def test_factor_rt_agrees(tiny, blk):
+    """The reference over factors, its v^4 terms in blocks of `blk` a's
+    (v = 17: ragged blocks, and one block), gives the right-hand side and
+    the dipole of the full reference on the ERI assembled from the same
+    factors, and of the port's DF right-hand side, to 1e-12."""
+    x = make_inputs(tiny.config("h2o6_avdz_df"), SEED, CPU)
+    B = torch.as_tensor(x.B)
+    F = torch.as_tensor(x.F)
+    mu = [torch.as_tensor(m) for m in x.mu]
+    no = x.no
+    v = slice(no, None)
+    ERI = torch.einsum("Ppr,Pqs->pqrs", B, B)
+    pulse = (0.01, 0.3, 0.01, 0.02)
+    full = RT(F, FullERI(ERI), FullERI(spin_adapted(ERI)),
+              ERI[v, v, v, v].contiguous(), mu, no, Gaussian(*pulse))
+    fac = factor_rt(B, F, mu, no, Gaussian(*pulse), blk=blk)
+    cc = pycc_tpu_torch.ccwfn.from_df_factors(x.B, x.F, no, mu=x.mu,
+                                              device="cpu")
+    cc.solve_cc(1e-9, 1e-9)
+    lam = pycc_tpu_torch.cclambda(cc, pycc_tpu_torch.cchbar(cc))
+    lam.solve_lambda(1e-9, 1e-9)
+    rt = pycc_tpu_torch.rtcc(cc, lam, None, gaussian_laser(
+        *pulse[:3], center=pulse[3]), ladder=vvvv_nt_reference)
+    y = rt.collect_amps(cc.t1, cc.t2, lam.l1, lam.l2, 0)
+    g = torch.Generator().manual_seed(11)
+    y = y + 0.001 * torch.randn(y.shape, generator=g, dtype=F64)
+    for t in (0.0, 0.017):
+        ref = full.f(t, y)
+        assert _rel(fac.f(t, y), ref) < 1e-12
+        assert _rel(rt.f(t, y), fac.f(t, y)) < 1e-12
+    mu_fac = fac.dipole(y)
+    assert float((mu_fac - full.dipole(y)).abs().max()) < 1e-14
+    mu_port = rt.dipole(*rt.extract_amps(y)[:4])
+    assert max(abs(a - b) for a, b in zip(mu_port, mu_fac.tolist())) < 1e-14
+    y1 = fac.rk4(0.0, y, 0.01)
+    assert _rel(y1 - y, full.rk4(0.0, y, 0.01) - y) < 1e-12
+
+
 @pytest.mark.parametrize("cell", ["h2o6_vdz.ccsd_t", "h2o6_avdz_df.ccsd",
-                                  "h2o6_vdz.ccsd", "h2o6_vdz.rt"])
+                                  "h2o6_vdz.ccsd", "h2o6_vdz.rt",
+                                  "h2o6_avdz_df.rt_df"])
 def test_program_passes_and_float32_control_fails(tiny, cell):
     """The cell's own limits (limits/<cell>.json): the program in its
     configuration's float64 passes; its float32 path, the control, fails

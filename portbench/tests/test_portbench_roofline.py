@@ -29,6 +29,50 @@ def test_k1_rt_ladders_by_hand():
         == pytest.approx(11.616e-3, rel=1e-3)
 
 
+def test_k1_rt_df_ladders_by_hand():
+    # (H2O)_6/aug-cc-pVDZ over factors: two ladders, each the port's 36
+    # a-blocks of (1152, 2592, 46656) as one product
+    products = roofline.k1_ladders_rt_df(24, 216)
+    assert products == [(1152, 93312, 46656)] * 2
+    flop, nbytes = roofline.product(*products[0], 8)
+    # 36 x 4.159 ms at 67 TFLOP/s (PERF.md's K1 table): the flops bound
+    # the whole ladder as they bound each a-block
+    assert roofline.bound_s([(flop, "f64")], nbytes) \
+        == pytest.approx(36 * 4.159e-3, rel=1e-3)
+    assert nbytes / roofline.HBM_BYTES_S < 0.1 * 36 * 4.159e-3
+
+
+def test_k1_rt_df_ladders_are_the_ports_products(tiny, monkeypatch):
+    """At the tiny size, the products the port's DF right-hand sides hand
+    to K1 in the window come to k1_ladders_rt_df's flops a right-hand
+    side, however the port blocks them."""
+    import pycc_tpu_torch.models.dfhbar as dfhbar
+    from portbench.kinds import rt
+    from portbench.tests.common import run_tiny_units
+
+    flops, start = [], []
+    real = dfhbar.ladder_product
+
+    def seen(ladder, A, B, *args, **kw):
+        flops.append(2 * A.shape[0] * B.shape[0] * A.shape[1])
+        return real(ladder, A, B, *args, **kw)
+    monkeypatch.setattr(dfhbar, "ladder_product", seen)
+    real_window = rt.Runner.window
+
+    def window(self, seconds):
+        start.append(len(flops))
+        return real_window(self, seconds)
+    monkeypatch.setattr(rt.Runner, "window", window)
+    cfg = tiny.config("h2o6_avdz_df")
+    no, nv = cfg["ndocc"] - cfg["nfzc"], cfg["nbf"] - cfg["ndocc"]
+    result, _, units, _ = run_tiny_units(tiny, "h2o6_avdz_df.rt_df")
+    per_rhs = sum(2 * M * N * K
+                  for M, N, K in roofline.k1_ladders_rt_df(no, nv))
+    rhs = sum(u["rhs"] for u in units)
+    # the judge runs none of the port's code
+    assert rhs and sum(flops[start[0]:]) == per_rhs * rhs
+
+
 def test_k2_row_counts_by_hand():
     no, nv = 24, 114
     # o^2 v^3 t3 elements: build 6 (v + o) FMA, projections 2 v + 3 o

@@ -276,3 +276,61 @@ def test_peak_mem_gb_reads_the_fullest_card(monkeypatch):
     one = cellmod.Run("cc", {}, {}, [{}], 1.0, 1.0, 5e9, None)
     assert one.peak_bytes_by_card == [5e9]
     assert Spec().reader("peak_mem_gb")(one) == 5.0
+
+
+STEP_KIND = """
+import time
+
+
+class Runner:
+    def __init__(self, cfg, traffic, inputs, device, precision=None):
+        self.units, self.failed = [], 0
+
+    def setup(self):
+        pass
+
+    def window(self, seconds):
+        t0 = time.perf_counter()
+        for k in range(3):
+            self.units.append(dict(t=0.01 * (k + 1), rhs=4))
+        self.window_s = time.perf_counter() - t0
+
+    def outputs(self):
+        return {}
+
+
+def judge(cfg, traffic, inputs, out, device):
+    return {"steps_gap": 0.0}
+"""
+
+
+def test_rt_step_s_reads_any_kind_with_an_integrator(tmp_path):
+    """rt_step_s reads a run whose mix names an `integrator`, of a kind
+    added as a file (kinds/steps_only.py), as the window over its steps;
+    a run of kind 'cc' (no integrator) gives no reading."""
+    spec = tiny_copy(tmp_path)
+    bdir = tmp_path / "portbench"
+    (bdir / "kinds" / "steps_only.py").write_text(STEP_KIND)
+    (bdir / "traffic" / "steps.json").write_text(json.dumps(
+        dict(kind="steps_only", integrator="rk4", h=0.01)))
+    (bdir / "limits" / "h2o6_vdz.steps.json").write_text(json.dumps(
+        dict(steps_gap=0.0)))
+    bench = spec.bench
+    bench["workloads"].append(dict(name="h2o6_vdz.steps", config="h2o6_vdz",
+                                   traffic="steps", chips=1, why="a test"))
+    for m in bench["end_to_end"]:
+        if m["name"] == "rt_step_s":
+            m["workloads"].append("h2o6_vdz.steps")
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    spec = Spec(str(tmp_path))
+    result, rows, units, _ = run_tiny_units(spec, "h2o6_vdz.steps")
+    assert result["correct"] and len(units) == 3, rows
+    assert result["metrics"]["rt_step_s"]["value"] > 0
+    read = spec.reader("rt_step_s")
+    run = cellmod.Run("steps_only", {}, spec.traffic("steps"), units, 1.5,
+                      1.0, 0, None)
+    assert read(run) == 0.5
+    cc = cellmod.Run("cc", {}, spec.traffic("ccsd"), units, 1.5, 1.0, 0,
+                     None)
+    assert read(cc) is None
